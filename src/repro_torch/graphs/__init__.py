@@ -1,0 +1,13 @@
+from .csr import CSRGraph, degrees_from_indptr
+from .generators import (SNAP_LIKE, barabasi_albert, erdos_renyi,
+                         make_snap_like, powerlaw_cluster, zipf_graph)
+from .layout import (HybridLayout, degree_sort_permutation, map_rows_back,
+                     renumber_csr)
+from .sampling import node_sample
+
+__all__ = [
+    "CSRGraph", "degrees_from_indptr", "SNAP_LIKE", "barabasi_albert",
+    "erdos_renyi", "make_snap_like", "powerlaw_cluster", "zipf_graph",
+    "HybridLayout", "degree_sort_permutation", "map_rows_back",
+    "renumber_csr", "node_sample",
+]
