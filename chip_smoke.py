@@ -4,19 +4,34 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
 kernel against its plain PyTorch version at the main path's shapes
-(exact equality) and times both, then drives the main path — ``count``
-with ``engine="auto"`` for the six tier-1 graph patterns on the
+(exact equality) and times both, then drives the port's paths on the
 ``soc-Slashdot0811``-like graph (77,360 nodes, 1,778,854 directed edges)
-as a plain ``GraphDB`` and as a ``HybridGraphDB`` — and checks its counts:
-the cliques, 3-path and lollipops against counts made on the host with
-scipy and numpy alone, the shapes whose filters are renumbering invariant
-across the two dbs, 3-path and the 2-lollipop against ``engine="vlftj"``
-on the same db, and all six at 5% scale against the port's plain CPU
-path.  Any failure raises and exits non-zero.
+as a plain ``GraphDB`` and as a ``HybridGraphDB``, each path with the
+kernels' launch counters set to 0 just before it and read just after:
+
+* ``count`` with ``engine="auto"`` for the six tier-1 graph patterns in
+  the default ``bsearch`` check mode, on both dbs;
+* the same twelve counts with ``check_mode="auto"`` (``tile_width``
+  512), which must equal them and send rows down both the tile and the
+  binary-search path; then the plain 4-cycle in ``bsearch`` and
+  ``auto`` in turns, and its ``auto`` count profiled;
+* the 3-clique, 4-clique and 4-cycle in ``check_mode="tile"`` (width
+  2048, above the max degree) and ``"bsearch2"`` on the plain db;
+* ``stream`` of those three in ``tile`` mode, every row checked on the
+  host with numpy alone, and the factorized 3-clique.
+
+The counts are checked against counts made on the host with scipy and
+numpy alone (the cliques, 3-path and lollipops), across the two dbs
+where the filters are renumbering invariant, and 3-path and the
+2-lollipop against ``engine="vlftj"``.  At 5% scale every shape but the
+3-lollipop is enumerated on the card and on the port's plain CPU path,
+and the arrays must be identical (the 3-lollipop's 725,940,260 rows are
+too many to materialize; its counts are compared instead).  Any failure
+raises and exits non-zero.
 
 Needs one CUDA device and the rest of the repository; it imports nothing
-of JAX.  Prints one JSON line per shape, a ``kernels`` JSON line, the
-card's name and power limit, and as its last line
+of JAX.  Prints one JSON line per shape and path, a ``kernels`` JSON
+line, the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -31,8 +46,20 @@ import numpy as np
 
 SHAPES = ("3-clique", "4-clique", "4-cycle", "3-path", "2-lollipop",
           "3-lollipop")
+CYCLIC = ("3-clique", "4-clique", "4-cycle")
+#: the cyclic patterns as their edges and ``<`` filters (variable pairs),
+#: for checking streamed rows on the host
+PATTERNS = {"3-clique": ("ab ac bc", "ab bc"),
+            "4-clique": ("ab ac ad bc bd cd", "ab bc cd"),
+            "4-cycle": ("ab bc cd da", "ab bc cd")}
 DATASET, SEED, SELECTIVITY = "soc-Slashdot0811", 0, 8.0
 SMALL_SCALE = 0.05
+#: shapes enumerated at SMALL_SCALE (the 3-lollipop's output is too big)
+ENUM_SHAPES = SHAPES[:-1]
+#: check_mode="auto"'s tile width on the main path, and the tile width of
+#: the tile-only runs (at least the max degree, 1,577, so nothing is cut)
+TILE_WIDTH, FULL_TILE_WIDTH = 512, 2048
+INT32_MAX = 2 ** 31 - 1
 #: H100 SXM peaks.  HBM bytes/s from NVIDIA's data sheet.  The data sheet
 #: gives no int32 rate: its 67 TFLOP/s fp32 is 132 SMs x 128 FMA lanes x
 #: 2 FLOP x 1.98 GHz, and the CUDA C++ Programming Guide's arithmetic
@@ -81,15 +108,21 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def level_inputs(db, rng, rows: int, hubs_only: bool):
+def level_inputs(db, rng, rows: int, hubs_only: bool,
+                 max_degree: int | None = None):
     """One level-step chunk as the engine builds it: ``rows`` random
     directed edges (x, y); candidates are the shorter endpoint's segment
-    padded to the executor width, checked against the other endpoint."""
+    padded to the executor width, checked against the other endpoint.
+    ``max_degree`` keeps the edges whose endpoints both have at most that
+    degree: the rows ``check_mode="auto"`` sends down the tile path."""
     csr = db.csr
     src = np.repeat(np.arange(csr.n_nodes), csr.degrees)
     eids = np.arange(csr.indices.shape[0])
     if hubs_only:
         eids = eids[(src < db.n_hubs) & (csr.indices < db.n_hubs)]
+    if max_degree is not None:
+        eids = eids[(csr.degrees[src[eids]] <= max_degree)
+                    & (csr.degrees[csr.indices[eids]] <= max_degree)]
     e = rng.choice(eids, size=rows, replace=False)
     x, y = src[e], csr.indices[e]
     swap = csr.degrees[y] < csr.degrees[x]
@@ -130,6 +163,27 @@ def distinct_words(n_words: int, row, cand) -> int:
     import torch
     key = row.long() * n_words + (cand >> 5).long()
     return int(torch.unique(key).numel())
+
+
+def lower_bound_rounds(seg, n, q, lane_ok) -> int:
+    """Rounds of the ``while (l < h)`` lower-bound loop that the
+    intersect.cu kernels run on these inputs, summed over the lanes where
+    ``lane_ok``: each lane searches ``q`` in the first ``n[r]`` values of
+    its row of ``seg``."""
+    import torch
+    h = n.long()[:, None].expand(q.shape).clone()
+    l = torch.zeros_like(h)
+    rounds = 0
+    while True:
+        active = (l < h) & lane_ok
+        k = int(active.sum())
+        if k == 0:
+            return rounds
+        rounds += k
+        mid = (l + h) >> 1
+        right = active & (seg.gather(1, mid.clamp(0, seg.shape[1] - 1)) < q)
+        l = torch.where(right, mid + 1, l)
+        h = torch.where(active & ~right, mid, h)
 
 
 def bound(k: dict) -> dict:
@@ -247,6 +301,148 @@ def kernel_phase(T, db, hdb):
     return {name: bound(k) for name, k in out.items()}
 
 
+def kernel_phase_intersect(T, db, hdb):
+    """The tile-intersection kernels (mask and count form) and the bitset
+    AND-popcount against their plain versions on the same CUDA tensors,
+    at the main path's shapes; then all timed."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    dev = db.device
+    rng = np.random.default_rng(SEED + 1)
+    out = {}
+
+    # tile_member_mask: 2048 rows that auto sends down the tile path
+    cand, check, deg = level_inputs(db, rng, 2048, hubs_only=False,
+                                    max_degree=TILE_WIDTH)
+    indptr = db.csr.indptr
+    values = db.dev("indices")
+    m = values.shape[0]
+    q = torch.from_numpy(cand).to(dev)
+    lo = torch.from_numpy(indptr[check][:, None].astype(np.int32)).to(dev)
+    hi = torch.from_numpy(indptr[check + 1][:, None].astype(np.int32)).to(dev)
+    cw = TILE_WIDTH
+    mask = ops.tile_member_mask(values, lo, hi, q, cw)
+    torch.cuda.synchronize()
+    mask_ref = ref.tile_member_mask_ref(values, lo, hi, q, cw)
+    err = int((mask.int() - mask_ref.int()).abs().max())
+    need(err == 0, f"tile_member_mask disagrees with its plain version "
+         f"(max abs err {err})")
+    r, w = q.shape
+    # each row's staged segment, padded with INT32_MAX: the library call's
+    # sorted rows and the count form's B (gathered once, not timed)
+    n = (hi - lo)[:, 0].clamp(0, cw)
+    j2 = torch.arange(cw, device=dev)
+    segs = torch.where(j2[None] < n[:, None],
+                       values[(lo + j2[None]).clamp(0, m - 1)],
+                       INT32_MAX).to(torch.int32).contiguous()
+    library_ms = cuda_ms(lambda: torch.searchsorted(segs, q), 50)
+    staged = int(n.sum())
+    rounds = lower_bound_rounds(segs, n, q, torch.ones_like(mask))
+    out["tile_member_mask"] = dict(
+        source="src/repro_torch/csrc/intersect.cu",
+        replaces="src/repro/kernels/intersect.py:82",
+        shape=f"indices ({m},) int32, cand ({r}, {w}), check_width {cw}",
+        max_abs_err=err, found=int(mask.sum()),
+        ms=cuda_ms(lambda: ops.tile_member_mask(values, lo, hi, q, cw), 50),
+        plain_ms=cuda_ms(lambda: ref.tile_member_mask_ref(values, lo, hi, q,
+                                                          cw), 3),
+        staged_values=staged, search_rounds=rounds,
+        ops_model="6 int32 ops per search round (compare, add, shift, "
+                  "compare, 2 selects) + 4 per lane (2 compares, and, "
+                  "index) + 3 per staged value (add, 2 clamps)",
+        bytes=4 * staged + lo.nbytes + hi.nbytes + q.nbytes + mask.nbytes,
+        ops=6 * rounds + 4 * r * w + 3 * staged, library_ms=library_ms,
+        library_call="torch.searchsorted(segs, cand), segs the gathered "
+                     "INT32_MAX-padded (rows, check_width) segments")
+
+    # the mask at full width (2048) on the searchsorted chunk of
+    # kernel_phase (same seed, all rows): no segment is cut, so it must
+    # equal the binary search's ``found``
+    cand_f, check_f, _ = level_inputs(db, np.random.default_rng(SEED), 2048,
+                                      hubs_only=False)
+    q_f = torch.from_numpy(cand_f).to(dev)
+    lo_f = torch.from_numpy(indptr[check_f][:, None].astype(np.int32)).to(dev)
+    hi_f = torch.from_numpy(indptr[check_f + 1][:, None].astype(np.int32)
+                            ).to(dev)
+    full = ops.tile_member_mask(values, lo_f, hi_f, q_f, FULL_TILE_WIDTH)
+    _, found_f = ops.searchsorted_segments(values, lo_f, hi_f, q_f,
+                                           db.bsearch_iters)
+    torch.cuda.synchronize()
+    need(torch.equal(full, found_f), "tile_member_mask at full width "
+         "disagrees with searchsorted_segments")
+    out["tile_member_mask"].update(
+        full_width_ms=cuda_ms(lambda: ops.tile_member_mask(
+            values, lo_f, hi_f, q_f, FULL_TILE_WIDTH), 50),
+        full_width_staged_values=int((hi_f - lo_f).sum()))
+
+    # the count form, the Pallas kernel's contract: (2048, 2048) x (2048, 512)
+    alen = torch.from_numpy(deg).to(dev)
+    cnt = ops.intersect_count(q, alen, segs, n)
+    torch.cuda.synchronize()
+    cnt_ref = ref.intersect_count_ref(q, alen, segs, n)
+    err = int((cnt - cnt_ref).abs().max())
+    need(err == 0, f"intersect_count disagrees with its plain version "
+         f"(max abs err {err})")
+    lane_ok = torch.arange(w, device=dev)[None] < alen[:, None]
+    need(torch.equal(cnt.long(), (mask & lane_ok).sum(dim=1)),
+         "intersect_count disagrees with tile_member_mask's row sums")
+    n_valid = int(lane_ok.sum())
+    rounds = lower_bound_rounds(segs, n, q, lane_ok)
+    out["intersect_count"] = dict(
+        source="src/repro_torch/csrc/intersect.cu",
+        replaces="src/repro/kernels/intersect.py:82",
+        shape=f"a ({r}, {w}), b {tuple(segs.shape)} int32",
+        max_abs_err=err, hits=int(cnt.sum()),
+        ms=cuda_ms(lambda: ops.intersect_count(q, alen, segs, n), 50),
+        plain_ms=cuda_ms(lambda: ref.intersect_count_ref(q, alen, segs, n),
+                         3),
+        valid_lanes=n_valid, search_rounds=rounds,
+        ops_model="6 int32 ops per search round + 5 per valid A lane",
+        bytes=4 * n_valid + 4 * staged + alen.nbytes + n.nbytes + cnt.nbytes,
+        ops=6 * rounds + 5 * n_valid, library_ms=library_ms,
+        library_call="the same torch.searchsorted call")
+
+    # bitset_intersect_count: 2048 hub-hub edges' bitset rows
+    csr = hdb.csr
+    src = np.repeat(np.arange(csr.n_nodes), csr.degrees)
+    eids = np.flatnonzero((src < hdb.n_hubs) & (csr.indices < hdb.n_hubs))
+    e = rng.choice(eids, size=2048, replace=False)
+    x = torch.from_numpy(src[e].astype(np.int64)).to(dev)
+    y = csr.indices[e]
+    words = hdb.dev("bitset_words")
+    tag = hdb.dev("rep_tag")
+    aw = words[tag[x].long()].contiguous()
+    bw = words[tag[torch.from_numpy(y).to(dev)].long()].contiguous()
+    both = ops.bitset_intersect_count(aw, bw)
+    torch.cuda.synchronize()
+    both_ref = ref.bitset_intersect_count_ref(aw, bw)
+    err = int((both - both_ref).abs().max())
+    need(err == 0, f"bitset_intersect_count disagrees with its plain version "
+         f"(max abs err {err})")
+    # |N(x) ∩ N(y)| once more: y's adjacency tested in x's bitset row
+    width = max(8, 1 << (csr.max_degree - 1).bit_length())
+    idx = csr.indptr[y][:, None] + np.arange(width)[None, :]
+    ny = torch.from_numpy(csr.indices[np.clip(idx, 0, csr.indices.shape[0]
+                                              - 1)].astype(np.int32)).to(dev)
+    ny_ok = (torch.arange(width, device=dev)[None]
+             < torch.from_numpy(csr.degrees[y]).to(dev)[:, None])
+    hits = (ops.bitset_member_mask(words, tag[x], ny) & ny_ok).sum(dim=1)
+    need(torch.equal(hits, both.long()),
+         "bitset_intersect_count disagrees with bitset_member_mask")
+    out["bitset_intersect_count"] = dict(
+        source="src/repro_torch/csrc/bitset_intersect.cu",
+        replaces="src/repro/kernels/intersect_bitset.py:52",
+        shape=f"a, b {tuple(aw.shape)} int32 (rows of the "
+              f"{tuple(words.shape)} bitset matrix)",
+        max_abs_err=err, hits=int(both.sum()),
+        ms=cuda_ms(lambda: ops.bitset_intersect_count(aw, bw), 50),
+        plain_ms=cuda_ms(lambda: ref.bitset_intersect_count_ref(aw, bw), 10),
+        ops_model="3 int32 ops per word pair (and, popc, add)",
+        bytes=aw.nbytes + bw.nbytes + both.nbytes, ops=3 * aw.numel(),
+        library_ms=None, library_call="none: PyTorch has no popcount")
+    return {name: bound(k) for name, k in out.items()}
+
+
 def main_path(T, dbs):
     """``count(engine="auto")`` of the six shapes on both dbs, with the
     kernels' launch counters set to 0 just before and read just after."""
@@ -276,19 +472,176 @@ def main_path(T, dbs):
     return counts, dict(build.LAUNCHES)
 
 
-def profile_count(T, db, shape: str) -> None:
+def auto_path(T, dbs, counts):
+    """The twelve counts again with ``check_mode="auto"``: each equals the
+    ``bsearch`` count of the same db, rows go down both the tile and the
+    binary-search path, and the tile kernel is launched.  Counters are set
+    to 0 just before and read just after."""
+    import torch
+    from repro_torch.kernels import build
+    rows = {"tile_rows": 0, "bsearch_rows": 0}
+    build.reset_launches()
+    for db_name, db in dbs.items():
+        for shape in SHAPES:
+            before = dict(build.LAUNCHES)
+            t0 = time.perf_counter()
+            plan = T.plan_query(T.get_query(shape), T.GraphStats.of(db),
+                                engine="auto")
+            n, stats = T.execute_stats(plan, db, check_mode="auto",
+                                       tile_width=TILE_WIDTH)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            need(n == counts[db_name, shape],
+                 f"auto mode {db_name} {shape}: {n} != bsearch "
+                 f"{counts[db_name, shape]}")
+            for k in rows:
+                rows[k] += stats.get(k, 0)
+            log(json.dumps(dict(
+                path="auto", db=db_name, shape=shape, count=n,
+                engine=plan.engine, wall_s=wall,
+                launches={k: v - before[k] for k, v in build.LAUNCHES.items()},
+                **{k: stats.get(k, 0) for k in ("tile_rows", "bsearch_rows",
+                                                "bitset_rows")})))
+    launches = dict(build.LAUNCHES)
+    need(rows["tile_rows"] > 0 and rows["bsearch_rows"] > 0,
+         f"auto mode did not split rows both ways: {rows}")
+    need(launches["tile_member_mask"] > 0,
+         "the auto path never launched tile_member_mask")
+    return launches
+
+
+def mode_turns(T, db, shape: str = "4-cycle") -> None:
+    """``bsearch`` and ``auto`` counts of one shape in turns (bsearch,
+    auto, auto, bsearch), each with its per-level host wall, then the
+    ``auto`` count profiled."""
+    import torch
+    plan = T.plan_query(T.get_query(shape), T.GraphStats.of(db),
+                        engine="vlftj")
+    for mode in ("bsearch", "auto", "auto", "bsearch"):
+        t0 = time.perf_counter()
+        _, stats = T.execute_stats(plan, db, check_mode=mode,
+                                   tile_width=TILE_WIDTH)
+        torch.cuda.synchronize()
+        log(json.dumps(dict(turn=mode, db="plain", shape=shape,
+                            wall_s=time.perf_counter() - t0,
+                            level_wall_s=stats["level_wall_s"])))
+    profile_count(T, db, shape, check_mode="auto", tile_width=TILE_WIDTH)
+
+
+def single_modes(T, db, counts):
+    """The cyclic shapes on the plain db in ``tile`` mode (wide enough to
+    cut nothing) and in ``bsearch2`` mode, against the ``bsearch``
+    counts."""
+    import torch
+    from repro_torch.kernels import build
+    need(FULL_TILE_WIDTH >= db.max_degree, "tile width below max degree")
+    for kw in (dict(check_mode="tile", tile_width=FULL_TILE_WIDTH),
+               dict(check_mode="bsearch2")):
+        build.reset_launches()
+        for shape in CYCLIC:
+            before = dict(build.LAUNCHES)
+            t0 = time.perf_counter()
+            n = T.count(T.get_query(shape), db, engine="vlftj", **kw)
+            torch.cuda.synchronize()
+            log(json.dumps(dict(
+                path=kw["check_mode"], db="plain", shape=shape, count=n,
+                wall_s=time.perf_counter() - t0,
+                launches={k: v - before[k]
+                          for k, v in build.LAUNCHES.items()})))
+            need(n == counts["plain", shape],
+                 f"{kw}: {shape} {n} != bsearch {counts['plain', shape]}")
+
+
+def check_rows(csr, shape: str, columns, rows: np.ndarray) -> None:
+    """Streamed rows checked on the host with numpy alone: strictly
+    increasing in lexicographic order (so sorted and duplicate-free),
+    every pattern edge in the CSR and every ``<`` filter holding."""
+    if rows.shape[0] > 1:
+        d = rows[1:] - rows[:-1]
+        nz = d != 0
+        need(bool(nz.any(axis=1).all()), f"{shape}: duplicate rows")
+        first = nz.argmax(axis=1)
+        need(bool((d[np.arange(d.shape[0]), first] > 0).all()),
+             f"{shape}: rows are not lexicographically sorted")
+    n = csr.n_nodes
+    src = np.repeat(np.arange(n, dtype=np.int64), csr.degrees)
+    keys = src * n + csr.indices.astype(np.int64)     # sorted: CSR order
+    col = {v: rows[:, columns.index(v)] for v in columns}
+    edges, less = PATTERNS[shape]
+    for u, v in edges.split():
+        k = col[u] * n + col[v]
+        i = np.minimum(np.searchsorted(keys, k), keys.shape[0] - 1)
+        need(bool((keys[i] == k).all()), f"{shape}: a row misses edge {u}{v}")
+    for u, v in less.split():
+        need(bool((col[u] < col[v]).all()), f"{shape}: a row breaks {u}<{v}")
+
+
+def stream_path(T, db, counts):
+    """``stream`` of the cyclic shapes at full scale in ``tile`` mode, so
+    the final level is re-entered through the tile kernel; then the
+    factorized 3-clique.  Counters are set to 0 just before and read just
+    after."""
+    import torch
+    from repro_torch.core import engine as E
+    from repro_torch.kernels import build
+    from repro_torch.results import FactorizedResult
+    kw = dict(check_mode="tile", tile_width=FULL_TILE_WIDTH)
+    build.reset_launches()
+    streamed = {}
+    for shape in CYCLIC:
+        before = dict(build.LAUNCHES)
+        t0 = time.perf_counter()
+        cur = E.stream(T.get_query(shape), db, engine="vlftj",
+                       page_rows=4096, **kw)
+        pages = list(cur)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rows = (np.concatenate(pages) if pages
+                else np.zeros((0, len(cur.vars)), np.int64))
+        log(json.dumps(dict(
+            path="stream", db="plain", shape=shape, rows=int(rows.shape[0]),
+            wall_s=wall, cursor=cur.stats, ll_calls=cur.executor.stats[
+                "ll_calls"],
+            launches={k: v - before[k] for k, v in build.LAUNCHES.items()})))
+        need(rows.shape[0] == counts["plain", shape],
+             f"stream {shape}: {rows.shape[0]} rows != count "
+             f"{counts['plain', shape]}")
+        t0 = time.perf_counter()
+        check_rows(db.csr, shape, cur.vars, rows)
+        log(f"host row check {shape}: {time.perf_counter() - t0:.3f} s")
+        streamed[shape] = (cur.vars, rows)
+    t0 = time.perf_counter()
+    cols, rows = streamed["3-clique"]
+    fr = E.enumerate(T.get_query("3-clique"), db, engine="vlftj", order=cols,
+                     mode="factorized", **kw)
+    need(isinstance(fr, FactorizedResult), "3-clique: not factorized")
+    need(fr.count() == counts["plain", "3-clique"],
+         f"factorized 3-clique: {fr.count()} != "
+         f"{counts['plain', '3-clique']}")
+    need(np.array_equal(fr.expand(), rows),
+         "factorized 3-clique does not expand to the streamed rows")
+    log(f"factorized 3-clique: {fr.count()} rows, {fr.nbytes} bytes "
+        f"({time.perf_counter() - t0:.3f} s)")
+    launches = dict(build.LAUNCHES)
+    need(launches["tile_member_mask"] > 0,
+         "the stream path never launched tile_member_mask")
+    return launches
+
+
+def profile_count(T, db, shape: str, **kw) -> None:
     """Where one count's time goes: device time by kernel (and copy) from
     ``torch.profiler`` tracing the device only, and the device's busy and
-    idle share of the wall time, profiled and unprofiled."""
+    idle share of the wall time, profiled and unprofiled.  ``kw`` goes to
+    ``count`` (the check mode)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     query = T.get_query(shape)
     t0 = time.perf_counter()
-    T.count(query, db)
+    T.count(query, db, **kw)
     wall = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        T.count(query, db)
+        T.count(query, db, **kw)
         torch.cuda.synchronize()
         wall_profiled = time.perf_counter() - t0
 
@@ -299,7 +652,7 @@ def profile_count(T, db, shape: str) -> None:
     events = sorted(prof.key_averages(), key=device_us, reverse=True)
     busy = sum(device_us(e) for e in events) / 1e6
     log(json.dumps({
-        "profile": shape, "db": "plain", "wall_s": wall,
+        "profile": shape, "db": "plain", "count_kw": kw, "wall_s": wall,
         "wall_profiled_s": wall_profiled, "device_busy_s": busy,
         "idle_share": 1 - busy / wall, "top_device_ms": [
             [e.key[:70], device_us(e) / 1e3, e.count]
@@ -417,14 +770,38 @@ def cross_checks(T, dbs, counts):
 
 
 def small_scale(T):
-    """All six counts at 5% scale on the card and on the plain CPU path."""
-    got = {}
+    """At 5% scale, every shape but the 3-lollipop enumerated on the card
+    and on the plain CPU path (identical arrays), the 3-lollipop counted
+    on both; on the card, each enumeration's length against its count and
+    three counts against ``engine="vlftj"``."""
+    import torch
+    from repro_torch.core import engine as E
+    got, card_rows = {}, {}
     for device in ("cuda", "cpu"):
         _, db, hdb = bench_gdb(T, SMALL_SCALE, device)
         for db_name, d in (("plain", db), ("hybrid", hdb)):
             for shape in SHAPES:
-                got[device, db_name, shape] = T.count(T.get_query(shape), d)
+                t0 = time.perf_counter()
+                q = T.get_query(shape)
+                if shape not in ENUM_SHAPES:
+                    got[device, db_name, shape] = T.count(q, d)
+                    continue
+                rows = E.enumerate(q, d, mode="flat").rows
+                got[device, db_name, shape] = rows.shape[0]
+                if device == "cuda":
+                    n = T.count(q, d)
+                    need(n == rows.shape[0],
+                         f"scale {SMALL_SCALE} {db_name} {shape}: "
+                         f"{rows.shape[0]} rows != count {n}")
+                    card_rows[db_name, shape] = rows
+                else:
+                    need(np.array_equal(rows, card_rows.pop((db_name, shape))),
+                         f"scale {SMALL_SCALE} {db_name} {shape}: card and "
+                         "CPU enumerations differ")
+                log(f"enumerate {device} {db_name} {shape}: {rows.shape[0]} "
+                    f"rows ({time.perf_counter() - t0:.3f} s)")
         if device == "cuda":
+            torch.cuda.synchronize()
             for shape in ("3-path", "2-lollipop", "3-lollipop"):
                 t0 = time.perf_counter()
                 n = T.count(T.get_query(shape), db, engine="vlftj")
@@ -477,6 +854,7 @@ def main() -> int:
         f"{hdb.layout.n_words} words ({time.perf_counter() - t0:.2f} s)")
 
     kern = kernel_phase(T, db, hdb)
+    kern.update(kernel_phase_intersect(T, db, hdb))
     for name, k in kern.items():
         log(f"kernel {name}: {json.dumps(k)}")
 
@@ -491,17 +869,42 @@ def main() -> int:
     cross_checks(T, dbs, counts)
     log(f"cross-checks: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
+    auto_launches = auto_path(T, dbs, counts)
+    log(f"auto path: {time.perf_counter() - t0:.2f} s, launches "
+        f"{auto_launches}")
+    t0 = time.perf_counter()
+    mode_turns(T, db)
+    log(f"mode turns: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    single_modes(T, db, counts)
+    log(f"single modes: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    stream_launches = stream_path(T, db, counts)
+    log(f"stream path: {time.perf_counter() - t0:.2f} s, launches "
+        f"{stream_launches}")
+    t0 = time.perf_counter()
     small_scale(T)
     log(f"small scale: {time.perf_counter() - t0:.2f} s")
 
-    path_launches = {"searchsorted_segments": launches["searchsorted_segments"],
-                     "bitset_member": launches["bitset_member_mask"]}
+    # each TPU kernel once, with the launches of the path that runs it:
+    # the bsearch main path for the first two, the auto path for the tile
+    # kernel (the mask form of intersect_count_pallas; its count form is
+    # the "kernel intersect_count" line above); no path runs the bitset
+    # AND-popcount, which only the kernel router reaches
+    entries = (("searchsorted_segments", "searchsorted_segments",
+                launches["searchsorted_segments"]),
+               ("bitset_member", "bitset_member",
+                launches["bitset_member_mask"]),
+               ("intersect_count", "tile_member_mask",
+                auto_launches["tile_member_mask"]),
+               ("bitset_intersect_count", "bitset_intersect_count",
+                auto_launches["bitset_intersect_count"]))
     keys = ("source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [
-        dict(name=name, route="cuda", launches=path_launches[name],
-             **{k: kern[name][k] for k in keys})
-        for name in ("searchsorted_segments", "bitset_member")]}))
+        dict(name=name, route="cuda", launches=n,
+             **{k: kern[measured][k] for k in keys})
+        for name, measured, n in entries]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

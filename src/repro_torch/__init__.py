@@ -1,8 +1,9 @@
 """repro_torch: the PyTorch and CUDA port of ``repro`` for NVIDIA Hopper.
 
-Counts graph patterns over a CSR graph with the same planner and the same
-three device engines as the JAX package (``vlftj``, ``yannakakis``,
-``hybrid``), held against it on the same inputs: counts match exactly.
+Counts and enumerates graph patterns over a CSR graph with the same
+planner and the same three device engines as the JAX package (``vlftj``,
+``yannakakis``, ``hybrid``), held against it on the same inputs: counts
+and rows match exactly.
 
 * ``graphs/`` and the planning half of ``core/`` (query, hypergraph, gao,
   agm, plan, planner) are copies of the JAX package's numpy/scipy
@@ -14,6 +15,9 @@ three device engines as the JAX package (``vlftj``, ``yannakakis``,
 * ``kernels/`` holds the hand-written CUDA kernels (sources in
   ``csrc/``), their plain PyTorch versions, and the router that picks
   between them by the tensors' device.
+* ``results/`` holds the enumeration side: flat and factorized result
+  sets, the bounded-memory page cursor and backward expansion for the
+  message-passing engines (``core.engine.enumerate`` / ``stream``).
 * ``convert.py`` builds the port's graph databases and plans from the
   JAX package's plain arrays and fields.
 

@@ -86,16 +86,16 @@ class GraphDB:
             ids = self.unary[name]
             bm[ids[ids < self.csr.n_nodes]] = True
             return self._put(bm, torch.bool)
-        if key.startswith("summary:"):
-            raise NotImplementedError(
-                "summary:<s> serves check_mode='bsearch2', which waits for "
-                "ROADMAP.md open item 'tile/auto/bsearch2 check modes with "
-                "intersect_count'")
+        if key.startswith("summary:"):  # every s-th index (bsearch2)
+            stride = int(key.split(":", 1)[1])
+            return self._put(
+                np.ascontiguousarray(self.csr.indices[::stride]), torch.int32)
         raise KeyError(key)
 
     def dev(self, key: str) -> torch.Tensor:
         """The device tensor for ``key`` (``indptr``, ``indices``,
-        ``src_ids``, ``bitmap:<u>``), built on first use."""
+        ``src_ids``, ``summary:<s>``, ``bitmap:<u>``), built on first
+        use."""
         v = self._dev.get(key)
         if v is None:
             v = self._dev[key] = self._build(key)

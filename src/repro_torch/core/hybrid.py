@@ -80,3 +80,25 @@ class HybridJoin:
         out = engine.seeded_count(seeds, msg[seeds])
         self._absorb_core_stats(engine)
         return out
+
+    def enumerate(self, limit: int | None = None) -> np.ndarray:
+        """Full-binding enumeration: int64 tuples, columns in
+        ``self.output_vars`` (core GAO first, then tree variables), rows
+        lex-sorted; ``limit`` truncates after the ordering.  The tree
+        part is expanded backward behind each core attachment value —
+        see ``repro_torch.results.backward.hybrid_rows``."""
+        from ..results.backward import hybrid_rows
+        rows, _ = hybrid_rows(self)
+        if rows.shape[0] > 1:
+            rows = rows[np.lexsort(rows.T[::-1])]
+        return rows if limit is None else rows[:limit]
+
+    @property
+    def output_vars(self) -> tuple[str, ...]:
+        """Column order of :meth:`enumerate`."""
+        d = self.join_plan.decomposition
+        if d is None:
+            return (self._core_plan.gao if self._core_plan is not None
+                    else tuple(self.query.variables))
+        return d.core_gao + tuple(v for v in d.tree_query.variables
+                                  if v != d.attachment)

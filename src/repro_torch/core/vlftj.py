@@ -6,11 +6,16 @@ A *frontier* of partial bindings advances one GAO level per step:
      the row's bound edge-neighbors (the leapfrog "smallest iterator
      first" rule, chosen per row with vector ops);
   2. **candidates**: the probe segment's values, a (rows, W) padded tile;
-  3. **checks**: every other edge constraint via segmented binary search
-     (the ``searchsorted_segments`` kernel) or, for rows whose bound
-     sources are all hubs of a :class:`HybridGraphDB`, a bitset bit test
-     (the ``bitset_member_mask`` kernel); every unary predicate via
-     bitmap gather, every ``<`` filter via vector compare;
+  3. **checks**: every other edge constraint, by the row's check mode:
+     segmented binary search (``bsearch``, the ``searchsorted_segments``
+     kernel), its two-level form over a ``summary:<s>`` array
+     (``bsearch2``), a gather-once tile compare of the check segment
+     (``tile``, the ``tile_member_mask`` kernel), or, for rows whose
+     bound sources are all hubs of a :class:`HybridGraphDB`, a bitset
+     bit test (``bitset``, the ``bitset_member_mask`` kernel); ``auto``
+     sends rows whose check segments fit ``tile_width`` to ``tile`` and
+     the heavy tail to ``bsearch``.  Every unary predicate is a bitmap
+     gather, every ``<`` filter a vector compare;
   4. **expand**: compact the surviving lanes into the next frontier.
 
 The structure is the reference's: the level step runs on ``gdb.device``
@@ -20,10 +25,13 @@ group's frontier goes to the device once, chunks are sliced there, and
 survivors are compacted there, so only the next frontier comes back.
 The final level of a count never materializes: surviving candidates are
 counted and dotted with row multiplicities, summed on the device.
-Counts are int64 throughout.
+Enumeration re-enters the final level chunk by chunk
+(:meth:`VLFTJ.last_level_counts`, :meth:`VLFTJ.last_level_extensions`),
+which ``results/`` pages through.  Counts are int64 throughout.
 """
 from __future__ import annotations
 
+import math
 import time
 
 import numpy as np
@@ -35,17 +43,15 @@ from .plan import (GraphStats, JoinPlan, LevelPlan, compile_levels,
                    executor_geometry)
 from .query import Query
 
-#: ROADMAP item that the unported check modes and final-level re-entry
-#: points wait for
-_MODES_ITEM = ("ROADMAP.md open item 'tile/auto/bsearch2 check modes "
-               "with intersect_count'")
-_RESULTS_ITEM = "ROADMAP.md open item 'results/'"
+CHECK_MODES = ("bsearch", "bsearch2", "tile", "auto")
 
 
 def _expand_level(indptr, indices, bitmaps, frontier, mult, row_valid, *,
                   probe_cols, n_unary, lower_cols, upper_cols, width, n_iter,
                   count_only, needs_degree, check_mode="bsearch",
-                  rotate_checks=False, rep_tag=None, bitset_words=None):
+                  check_width=0, rotate_checks=False, summary=None,
+                  summary_stride=128, n_iter2=9, rep_tag=None,
+                  bitset_words=None):
     """One GAO level for a frontier chunk.
 
     frontier: (C, n_bound) int32; mult: (C,) int64; row_valid: (C,) bool,
@@ -56,6 +62,12 @@ def _expand_level(indptr, indices, bitmaps, frontier, mult, row_valid, *,
     the chunk is a hub, so membership is one gather into its
     ``bitset_words`` row plus a bit test; ``rep_tag`` maps vertex id to
     bitset row (the caller's bucketing guarantees tags >= 0 here).
+    ``'tile'``: the check segment is gathered once and every lane is
+    compared with its first ``check_width`` values (the caller buckets
+    rows so that segments fit, or accepts the truncation).
+    ``'bsearch2'``: a first search over ``summary`` (every
+    ``summary_stride``-th index, ``n_iter`` rounds), then ``n_iter2``
+    rounds in the window it leaves.
     """
     m = indices.shape[0]
     dev = frontier.device
@@ -91,8 +103,16 @@ def _expand_level(indptr, indices, bitmaps, frontier, mult, row_valid, *,
         else:
             lo = indptr[y][:, None]
             hi = indptr[y + 1][:, None]
-            _, found = kops.searchsorted_segments(indices, lo, hi, cand,
-                                                  n_iter)
+            if check_mode == "tile":
+                found = kops.tile_member_mask(indices, lo, hi, cand,
+                                              check_width)
+            elif check_mode == "bsearch2":
+                _, found = kops.searchsorted_segments_2level(
+                    indices, summary, lo, hi, cand, stride=summary_stride,
+                    n1=n_iter, n2=n_iter2)
+            else:
+                _, found = kops.searchsorted_segments(indices, lo, hi, cand,
+                                                      n_iter)
         if ci is None:
             keep &= found
         else:
@@ -138,13 +158,13 @@ class VLFTJ:
                  elem_budget: int = 1 << 22,
                  width: int | None = None,
                  check_mode: str = "bsearch",
+                 tile_width: int = 512,
                  rotate_checks: bool = False,
+                 summary_stride: int = 128,
                  plan: JoinPlan | None = None):
-        if check_mode in ("tile", "auto", "bsearch2"):
-            raise NotImplementedError(
-                f"check_mode={check_mode!r} waits for {_MODES_ITEM}")
-        if check_mode != "bsearch":
-            raise ValueError(f"unknown check_mode {check_mode!r}")
+        if check_mode not in CHECK_MODES:
+            raise ValueError(f"unknown check_mode {check_mode!r}; "
+                             f"options: {CHECK_MODES}")
         if plan is None:
             from .planner import plan_query
             plan = plan_query(query, GraphStats.of(gdb), engine="vlftj",
@@ -159,7 +179,19 @@ class VLFTJ:
         self.n_iter = gdb.bsearch_iters
         self.width, self.chunk_rows = executor_geometry(
             gdb.max_degree, chunk_rows, elem_budget, width)
+        # membership strategy: 'bsearch' (binary search), 'bsearch2' (its
+        # two-level form), 'tile' (gather-once tile compare of the first
+        # tile_width values of each check segment), 'auto' (rows whose
+        # check segments fit tile_width take 'tile', the rest 'bsearch')
+        self.check_mode = check_mode
+        self.tile_width = tile_width
         self.rotate_checks = rotate_checks
+        self.summary_stride = summary_stride
+        if check_mode == "bsearch2":
+            blocks = max(2, gdb.max_degree // summary_stride + 2)
+            self.n_iter1 = int(math.ceil(math.log2(blocks))) + 1
+            self.n_iter2 = int(math.ceil(math.log2(2 * summary_stride
+                                                     + 2))) + 1
         # hybrid-layout routing: the planner's per-level representation
         # choice is honoured only when the GraphDB carries a bitset layout
         # (hubs occupy the renumbered id prefix)
@@ -171,9 +203,9 @@ class VLFTJ:
         # the reference's stats namespace, key for key: scalar counters
         # plus per-GAO-level observations (level_rows: frontier size after
         # the level binds; level_wall_s: host wall time in the level;
-        # level_paths: rows per check path).  tile_rows, bsearch_rows,
-        # ll_compiles and ll_calls belong to the unported 'auto' mode and
-        # final-level re-entry, and stay 0.
+        # level_paths: rows per check path).  ll_compiles stays 0: eager
+        # PyTorch compiles nothing per frontier shape, so there is no
+        # ahead-of-time cache for the final level to fill.
         self.stats = {"chunks": 0, "frontier_peak": 0, "candidates": 0,
                       "tile_rows": 0, "bsearch_rows": 0, "bitset_rows": 0,
                       "ll_compiles": 0, "ll_calls": 0, "rows_expanded": 0,
@@ -217,12 +249,15 @@ class VLFTJ:
         return nf, mult[reps], 0
 
     def _bucket(self, frontier, mult, lp, layout: str = "array"):
-        """Bucket rows by membership strategy (hybrid layout).
+        """Bucket rows by membership strategy: representation tags first
+        (hybrid layout), then degree (``check_mode='auto'``).
 
         When the plan marked this level ``'bitset'``/``'mixed'`` and the
         graph carries a layout, rows whose bound edge sources are *all*
-        hubs take the bitset path; the rest take binary search.  Hubs are
-        the renumbered id prefix, so the tag test is one compare.
+        hubs take the bitset path; the rest take the configured array
+        strategy.  Hubs are the renumbered id prefix, so the tag test is
+        one compare.  Under ``'auto'``, rows whose bound sources all have
+        degree <= ``tile_width`` take ``'tile'``, the rest ``'bsearch'``.
         """
         out = []
         if (layout != "array" and self._n_hubs and lp.edge_sources
@@ -236,7 +271,20 @@ class VLFTJ:
                 frontier, mult = frontier[rest], mult[rest]
             if frontier.shape[0] == 0:
                 return out
-        return out + [(frontier, mult, "bsearch")]
+        if self.check_mode != "auto" or not lp.edge_sources:
+            mode = (self.check_mode if self.check_mode in
+                    ("tile", "bsearch2") else "bsearch")
+            return out + [(frontier, mult, mode)]
+        deg = self.gdb.csr.degrees
+        maxdeg = np.max(deg[frontier[:, list(lp.edge_sources)]], axis=1)
+        tile = maxdeg <= self.tile_width
+        self.stats["tile_rows"] += int(tile.sum())
+        self.stats["bsearch_rows"] += int((~tile).sum())
+        if tile.any():
+            out.append((frontier[tile], mult[tile], "tile"))
+        if (~tile).any():
+            out.append((frontier[~tile], mult[~tile], "bsearch"))
+        return out
 
     # -- main loop -----------------------------------------------------------
     def _run(self, count_only: bool = True, frontier: np.ndarray | None = None,
@@ -313,6 +361,7 @@ class VLFTJ:
             for gfrontier, gmult, mode in groups:
                 gf = torch.from_numpy(np.ascontiguousarray(gfrontier)).to(dev)
                 gm = torch.from_numpy(np.ascontiguousarray(gmult)).to(dev)
+                kw = self._level_kw(lp, len(bitmaps), mode)
                 for s in range(0, gf.shape[0], self.chunk_rows):
                     e = min(gf.shape[0], s + self.chunk_rows)
                     # pad a partial chunk only to the next power of two:
@@ -323,16 +372,6 @@ class VLFTJ:
                     fchunk = _pad_rows(gf[s:e], crows)
                     mchunk = _pad_rows(gm[s:e], crows)
                     rv = torch.arange(crows, device=dev) < (e - s)
-                    kw = dict(probe_cols=lp.edge_sources,
-                              n_unary=len(bitmaps), lower_cols=lp.lower,
-                              upper_cols=lp.upper, width=self.width,
-                              n_iter=self.n_iter,
-                              needs_degree=lp.needs_degree,
-                              check_mode=mode,
-                              rotate_checks=self.rotate_checks)
-                    if mode == "bitset":
-                        kw.update(rep_tag=gdb.dev("rep_tag"),
-                                  bitset_words=gdb.dev("bitset_words"))
                     self.stats["chunks"] += 1
                     self.stats["candidates"] += crows * self.width
                     args = (indptr, indices, bitmaps, fchunk, mchunk, rv)
@@ -373,17 +412,102 @@ class VLFTJ:
             return int(mult.sum())
         return frontier
 
-    # -- final-level re-entry (results/ slice) -------------------------------
-    def last_level_counts(self, frontier, row_valid=None):
-        raise NotImplementedError(f"last_level_counts waits for {_RESULTS_ITEM}")
+    def _level_kw(self, lp: LevelPlan, n_unary: int, mode: str) -> dict:
+        """The level step's keywords for one check mode."""
+        kw = dict(probe_cols=lp.edge_sources, n_unary=n_unary,
+                  lower_cols=lp.lower, upper_cols=lp.upper, width=self.width,
+                  n_iter=self.n_iter, needs_degree=lp.needs_degree,
+                  check_mode=mode,
+                  check_width=self.tile_width if mode == "tile" else 0,
+                  rotate_checks=self.rotate_checks)
+        if mode == "bsearch2":
+            kw.update(n_iter=self.n_iter1, n_iter2=self.n_iter2,
+                      summary=self.gdb.dev(f"summary:{self.summary_stride}"),
+                      summary_stride=self.summary_stride)
+        elif mode == "bitset":
+            kw.update(rep_tag=self.gdb.dev("rep_tag"),
+                      bitset_words=self.gdb.dev("bitset_words"))
+        return kw
 
-    def last_level_extensions(self, frontier, row_valid=None):
-        raise NotImplementedError(
-            f"last_level_extensions waits for {_RESULTS_ITEM}")
+    # -- enumeration support -------------------------------------------------
+    def last_level_counts(self, frontier: np.ndarray,
+                          row_valid: np.ndarray | None = None) -> np.ndarray:
+        """Surviving final-level extension counts per penultimate-frontier
+        row (unit multiplicity), (C,) int64 — the cheap pass the cursor
+        sizes its expansion chunks by.  Same constraints as
+        :meth:`last_level_extensions`."""
+        lp = self.plan[-1]
+        frontier = np.asarray(frontier, dtype=np.int32)
+        C = frontier.shape[0]
+        if row_valid is None:
+            row_valid = np.ones(C, dtype=bool)
+        if C == 0:
+            return np.zeros(0, dtype=np.int64)
+        if not lp.edge_sources:
+            counts, _ = self.last_level_extensions(frontier, row_valid)
+            return counts
+        return self._final_level_call(frontier, row_valid, count_only=True)
 
-    def _final_level_call(self, frontier, row_valid, count_only):
-        raise NotImplementedError(
-            f"_final_level_call waits for {_RESULTS_ITEM}")
+    def last_level_extensions(self, frontier: np.ndarray,
+                              row_valid: np.ndarray | None = None
+                              ) -> tuple[np.ndarray, np.ndarray]:
+        """Surviving final-level extensions for one penultimate-frontier
+        chunk: ``(counts (C,), values (counts.sum(),))``, both int64, each
+        row's values ascending (CSR adjacencies are sorted).  The check
+        mode is the executor's, except that ``'auto'`` runs as
+        ``'bsearch'``: its degree bucketing reorders rows, which would
+        break the row-aligned counts the cursor pages by."""
+        lp = self.plan[-1]
+        frontier = np.asarray(frontier, dtype=np.int32)
+        C = frontier.shape[0]
+        if row_valid is None:
+            row_valid = np.ones(C, dtype=bool)
+        if C == 0:
+            return (np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.int64))
+        if not lp.edge_sources:
+            # dense level: per-row cross product with the sorted domain
+            values = np.sort(self._domain_values(lp))
+            counts = np.zeros(C, dtype=np.int64)
+            out: list[np.ndarray] = []
+            for r in range(C):
+                if not row_valid[r]:
+                    continue
+                vals = values
+                for col in lp.lower:
+                    vals = vals[vals > frontier[r, col]]
+                for col in lp.upper:
+                    vals = vals[vals < frontier[r, col]]
+                counts[r] = vals.shape[0]
+                out.append(vals)
+            flat = (np.concatenate(out) if out
+                    else np.zeros(0, dtype=np.int64))
+            return counts, flat.astype(np.int64)
+        return self._final_level_call(frontier, row_valid, count_only=False)
+
+    def _final_level_call(self, frontier: np.ndarray, row_valid: np.ndarray,
+                          count_only: bool):
+        """Run the final level for one frontier chunk on the device:
+        per-row counts (C,) int64 if ``count_only``, else ``(counts,
+        values)`` with the surviving values compacted on the device in
+        row-major order.  ``ll_calls`` counts these calls."""
+        lp = self.plan[-1]
+        gdb = self.gdb
+        dev = gdb.device
+        bitmaps = tuple(gdb.dev(f"bitmap:{u}") for u in lp.unary)
+        mode = self.check_mode if self.check_mode in ("tile", "bsearch2") \
+            else "bsearch"
+        C = frontier.shape[0]
+        args = (gdb.dev("indptr"), gdb.dev("indices"), bitmaps,
+                torch.from_numpy(np.ascontiguousarray(frontier)).to(dev),
+                torch.ones(C, dtype=torch.int64, device=dev),
+                torch.from_numpy(np.ascontiguousarray(row_valid)).to(dev))
+        self.stats["ll_calls"] += 1
+        kw = self._level_kw(lp, len(bitmaps), mode)
+        if count_only:
+            return _expand_level(*args, count_only=True, **kw).cpu().numpy()
+        cand, keep = _expand_level(*args, count_only=False, **kw)
+        counts = keep.sum(dim=1, dtype=torch.int64)
+        return counts.cpu().numpy(), cand[keep].to(torch.int64).cpu().numpy()
 
     # -- public API ----------------------------------------------------------
     def count(self) -> int:

@@ -8,9 +8,15 @@ where ``A @ c`` is a CSR gather plus ``index_add_`` in int64 (one SpMV per
 query edge); the root vector's sum is the count.  The SpMV is plain
 PyTorch: the JAX package computes it with ``segment_sum``, not a Pallas
 kernel.
+
+For enumeration the same messages act as semijoin filters
+(:meth:`CountingYannakakis.semijoin_reduce`): a value stays active iff
+every message into it is nonzero, and the reduced domains guide a
+vectorized-LFTJ descent (``results/backward.py``).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .device_graph import GraphDB
@@ -89,6 +95,14 @@ class CountingYannakakis:
         if root is None and plan is not None and plan.root is not None:
             root = plan.root
         self.root = root or query.variables[0]
+        # enumeration column order: the plan's GAO covers every variable
+        # (yannakakis plans carry choose_gao(query)); plan-free
+        # construction derives the same order directly
+        if plan is not None and set(plan.gao) == set(query.variables):
+            self.gao = plan.gao
+        else:
+            from .gao import choose_gao
+            self.gao = choose_gao(query)
         # spmvs is the native counter; rows_expanded / level_rows follow
         # the reference's stats schema (every SpMV propagates one message
         # over the n_nodes id domain; the root tally is the one frontier)
@@ -149,3 +163,62 @@ class CountingYannakakis:
     def count(self) -> int:
         c_root = self.message_to_root()
         return int(c_root.sum()) * self._cross_factor
+
+    def semijoin_reduce(self) -> dict[str, np.ndarray]:
+        """Active-value masks per variable after full semijoin reduction
+        (upward + downward passes), as host bool arrays — the
+        enumeration prefilter."""
+        indices = self.gdb.dev("indices")
+        src_ids = self.gdb.dev("src_ids")
+        n = self.gdb.n_nodes
+        up_msg: dict[tuple[str, str], torch.Tensor] = {}
+
+        def up(var: str, parent: str | None) -> torch.Tensor:
+            c = self._unary_mask(var) > 0
+            for ch in self.adj[var]:
+                if ch == parent:
+                    continue
+                m = up(ch, var)
+                self.stats["spmvs"] += 1
+                self.stats["rows_expanded"] += n
+                c = c & (_spmv(indices, src_ids, m.to(torch.int64), n) > 0)
+            if parent is not None:
+                up_msg[(var, parent)] = c
+            return c
+
+        active: dict[str, torch.Tensor] = {}
+
+        def down(var: str, parent: str | None, mask_from_parent):
+            c = self._unary_mask(var) > 0
+            if mask_from_parent is not None:
+                c = c & mask_from_parent
+            for ch in self.adj[var]:
+                if ch == parent:
+                    continue
+                c = c & (_spmv(indices, src_ids,
+                               up_msg[(ch, var)].to(torch.int64), n) > 0)
+            active[var] = c
+            for ch in self.adj[var]:
+                if ch == parent:
+                    continue
+                m = _spmv(indices, src_ids, c.to(torch.int64), n) > 0
+                down(ch, var, m)
+
+        for r in self._component_roots(self.root):
+            up(r, None)
+            down(r, None, None)
+        return {v: m.cpu().numpy() for v, m in active.items()}
+
+    def enumerate(self, limit: int | None = None) -> np.ndarray:
+        """Backward-expansion enumeration: int64 tuples, columns in GAO
+        order (``self.output_vars``), rows lex-sorted; ``limit``
+        truncates after the ordering.  See
+        ``repro_torch.results.backward.yannakakis_rows``."""
+        from ..results.backward import yannakakis_rows
+        rows, _ = yannakakis_rows(self)
+        return rows if limit is None else rows[:limit]
+
+    @property
+    def output_vars(self) -> tuple[str, ...]:
+        """Column order of :meth:`enumerate`."""
+        return self.gao

@@ -45,11 +45,17 @@ SIGNATURES = {
         _P, _I64, _I64, _P, _P, _I64, _I64, _P, _P),
     "bitset_member_count_launch": (
         _P, _I64, _P, _I64, _I64, _P, _P, _P),
+    "tile_member_mask_launch": (
+        _P, _I64, _P, _P, _P, _I64, _I64, ctypes.c_int, _P, _P),
+    "intersect_count_launch": (
+        _P, _I64, _P, _P, _I64, _P, _I64, _P, _P),
+    "bitset_intersect_count_launch": (_P, _P, _I64, _I64, _P, _P),
 }
 
 #: kernel name -> launches since the last reset_launches()
 LAUNCHES = {"searchsorted_segments": 0, "bitset_member_mask": 0,
-            "bitset_member_count": 0}
+            "bitset_member_count": 0, "tile_member_mask": 0,
+            "intersect_count": 0, "bitset_intersect_count": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

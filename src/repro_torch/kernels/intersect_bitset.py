@@ -1,9 +1,11 @@
-"""Bitset membership on the card — the hub-bitset check of the hybrid
+"""Bitset kernels on the card — the hub-bitset checks of the hybrid
 layout.
 
 Wrappers of ``csrc/bitset_member.cu``, the Hopper kernel that replaces
 ``repro.kernels.intersect_bitset.bitset_member_count_pallas`` and the
-per-lane form of it that the JAX level step computes inline.  Bitset
+per-lane form of it that the JAX level step computes inline, and of
+``csrc/bitset_intersect.cu``, which replaces
+``bitset_intersect_count_pallas`` (AND-popcount of two rows).  Bitset
 words are int32 bit patterns of the uint32 words (see
 ``core/device_graph.py``).  The plain PyTorch versions live in
 ``kernels/ref.py``; ``kernels/ops.py`` routes between them by device.
@@ -73,6 +75,25 @@ def bitset_member_count_cuda(words: torch.Tensor, b: torch.Tensor,
     rc = lib.bitset_member_count_launch(
         words.data_ptr(), words.shape[1], b.data_ptr(), r, b.shape[1],
         b_len.data_ptr(), out.data_ptr(), stream)
+    build.check(rc, name)
+    build.count_launch(name)
+    return out
+
+
+def bitset_intersect_count_cuda(a_words: torch.Tensor,
+                                b_words: torch.Tensor) -> torch.Tensor:
+    """Per-row ``sum(popcount(a & b))`` of (R, NW) int32 bit patterns on
+    one CUDA device.  Returns (R,) int32."""
+    name = "bitset_intersect_count"
+    _check_inputs(name, a_words, {"b_words": b_words})
+    _require(b_words.shape == a_words.shape, name,
+             "a_words and b_words must have the same (R, NW) shape")
+    r, nw = a_words.shape
+    out = torch.empty(r, dtype=torch.int32, device=a_words.device)
+    lib = build.library()
+    stream = torch.cuda.current_stream(a_words.device).cuda_stream
+    rc = lib.bitset_intersect_count_launch(
+        a_words.data_ptr(), b_words.data_ptr(), r, nw, out.data_ptr(), stream)
     build.check(rc, name)
     build.count_launch(name)
     return out

@@ -10,7 +10,9 @@ from __future__ import annotations
 import torch
 
 from . import ref as _ref
-from .intersect_bitset import (bitset_member_count_cuda,
+from .intersect import intersect_count_cuda, tile_member_mask_cuda
+from .intersect_bitset import (bitset_intersect_count_cuda,
+                               bitset_member_count_cuda,
                                bitset_member_mask_cuda)
 from .searchsorted import searchsorted_segments_cuda
 
@@ -30,6 +32,43 @@ def searchsorted_segments(values, lo, hi, queries, n_iter: int):
         return _ref.searchsorted_segments_ref(values, lo, hi, queries,
                                               n_iter=n_iter)
     return searchsorted_segments_cuda(values, lo, hi, queries, n_iter)
+
+
+def searchsorted_segments_2level(values, summary, lo, hi, queries, *,
+                                 stride: int, n1: int, n2: int):
+    """Two-level segmented lower bound; see
+    :func:`kernels.ref.searchsorted_segments_2level_ref`.  On the card it
+    is two launches of the ``searchsorted_segments`` kernel (the summary
+    level, then the window level) with the window arithmetic between
+    them in PyTorch, as the reference computes it outside any kernel."""
+    search = (_ref.searchsorted_segments_ref if _on_cpu(values)
+              else searchsorted_segments_cuda)
+    return _ref.searchsorted_segments_2level_ref(
+        values, summary, lo, hi, queries, stride, n1, n2, search=search)
+
+
+def tile_member_mask(indices, lo, hi, cand, check_width: int):
+    """Per-lane membership in the first ``check_width`` values of each
+    row's check segment; see :func:`kernels.ref.tile_member_mask_ref`."""
+    if _on_cpu(indices):
+        return _ref.tile_member_mask_ref(indices, lo, hi, cand, check_width)
+    return tile_member_mask_cuda(indices, lo, hi, cand, check_width)
+
+
+def intersect_count(a, a_len, b, b_len):
+    """Per-row |A ∩ B| of padded sorted lists; see
+    :func:`kernels.ref.intersect_count_ref`."""
+    if _on_cpu(a):
+        return _ref.intersect_count_ref(a, a_len, b, b_len)
+    return intersect_count_cuda(a, a_len, b, b_len)
+
+
+def bitset_intersect_count(a_words, b_words):
+    """Per-row ``sum(popcount(a & b))``; see
+    :func:`kernels.ref.bitset_intersect_count_ref`."""
+    if _on_cpu(a_words):
+        return _ref.bitset_intersect_count_ref(a_words, b_words)
+    return bitset_intersect_count_cuda(a_words, b_words)
 
 
 def bitset_member_mask(words, row, cand):

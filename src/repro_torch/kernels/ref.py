@@ -42,6 +42,114 @@ def searchsorted_segments_ref(values: torch.Tensor, lo: torch.Tensor,
     return pos, found
 
 
+def searchsorted_segments_2level_ref(values: torch.Tensor,
+                                     summary: torch.Tensor,
+                                     lo: torch.Tensor, hi: torch.Tensor,
+                                     queries: torch.Tensor, stride: int,
+                                     n1: int, n2: int,
+                                     search=searchsorted_segments_ref
+                                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Two-level segmented lower bound.
+
+    ``summary[k] = values[k * stride]``: the first level searches the
+    summary over the segment's full blocks, the second a window of at
+    most ``2 * stride + 1`` values of ``values``.  Same ``(pos, found)``
+    contract as :func:`searchsorted_segments_ref`; ``search`` runs both
+    levels (``kernels.ops`` passes the CUDA kernel).  The bounds are
+    non-negative, so floor division is plain integer division.
+    """
+    q = queries
+    lo_b = torch.broadcast_to(lo, q.shape)
+    hi_b = torch.broadcast_to(hi, q.shape)
+    fb0 = torch.div(lo_b + (stride - 1), stride, rounding_mode="floor")
+    fb1 = torch.div(hi_b, stride, rounding_mode="floor")
+    has_blocks = fb1 > fb0
+    pos1, _ = search(summary, fb0, torch.maximum(fb0, fb1), q, n1)
+    wlo = torch.where(has_blocks & (pos1 > fb0), (pos1 - 1) * stride, lo_b)
+    wlo = torch.maximum(wlo, lo_b)
+    whi = torch.where(has_blocks & (pos1 < fb1), pos1 * stride + 1, hi_b)
+    whi = torch.minimum(whi, hi_b)
+    return search(values, wlo, whi, q, n2)
+
+
+#: (rows x lanes x segment) compare elements per block of the dense
+#: plain versions below, so a full-size chunk does not materialize a
+#: multi-GB boolean tensor
+_DENSE_BLOCK_ELEMS = 1 << 26
+
+
+def _row_blocks(rows: int, per_row: int):
+    step = max(1, _DENSE_BLOCK_ELEMS // max(1, per_row))
+    for s in range(0, rows, step):
+        yield s, min(rows, s + step)
+
+
+def tile_member_mask_ref(indices: torch.Tensor, lo: torch.Tensor,
+                         hi: torch.Tensor, cand: torch.Tensor,
+                         check_width: int) -> torch.Tensor:
+    """Tile-compare membership: ``cand[r, j]`` against the first
+    ``check_width`` values of its row's check segment ``indices[lo:hi)``.
+
+    indices: (M,) int32; lo, hi: (R, 1) int32; cand: (R, W) int32.  The
+    segment is gathered once per row (``seg_idx = lo + arange(
+    check_width)`` clamped to [0, M-1], valid where ``seg_idx < hi``) and
+    every lane is compared with all of it, as the reference's tile
+    branch does.  Values past ``check_width`` are never seen.  Returns
+    (R, W) bool.
+    """
+    m = indices.shape[0]
+    j2 = torch.arange(check_width, dtype=torch.int32, device=cand.device)
+    seg_idx = lo + j2[None, :]                                  # (R, W2)
+    seg = indices[seg_idx.clamp(0, max(0, m - 1))]
+    seg_ok = seg_idx < hi
+    found = torch.empty(cand.shape, dtype=torch.bool, device=cand.device)
+    for s, e in _row_blocks(cand.shape[0], cand.shape[1] * check_width):
+        eq = cand[s:e, :, None] == seg[s:e, None, :]
+        eq &= seg_ok[s:e, None, :]
+        found[s:e] = eq.any(dim=2)
+    return found
+
+
+def intersect_count_ref(a: torch.Tensor, a_len: torch.Tensor,
+                        b: torch.Tensor, b_len: torch.Tensor
+                        ) -> torch.Tensor:
+    """Per-row |A ∩ B| of two padded sorted int32 lists.
+
+    a: (R, LA), b: (R, LB); a_len, b_len: (R,) valid lengths.  The dense
+    membership compare of every valid A lane with every valid B lane.
+    Returns (R,) int32.
+    """
+    la = torch.arange(a.shape[1], device=a.device)[None, :]
+    lb = torch.arange(b.shape[1], device=b.device)[None, :]
+    va = la < a_len[:, None]
+    vb = lb < b_len[:, None]
+    out = torch.empty(a.shape[0], dtype=torch.int32, device=a.device)
+    for s, e in _row_blocks(a.shape[0], a.shape[1] * b.shape[1]):
+        eq = a[s:e, :, None] == b[s:e, None, :]
+        eq &= va[s:e, :, None] & vb[s:e, None, :]
+        out[s:e] = eq.any(dim=2).sum(dim=1, dtype=torch.int32)
+    return out
+
+
+def popcount32(v: torch.Tensor) -> torch.Tensor:
+    """Per-element popcount of int32 bit patterns (SWAR), as int32.
+    Worked in int64 on the low 32 bits, so no step overflows."""
+    v = v.to(torch.int64) & 0xFFFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return (((v * 0x01010101) & 0xFFFFFFFF) >> 24).to(torch.int32)
+
+
+def bitset_intersect_count_ref(a_words: torch.Tensor,
+                               b_words: torch.Tensor) -> torch.Tensor:
+    """Per-row |A ∩ B| of two bitset rows: ``sum(popcount(a & b))``.
+
+    a_words, b_words: (R, NW) int32 bit patterns over a common
+    word-aligned domain.  Returns (R,) int32."""
+    return popcount32(a_words & b_words).sum(dim=1, dtype=torch.int32)
+
+
 def bitset_member_mask_ref(words: torch.Tensor, row: torch.Tensor,
                            cand: torch.Tensor) -> torch.Tensor:
     """Bit ``cand & 31`` of ``words[row[r], cand >> 5]`` per lane.

@@ -26,6 +26,10 @@ import repro_torch.core as T
 from repro_torch.convert import gdb_from_arrays, plan_from_fields
 from repro_torch.graphs import CSRGraph
 
+# the port's CPU tensors here are small: one intra-op thread per test
+# process keeps parallel test workers from oversubscribing the cores
+torch.set_num_threads(1)
+
 SHAPES = ("3-clique", "4-clique", "4-cycle", "3-path", "2-lollipop",
           "3-lollipop")
 CYCLIC = ("3-clique", "4-clique", "4-cycle")
@@ -218,13 +222,16 @@ def test_seeded_count_matches(dbs):
 
 
 def test_unported_modes_raise(dbs):
+    """What still waits: the host oracles, and plan verification
+    (``verify=True``) for every entry point."""
+    from repro_torch.core import engine as t_engine
     _, t_db = dbs["plain"]
     q = T.get_query("3-clique")
-    for mode in ("tile", "auto", "bsearch2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            T.VLFTJ(q, t_db, check_mode=mode)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.VLFTJ(q, t_db).last_level_counts(np.zeros((1, 2), np.int32))
     for engine in ("lftj_ref", "minesweeper_ref", "binary"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             T.count(q, t_db, engine=engine)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            t_engine.enumerate(q, t_db, engine=engine)
+    for entry in (T.count, t_engine.enumerate, t_engine.stream):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*verify"):
+            entry(q, t_db, verify=True)

@@ -16,16 +16,32 @@ import pytest
 import torch
 
 import repro  # noqa: F401  (x64 for the reference)
-from repro.kernels.intersect_bitset import bitset_member_count_pallas
-from repro.kernels.ref import (bitset_member_count_ref as j_count_ref,
+from repro.core.vlftj import _expand_level as j_expand_level
+from repro.kernels.intersect import intersect_count_pallas
+from repro.kernels.intersect_bitset import (bitset_intersect_count_pallas,
+                                            bitset_member_count_pallas)
+from repro.kernels.ref import (bitset_intersect_count_ref as j_and_ref,
+                               bitset_member_count_ref as j_count_ref,
                                bitset_member_ref as j_member_ref,
+                               intersect_count_ref as j_icount_ref,
+                               popcount32 as j_popcount32,
+                               searchsorted_segments_2level_ref as j_ss2_ref,
                                searchsorted_segments_ref as j_ss_ref)
 from repro.kernels.searchsorted import searchsorted_segments_pallas
 
+from repro_torch.core.vlftj import _expand_level as t_expand_level
 from repro_torch.kernels import build, ops, ref
-from repro_torch.kernels.intersect_bitset import (bitset_member_count_cuda,
+from repro_torch.kernels.intersect import (intersect_count_cuda,
+                                           tile_member_mask_cuda)
+from repro_torch.kernels.intersect_bitset import (bitset_intersect_count_cuda,
+                                                  bitset_member_count_cuda,
                                                   bitset_member_mask_cuda)
 from repro_torch.kernels.searchsorted import searchsorted_segments_cuda
+
+
+# the port's CPU tensors here are small: one intra-op thread per test
+# process keeps parallel test workers from oversubscribing the cores
+torch.set_num_threads(1)
 
 
 def _segments(rng, n_seg, max_len, domain, empty_every):
@@ -175,9 +191,24 @@ def test_ops_route_cpu_tensors_to_plain_versions():
     blen = torch.full((8,), 20, dtype=torch.int32)
     assert torch.equal(ops.bitset_member_count(words, cand, blen),
                        ref.bitset_member_count_ref(words, cand, blen))
-    assert build.LAUNCHES == {"searchsorted_segments": 0,
-                              "bitset_member_mask": 0,
-                              "bitset_member_count": 0}
+    summary = v[::4].contiguous()
+    got = ops.searchsorted_segments_2level(v, summary, lo, hi, q, stride=4,
+                                           n1=4, n2=5)
+    want = ref.searchsorted_segments_2level_ref(v, summary, lo, hi, q, 4, 4,
+                                                5)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(ops.tile_member_mask(v, lo, hi, q, 8),
+                       ref.tile_member_mask_ref(v, lo, hi, q, 8))
+    qs = torch.sort(q, dim=1).values
+    alen = torch.full((8,), 30, dtype=torch.int32)
+    assert torch.equal(ops.intersect_count(qs, alen, cand, blen),
+                       ref.intersect_count_ref(qs, alen, cand, blen))
+    assert torch.equal(ops.bitset_intersect_count(words, words.flip(0)),
+                       ref.bitset_intersect_count_ref(words, words.flip(0)))
+    assert set(build.LAUNCHES) == {
+        "searchsorted_segments", "bitset_member_mask", "bitset_member_count",
+        "tile_member_mask", "intersect_count", "bitset_intersect_count"}
+    assert not any(build.LAUNCHES.values())
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -194,6 +225,12 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         bitset_member_mask_cuda(words, torch.zeros(2, **i32), q)
     with pytest.raises(ValueError, match="CUDA"):
         bitset_member_count_cuda(words, q, torch.zeros(2, **i32))
+    with pytest.raises(ValueError, match="CUDA"):
+        tile_member_mask_cuda(v, lo, lo, q, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        intersect_count_cuda(q, lo[:, 0], q, lo[:, 0])
+    with pytest.raises(ValueError, match="CUDA"):
+        bitset_intersect_count_cuda(words, words)
     with pytest.raises(ValueError, match="no kernel"):
         ops.searchsorted_segments(v.to("meta"), lo, lo, q, 3)
     assert not any(build.LAUNCHES.values())
@@ -208,6 +245,202 @@ def test_ctypes_signatures_match_c_entry_points():
         text = src.read_text()
         for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', text):
             found[m.group(1)] = len(m.group(2).split(","))
-    assert {p.name for p in build.sources()} == {"searchsorted.cu",
-                                                  "bitset_member.cu"}
+    assert {p.name for p in build.sources()} == {
+        "searchsorted.cu", "bitset_member.cu", "intersect.cu",
+        "bitset_intersect.cu"}
     assert found == {k: len(v) for k, v in build.SIGNATURES.items()}
+
+
+# --- tile intersection (intersect_count_pallas and the tile check) -------
+
+def _sorted_rows(rng, r, width, max_len, domain):
+    lens = rng.integers(0, max_len + 1, r)
+    arr = np.zeros((r, width), np.int32)
+    for i in range(r):
+        arr[i, :lens[i]] = np.sort(rng.choice(domain, size=lens[i],
+                                              replace=False))
+    return arr, lens.astype(np.int32)
+
+
+@pytest.mark.parametrize("r,la,lb", [(8, 128, 128), (16, 256, 384),
+                                     (24, 512, 128)])
+def test_intersect_count_plain_matches_pallas(r, la, lb):
+    """The sweep of ``tests/test_kernels.py``: plain version vs the
+    Pallas kernel (interpret mode), the jnp reference and numpy."""
+    rng = np.random.default_rng(r * 7 + la + lb)
+    a, alen = _sorted_rows(rng, r, la, la - 5, 4000)
+    b, blen = _sorted_rows(rng, r, lb, lb - 5, 4000)
+    got = ref.intersect_count_ref(*map(torch.from_numpy, (a, alen, b, blen)))
+    want_p = intersect_count_pallas(*map(jnp.asarray, (a, alen, b, blen)))
+    want_r = j_icount_ref(*map(jnp.asarray, (a, alen, b, blen)))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want_p))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want_r))
+    want = [np.intersect1d(a[i, :alen[i]], b[i, :blen[i]]).size
+            for i in range(r)]
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("case", ["disjoint", "half", "empty", "ragged"])
+def test_intersect_count_edge_cases(case):
+    """The gap-box skip cases of ``tests/test_kernels.py`` and shapes the
+    Pallas kernel refuses (R % 8, L % 128), against the jnp reference."""
+    a = np.tile(np.arange(512, dtype=np.int32), (8, 1))
+    full = np.full(8, 512, np.int32)
+    if case == "disjoint":
+        b, alen, blen = a + 100000, full, full
+    elif case == "half":
+        b = np.sort(np.concatenate([a[:, :256] + 100000, a[:, :256]], 1), 1)
+        alen, blen = full, full
+    elif case == "empty":
+        a, b = np.zeros((8, 128), np.int32), np.zeros((8, 128), np.int32)
+        alen, blen = np.zeros(8, np.int32), np.full(8, 100, np.int32)
+    else:
+        rng = np.random.default_rng(5)
+        a, alen = _sorted_rows(rng, 5, 37, 40, 90)   # a_len may exceed LA
+        b, blen = _sorted_rows(rng, 5, 19, 19, 90)
+        alen[0], blen[1] = -3, 0
+    got = ref.intersect_count_ref(*map(torch.from_numpy, (a, alen, b, blen)))
+    want = j_icount_ref(*map(jnp.asarray, (a, alen, b, blen)))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    if case in ("disjoint", "half", "empty"):
+        want_p = intersect_count_pallas(*map(jnp.asarray,
+                                             (a, alen, b, blen)))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want_p))
+
+
+def _tile_branch_jnp(indices, lo, hi, cand, check_width):
+    """The reference's tile branch (``repro/core/vlftj.py``) verbatim."""
+    m = indices.shape[0]
+    j2 = jnp.arange(check_width, dtype=jnp.int32)
+    seg_idx = lo + j2[None, :]
+    seg = indices[jnp.clip(seg_idx, 0, max(0, m - 1))]
+    seg_ok = seg_idx < hi
+    eq = (cand[:, :, None] == seg[:, None, :])
+    eq &= seg_ok[:, None, :]
+    return eq.any(axis=2)
+
+
+@pytest.mark.parametrize("check_width", [0, 1, 7, 32, 200])
+def test_tile_member_mask_plain_matches_reference(check_width):
+    """Including segments longer than ``check_width`` (truncated, as the
+    reference truncates) and queries outside every segment."""
+    rng = np.random.default_rng(check_width)
+    values, starts, ends = _segments(rng, 30, 60, 150, 4)
+    seg = rng.integers(0, 30, 24)
+    lo = starts[seg].astype(np.int32)[:, None]
+    hi = ends[seg].astype(np.int32)[:, None]
+    cand = rng.integers(-5, 155, (24, 40)).astype(np.int32)
+    got = ref.tile_member_mask_ref(*map(torch.from_numpy,
+                                        (values, lo, hi, cand)), check_width)
+    want = _tile_branch_jnp(*map(jnp.asarray, (values, lo, hi, cand)),
+                            check_width)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # for sorted segments it is membership in the truncated prefix
+    exact = np.array([[cand[i, j] in values[lo[i, 0]:min(
+        hi[i, 0], lo[i, 0] + check_width)] for j in range(40)]
+        for i in range(24)])
+    np.testing.assert_array_equal(got.numpy(), exact)
+
+
+@pytest.mark.parametrize("check_mode,check_width", [("tile", 16),
+                                                    ("tile", 64),
+                                                    ("bsearch2", 0)])
+def test_level_step_matches_reference(check_mode, check_width):
+    """One full level step (probe choice, candidates, every check, unary
+    and ``<`` filters) in the new check modes, both packages on the same
+    chunk: candidates, masks and weighted counts."""
+    rng = np.random.default_rng(11)
+    values, starts, ends = _segments(rng, 40, 50, 40, 6)
+    indptr = np.concatenate([starts, ends[-1:]]).astype(np.int32)
+    frontier = rng.integers(0, 40, (16, 3)).astype(np.int32)
+    mult = rng.integers(1, 5, 16).astype(np.int64)
+    row_valid = np.arange(16) < 13
+    bitmap = rng.random(40) < 0.7
+    stride = 4
+    kw = dict(probe_cols=(0, 2), n_unary=1, lower_cols=(1,), upper_cols=(),
+              width=64, n_iter=7, needs_degree=True, check_mode=check_mode,
+              check_width=check_width, summary_stride=stride, n_iter2=5)
+    if check_mode == "bsearch2":
+        kw["n_iter"] = 5
+    summary = values[::stride]
+    j_args = tuple(map(jnp.asarray, (indptr, values))) + (
+        (jnp.asarray(bitmap),),) + tuple(map(jnp.asarray,
+                                             (frontier, mult, row_valid)))
+    t_args = tuple(map(torch.from_numpy, (indptr, values))) + (
+        (torch.from_numpy(bitmap),),) + tuple(map(torch.from_numpy,
+                                                  (frontier, mult, row_valid)))
+    for count_only in (False, True):
+        want = j_expand_level(*j_args, count_only=count_only,
+                              summary=jnp.asarray(summary), **kw)
+        got = t_expand_level(*t_args, count_only=count_only,
+                             summary=torch.from_numpy(summary), **kw)
+        if count_only:
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        else:
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("stride,max_len", [(4, 40), (16, 200), (128, 60)])
+def test_searchsorted_2level_plain_matches_reference(stride, max_len):
+    rng = np.random.default_rng(stride + max_len)
+    values, starts, ends = _segments(rng, 40, max_len, 300, 5)
+    summary = values[::stride]
+    seg = rng.integers(0, 40, 16)
+    lo = starts[seg].astype(np.int32)[:, None]
+    hi = ends[seg].astype(np.int32)[:, None]
+    q = rng.integers(-5, 305, (16, 64)).astype(np.int32)
+    n1 = int(np.ceil(np.log2(max(2, max_len // stride + 2)))) + 1
+    n2 = int(np.ceil(np.log2(2 * stride + 2))) + 1
+    pos_t, found_t = ref.searchsorted_segments_2level_ref(
+        *map(torch.from_numpy, (values, summary, lo, hi, q)), stride, n1, n2)
+    pos_j, found_j = j_ss2_ref(*map(jnp.asarray, (values, summary, lo, hi, q)),
+                               stride=stride, n1=n1, n2=n2)
+    np.testing.assert_array_equal(pos_t.numpy(), np.asarray(pos_j))
+    np.testing.assert_array_equal(found_t.numpy(), np.asarray(found_j))
+    # the two-level search finds what the one-level search finds
+    _, found_1 = ref.searchsorted_segments_ref(
+        *map(torch.from_numpy, (values, lo, hi, q)),
+        int(np.ceil(np.log2(max_len))) + 1)
+    assert torch.equal(found_t, found_1)
+
+
+# --- bitset AND-popcount (bitset_intersect_count_pallas) ------------------
+
+def test_popcount32_matches_reference():
+    rng = np.random.default_rng(0)
+    v = rng.integers(0, 1 << 32, 512, dtype=np.uint64).astype(np.uint32)
+    v[:4] = [0, 0xFFFFFFFF, 0x80000000, 0x7FFFFFFF]
+    got = ref.popcount32(_i32(v))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(j_popcount32(jnp.asarray(v))))
+    np.testing.assert_array_equal(
+        got.numpy(), [bin(x).count("1") for x in v.tolist()])
+
+
+@pytest.mark.parametrize("seed,rows,tile", [(0, 8, 128), (1, 16, 128),
+                                            (2, 8, 256), (3, 16, 256)])
+def test_bitset_intersect_count_plain_matches_pallas(seed, rows, tile):
+    """The sweep of ``tests/test_kernels_bitset.py``: plain version vs
+    the Pallas kernel (interpret mode), the jnp reference and numpy."""
+    rng = np.random.default_rng(seed)
+    n_words = tile
+    domain = 32 * n_words
+    a_sets = _rand_sets(rng, rows, domain, 600)
+    b_sets = _rand_sets(rng, rows, domain, 600)
+    a, b = _pack(a_sets, n_words), _pack(b_sets, n_words)
+    a[:, 0] |= np.uint32(1 << 31)
+    b[::2, 0] |= np.uint32(1 << 31)    # the sign bit of the int32 view
+    got = ref.bitset_intersect_count_ref(_i32(a), _i32(b))
+    want_p = bitset_intersect_count_pallas(jnp.asarray(a), jnp.asarray(b),
+                                           tile=tile)
+    want_r = j_and_ref(jnp.asarray(a), jnp.asarray(b))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want_p))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want_r))
+    want = [len(np.intersect1d(np.append(x, 31),
+                               np.append(y, 31) if i % 2 == 0 else y))
+            for i, (x, y) in enumerate(zip(a_sets, b_sets))]
+    np.testing.assert_array_equal(got.numpy(), want)
