@@ -4,7 +4,11 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
 kernel against its plain PyTorch version at the main path's shapes
-(exact equality) and times both, then drives the port's paths on the
+(exact equality for the join kernels; 2e-2 for bf16 and 2e-5 for f32
+flash attention, 2e-4 for the segment outer product) and times both,
+with the one PyTorch call that computes the same function where there
+is one (``torch.searchsorted``, ``scaled_dot_product_attention``), then
+drives the port's paths on the
 ``soc-Slashdot0811``-like graph (77,360 nodes, 1,778,854 directed edges)
 as a plain ``GraphDB`` and as a ``HybridGraphDB``, each path with the
 kernels' launch counters set to 0 just before it and read just after:
@@ -18,7 +22,13 @@ kernels' launch counters set to 0 just before it and read just after:
 * the 3-clique, 4-clique and 4-cycle in ``check_mode="tile"`` (width
   2048, above the max degree) and ``"bsearch2"`` on the plain db;
 * ``stream`` of those three in ``tile`` mode, every row checked on the
-  host with numpy alone, and the factorized 3-clique.
+  host with numpy alone, and the factorized 3-clique;
+* chatglm3-6b served at full width and depth in bf16 (``lm serve``): 4
+  requests of 2048 prompt tokens, prefill (28 flash-attention launches)
+  and 32 greedy decode steps, then one prefill profiled; and at full
+  width with 2 layers in f32 (``lm parity``) the card's prefill and
+  decode logits against the port's CPU path (1e-3) and decode against
+  ``forward`` over the concatenated stream (2e-4).
 
 The counts are checked against counts made on the host with scipy and
 numpy alone (the cliques, 3-path and lollipops), across the two dbs
@@ -68,6 +78,23 @@ INT32_MAX = 2 ** 31 - 1
 #: (against 128 for fp32), so int32 ops peak at 67e12 / 4 per second.
 PEAK_BYTES_S = 3.35e12
 PEAK_INT32_OPS_S = 67e12 / 4
+#: floating-point peaks from the same data sheet: dense bf16 on the tensor
+#: cores, and float32 on the CUDA cores
+PEAK_FLOPS_S = {"bf16": 989e12, "fp32": 67e12}
+#: the LM phases: chatglm3-6b served at full width and depth (4 requests of
+#: 2048 prompt tokens, 32 greedy decode steps), and its f32 parity check
+#: at full width and 2 layers (card against the port's CPU path)
+LM_BATCH, LM_PROMPT, LM_DECODE = 4, 2048, 32
+PARITY_LAYERS, PARITY_PROMPT, PARITY_STEPS = 2, 256, 4
+#: the decode-vs-forward check's prompt: forward then runs over 125..127
+#: tokens, lengths the flash kernel takes (the Pallas kernel's contract
+#: asks T % min(128, T) == 0, so 257..259 are refused)
+PARITY_FORWARD_PROMPT = 124
+#: the segment-outer line at MACE's widths (d_hidden 128, l_max 2 -> 9
+#: basis functions) on 131,072 nodes at ogb_products' mean directed degree
+#: (123,718,280 / 2,449,029), in node blocks of 8 and edge tiles of 128
+OUTER_NODES, OUTER_C, OUTER_M, OUTER_BN, OUTER_TE = 131072, 128, 9, 8, 128
+OUTER_DEGREE = 123718280 / 2449029
 
 
 class SmokeFailure(RuntimeError):
@@ -187,10 +214,18 @@ def lower_bound_rounds(seg, n, q, lane_ok) -> int:
 
 
 def bound(k: dict) -> dict:
-    """The larger of bytes over the HBM rate and int32 ops over the int32
-    rate, and which of the two it is."""
+    """The larger of bytes over the HBM rate and the operations over their
+    peak rate — int32 ops (``ops``) at the int32 rate, or floating-point
+    operations (``flops``) at the peak of their type (``flops_type``) —
+    and which of the two it is.  The peaks used are printed with it."""
     t_bytes = k["bytes"] / PEAK_BYTES_S
-    t_ops = k["ops"] / PEAK_INT32_OPS_S
+    if "flops" in k:
+        k["peak_flops_s"] = PEAK_FLOPS_S[k["flops_type"]]
+        t_ops = k["flops"] / k["peak_flops_s"]
+    else:
+        k["peak_int32_ops_s"] = PEAK_INT32_OPS_S
+        t_ops = k["ops"] / PEAK_INT32_OPS_S
+    k["peak_bytes_s"] = PEAK_BYTES_S
     k["bound_ms"] = 1e3 * max(t_bytes, t_ops)
     k["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     return k
@@ -223,6 +258,18 @@ def kernel_phase(T, db, hdb):
          f"(max abs err {err})")
     r, w = q.shape
     probed, rounds = search_work(values, lo, hi, q, n_iter)
+    # the library call: torch.searchsorted on the same segments gathered
+    # into (R, max length) rows padded with INT32_MAX (gathered once, not
+    # timed), as the tile kernel's line times it
+    n_seg = (hi - lo)[:, 0]
+    width = int(n_seg.max())
+    j2 = torch.arange(width, device=dev)
+    segs = torch.where(j2[None] < n_seg[:, None],
+                       values[(lo + j2[None]).clamp(0, values.shape[0] - 1)],
+                       INT32_MAX).to(torch.int32).contiguous()
+    lib_pos = torch.searchsorted(segs, q)
+    need(torch.equal(lib_pos.int() + lo, pos),
+         "torch.searchsorted disagrees with searchsorted_segments")
     out["searchsorted_segments"] = dict(
         source="src/repro_torch/csrc/searchsorted.cu",
         replaces="src/repro/kernels/searchsorted.py:55",
@@ -238,7 +285,10 @@ def kernel_phase(T, db, hdb):
                   "2 clamps, compare, and, add, 2 selects) + 5 per lane",
         bytes=4 * probed + lo.nbytes + hi.nbytes + q.nbytes + pos.nbytes
         + found.nbytes,
-        ops=10 * rounds + 5 * r * w, library_ms=None)
+        ops=10 * rounds + 5 * r * w,
+        library_ms=cuda_ms(lambda: torch.searchsorted(segs, q), 50),
+        library_call=f"torch.searchsorted(segs, queries), segs the gathered "
+                     f"INT32_MAX-padded ({r}, {width}) segments")
 
     # bitset_member_mask: the hub-only rows of a hybrid-db chunk
     cand, check, deg = level_inputs(hdb, rng, 2048, hubs_only=True)
@@ -441,6 +491,304 @@ def kernel_phase_intersect(T, db, hdb):
         bytes=aw.nbytes + bw.nbytes + both.nbytes, ops=3 * aw.numel(),
         library_ms=None, library_call="none: PyTorch has no popcount")
     return {name: bound(k) for name, k in out.items()}
+
+
+def allclose_err(got, want, tol: float) -> tuple[float, bool]:
+    """Max abs error of ``got`` against ``want`` (float32), and whether
+    every element is within ``tol + tol * |want|``."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    return float(err.max()), bool((err <= tol + tol * want.abs()).all())
+
+
+def kernel_phase_lm():
+    """The flash-attention and segment-outer kernels against their plain
+    versions on the same CUDA tensors, at the shapes their paths give
+    them; then timed, with the library call where PyTorch has one."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.segment_outer import block_tile_starts
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {}
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    # flash_attention at the LM path's shape: chatglm3-6b's 32 query and 2
+    # KV heads of 128 dims, 4 requests of 2048 tokens, bf16, causal; q, k
+    # and v are (B, T, H, D) projections seen as (B, H, T, D), as prefill
+    # passes them
+    b, hq, hkv, t, d = LM_BATCH, 32, 2, LM_PROMPT, 128
+    bf = torch.bfloat16
+    q = randn(b, t, hq, d, dtype=bf).transpose(1, 2)
+    k = randn(b, t, hkv, d, dtype=bf).transpose(1, 2)
+    v = randn(b, t, hkv, d, dtype=bf).transpose(1, 2)
+    o = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err, ok = allclose_err(o, ref.flash_attention_ref(q, k, v), 2e-2)
+    need(ok, f"flash_attention (bf16, path shape) disagrees with its plain "
+         f"version beyond 2e-2 (max abs err {err})")
+    # the f32 sweep of the JAX package's tests (D 64), the decode shape
+    # (Tq 1 against Tk 256), and chatglm3's group of 16 at D 128
+    sweep = []
+    for hq_, hkv_, tq_, tk_, d_ in ((4, 4, 256, 256, 64), (8, 2, 256, 256, 64),
+                                    (4, 2, 1, 256, 64), (32, 2, 256, 256, 128),
+                                    (32, 2, 1, 256, 128)):
+        for causal in ((True, False) if tq_ > 1 else (True,)):
+            qs, ks, vs = (randn(2, h_, t_, d_) for h_, t_ in
+                          ((hq_, tq_), (hkv_, tk_), (hkv_, tk_)))
+            e, ok = allclose_err(ops.flash_attention(qs, ks, vs, causal),
+                                 ref.flash_attention_ref(qs, ks, vs, causal),
+                                 2e-5)
+            need(ok, f"flash_attention f32 {hq_}/{hkv_} Tq {tq_} Tk {tk_} "
+                 f"D {d_} causal={causal}: beyond 2e-5 (max abs err {e})")
+            sweep.append([hq_, hkv_, tq_, tk_, d_, causal, e])
+    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    flops = 4 * b * hq * t * t * d / 2
+    out["flash_attention"] = dict(
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:81",
+        shape=f"q ({b}, {hq}, {t}, {d}) bf16 as a transposed (B, T, H, D) "
+              f"view, k, v ({b}, {hkv}, {t}, {d}), causal",
+        max_abs_err=err, tolerance=2e-2, f32_sweep=sweep,
+        f32_sweep_max_abs_err=max(x[-1] for x in sweep),
+        ms=cuda_ms(lambda: ops.flash_attention(q, k, v), 10),
+        contiguous_ms=cuda_ms(lambda: ops.flash_attention(qc, kc, vc), 10),
+        plain_ms=cuda_ms(lambda: ref.flash_attention_ref(q, k, v), 3),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            qc, kc, vc, is_causal=True, enable_gqa=True), 10),
+        library_call="torch.nn.functional.scaled_dot_product_attention("
+                     "q, k, v, is_causal=True, enable_gqa=True), contiguous",
+        flops_model="4 B Hq T^2 D / 2 (QK^T and PV, causal half)",
+        flops=flops, flops_type="bf16",
+        bytes=q.nbytes + k.nbytes + v.nbytes + o.nbytes)
+    out["flash_attention"]["achieved_tflop_s"] = (
+        flops / out["flash_attention"]["ms"] / 1e9)
+    del q, k, v, qc, kc, vc, o
+
+    # segment_outer at MACE's widths, dst uniform and powerlaw (n u^3)
+    n = OUTER_NODES
+    e_real = round(n * OUTER_DEGREE)
+    e = -(-e_real // OUTER_TE) * OUTER_TE
+    msg = randn(e, OUTER_C)
+    basis = randn(e, OUTER_M)
+    msg[e_real:] = 0
+    basis[e_real:] = 0
+    lines = {}
+    for dist in ("uniform", "powerlaw"):
+        u = torch.rand(e_real, generator=g, device="cuda", dtype=torch.float64)
+        real = (n * (u if dist == "uniform" else u ** 3)).long().clamp(max=n - 1)
+        dst = torch.full((e,), n, dtype=torch.int32, device="cuda")
+        dst[:e_real] = torch.sort(real).values.int()
+        bt, n_tiles = block_tile_starts(dst.cpu().numpy(), n, OUTER_BN,
+                                        OUTER_TE)
+        args = (msg, basis, dst, bt, n, n_tiles, OUTER_BN, OUTER_TE)
+        a = ops.segment_outer(*args)
+        torch.cuda.synchronize()
+        err, ok = allclose_err(a, ref.segment_outer_ref(msg, basis, dst, n),
+                               2e-4)
+        need(ok, f"segment_outer ({dist}) disagrees with its plain version "
+             f"beyond 2e-4 (max abs err {err})")
+        lines[dist] = dict(
+            n_tiles=n_tiles, max_abs_err=err,
+            max_block_edges=int(torch.bincount(real // OUTER_BN).max()),
+            ms=cuda_ms(lambda: ops.segment_outer(*args), 5),
+            plain_ms=cuda_ms(lambda: ref.segment_outer_ref(msg, basis, dst,
+                                                           n), 2))
+        del a
+    uni = lines["uniform"]
+    out["segment_outer"] = dict(
+        source="src/repro_torch/csrc/segment_outer.cu",
+        replaces="src/repro/kernels/segment_outer.py:72",
+        shape=f"msg ({e}, {OUTER_C}) f32, basis ({e}, {OUTER_M}), "
+              f"{e_real} real edges on {n} nodes, bn {OUTER_BN}, "
+              f"te {OUTER_TE}; figures of the uniform dst, both in by_dst",
+        max_abs_err=max(x["max_abs_err"] for x in lines.values()),
+        tolerance=2e-4, by_dst=lines, ms=uni["ms"], plain_ms=uni["plain_ms"],
+        library_ms=None, library_call="none: no single PyTorch call",
+        flops_model="2 C M per real edge", flops=2 * e_real * OUTER_C * OUTER_M,
+        flops_type="fp32",
+        bytes=msg.nbytes + basis.nbytes + 4 * e + 4 * n * OUTER_C * OUTER_M)
+    del msg, basis
+    torch.cuda.empty_cache()
+    return {name: bound(k) for name, k in out.items()}
+
+
+def gpu_profile(fn, what: str) -> dict:
+    """Device time of one call of ``fn`` by kernel from ``torch.profiler``
+    (device only), grouped into the flash kernel, the GEMMs and the rest,
+    with the device's busy and idle share of the unprofiled wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    events = sorted(prof.key_averages(), key=device_us, reverse=True)
+    groups = {"flash_attention": 0.0, "gemm": 0.0, "other": 0.0}
+    for e in events:
+        key = e.key.lower()
+        group = ("flash_attention" if "flash_attention_kernel" in key else
+                 "gemm" if any(w in key for w in ("gemm", "xmma", "nvjet",
+                                                  "cutlass", "matmul"))
+                 else "other")
+        groups[group] += device_us(e) / 1e6
+    busy = sum(groups.values())
+    return {"profile": what, "wall_s": wall, "device_busy_s": busy,
+            "idle_share": 1 - busy / wall,
+            "device_s": groups,
+            "share": {k: v / busy for k, v in groups.items()} if busy else {},
+            "top_device_ms": [[e.key[:70], device_us(e) / 1e3, e.count]
+                              for e in events[:10] if device_us(e) > 0]}
+
+
+def lm_serve():
+    """chatglm3-6b at full width and depth in bf16, weights from a seeded
+    generator on the card: a batch of 4 requests of 2048 synthetic prompt
+    tokens, prefill, then 32 greedy decode steps.  The kernels' launch
+    counters are set to 0 just before and read just after; then one
+    prefill is profiled."""
+    import torch
+    from repro_torch.configs import CHATGLM3_6B
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer as tfm
+    cfg = CHATGLM3_6B
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, g, device="cuda")
+    torch.cuda.synchronize()
+    log(f"lm params: {cfg.name}, {cfg.n_params} parameters, "
+        f"{sum(p.nbytes for p in params.values())} bytes "
+        f"({time.perf_counter() - t0:.2f} s)")
+    ml = LM_PROMPT + LM_DECODE
+    tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=g, device="cuda")
+    # warm-up: one short prompt, so cuBLAS and the kernel library are
+    # loaded before the timed run
+    tfm.decode_step(params, tfm.prefill(params, tokens[:, :128], cfg,
+                                        max_len=ml)[0], tokens[:, :1], cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    build.reset_launches()
+    t0 = time.perf_counter()
+    cache, logits = tfm.prefill(params, tokens, cfg, max_len=ml)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = dict(build.LAUNCHES)
+    ids = [logits.argmax(-1)]
+    t0 = time.perf_counter()
+    for _ in range(LM_DECODE):
+        logits, cache = tfm.decode_step(params, cache, ids[-1], cfg)
+        ids.append(logits.argmax(-1))
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    ids = torch.cat(ids, dim=1)
+    need(bool(torch.isfinite(logits).all()), "lm serve: non-finite logits")
+    need(tuple(logits.shape) == (LM_BATCH, 1, cfg.padded_vocab),
+         f"lm serve: logits shape {tuple(logits.shape)}")
+    need(tuple(ids.shape) == (LM_BATCH, LM_DECODE + 1)
+         and int(ids.min()) >= 0 and int(ids.max()) < cfg.vocab_size,
+         "lm serve: greedy ids out of range")
+    need(cache["len"] == ml, f"lm serve: cache len {cache['len']} != {ml}")
+    need(prefill_launches["flash_attention"] == cfg.n_layers
+         and launches["flash_attention"] == cfg.n_layers,
+         f"lm serve: {launches['flash_attention']} flash launches, "
+         f"{cfg.n_layers} expected (one per layer of the prefill)")
+    log(json.dumps(dict(
+        path="lm serve", model=cfg.name, n_layers=cfg.n_layers,
+        batch=LM_BATCH, prompt_tokens=LM_PROMPT, decode_steps=LM_DECODE,
+        max_len=ml, prefill_s=prefill_s,
+        prefill_tokens_s=LM_BATCH * LM_PROMPT / prefill_s,
+        decode_ms_per_step=1e3 * decode_s / LM_DECODE,
+        decode_tokens_s=LM_BATCH * LM_DECODE / decode_s,
+        peak_allocated_bytes=torch.cuda.max_memory_allocated(),
+        launches=launches, first_ids=ids[:, :8].tolist())))
+    del cache, logits
+    log(json.dumps(gpu_profile(
+        lambda: tfm.prefill(params, tokens, cfg, max_len=ml),
+        f"prefill {cfg.name} {LM_BATCH}x{LM_PROMPT}")))
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def lm_parity():
+    """chatglm3-6b at full width with 2 layers in float32 (TF32 off): the
+    card's prefill logits and 4 greedy decode steps against the port's
+    CPU path on the same weights (1e-3), and on the card the decode
+    logits against ``forward`` over the concatenated stream (2e-4, the
+    JAX package's own decode-vs-forward tolerance)."""
+    from dataclasses import replace
+    import torch
+    from repro_torch.configs import CHATGLM3_6B
+    from repro_torch.models import transformer as tfm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = replace(CHATGLM3_6B, n_layers=PARITY_LAYERS, dtype=torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    params = tfm.init_params(cfg, g, device="cuda")
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    tokens = torch.randint(0, cfg.vocab_size, (1, PARITY_PROMPT), generator=g,
+                           device="cuda")
+    ml = PARITY_PROMPT + PARITY_STEPS
+    errs = {}
+    t0 = time.perf_counter()
+    runs = {}
+    for dev, p in (("cuda", params), ("cpu", cpu_params)):
+        cache, logits = tfm.prefill(p, tokens.to(dev), cfg, max_len=ml)
+        out = [logits]
+        nxt = tokens[:, :1].to(dev)
+        for _ in range(PARITY_STEPS):
+            logits, cache = tfm.decode_step(p, cache, nxt, cfg)
+            out.append(logits)
+            nxt = logits.argmax(-1)
+        runs[dev] = out
+    for i, (a, b) in enumerate(zip(runs["cuda"], runs["cpu"])):
+        err, ok = allclose_err(a.cpu(), b, 1e-3)
+        errs["prefill" if i == 0 else f"decode {i}"] = err
+        need(ok, f"lm parity: card vs CPU logits (step {i}) beyond 1e-3 "
+             f"(max abs err {err})")
+        need(torch.equal(a.argmax(-1).cpu(), b.argmax(-1)),
+             f"lm parity: card and CPU greedy ids differ at step {i}")
+    cpu_s = time.perf_counter() - t0
+    # decode against forward on the card, as the CPU test runs it
+    prompt = tokens[:, :PARITY_FORWARD_PROMPT]
+    cache, _ = tfm.prefill(params, prompt, cfg, max_len=ml)
+    nxt, dec = prompt[:, :1], []
+    for _ in range(PARITY_STEPS - 1):
+        logits, cache = tfm.decode_step(params, cache, nxt, cfg)
+        dec.append(logits)
+        nxt = logits.argmax(-1)
+    stream = torch.cat([prompt, prompt[:, :1]], dim=1)
+    fwd_errs = []
+    for i in range(PARITY_STEPS - 1):
+        x, _ = tfm.forward(params, stream, cfg)
+        full = tfm._lm_logits(x[:, -1:, :], params, cfg)
+        err, ok = allclose_err(dec[i], full, 2e-4)
+        fwd_errs.append(err)
+        need(ok, f"lm parity: decode step {i} vs forward beyond 2e-4 "
+             f"(max abs err {err})")
+        stream = torch.cat([stream, full.argmax(-1)], dim=1)
+    log(json.dumps(dict(
+        path="lm parity", model=cfg.name, n_layers=cfg.n_layers,
+        dtype="float32", prompt_tokens=PARITY_PROMPT, steps=PARITY_STEPS,
+        forward_prompt_tokens=PARITY_FORWARD_PROMPT,
+        card_vs_cpu_max_abs_err=errs, decode_vs_forward_max_abs_err=fwd_errs,
+        wall_s=time.perf_counter() - t0, card_and_cpu_s=cpu_s)))
+    del params, cpu_params, runs
+    torch.cuda.empty_cache()
 
 
 def main_path(T, dbs):
@@ -855,6 +1203,7 @@ def main() -> int:
 
     kern = kernel_phase(T, db, hdb)
     kern.update(kernel_phase_intersect(T, db, hdb))
+    kern.update(kernel_phase_lm())
     for name, k in kern.items():
         log(f"kernel {name}: {json.dumps(k)}")
 
@@ -885,12 +1234,19 @@ def main() -> int:
     t0 = time.perf_counter()
     small_scale(T)
     log(f"small scale: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    lm_launches = lm_serve()
+    log(f"lm serve: {time.perf_counter() - t0:.2f} s, launches {lm_launches}")
+    t0 = time.perf_counter()
+    lm_parity()
+    log(f"lm parity: {time.perf_counter() - t0:.2f} s")
 
     # each TPU kernel once, with the launches of the path that runs it:
     # the bsearch main path for the first two, the auto path for the tile
     # kernel (the mask form of intersect_count_pallas; its count form is
-    # the "kernel intersect_count" line above); no path runs the bitset
-    # AND-popcount, which only the kernel router reaches
+    # the "kernel intersect_count" line above), the LM serving path for
+    # flash attention; no path runs the bitset AND-popcount or the segment
+    # outer product, which only the kernel router reaches
     entries = (("searchsorted_segments", "searchsorted_segments",
                 launches["searchsorted_segments"]),
                ("bitset_member", "bitset_member",
@@ -898,7 +1254,11 @@ def main() -> int:
                ("intersect_count", "tile_member_mask",
                 auto_launches["tile_member_mask"]),
                ("bitset_intersect_count", "bitset_intersect_count",
-                auto_launches["bitset_intersect_count"]))
+                auto_launches["bitset_intersect_count"]),
+               ("flash_attention", "flash_attention",
+                lm_launches["flash_attention"]),
+               ("segment_outer", "segment_outer",
+                lm_launches["segment_outer"]))
     keys = ("source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [

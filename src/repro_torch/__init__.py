@@ -3,7 +3,8 @@
 Counts and enumerates graph patterns over a CSR graph with the same
 planner and the same three device engines as the JAX package (``vlftj``,
 ``yannakakis``, ``hybrid``), held against it on the same inputs: counts
-and rows match exactly.
+and rows match exactly.  Serves the dense LM transformer, whose logits
+match the JAX package's within its own tolerances.
 
 * ``graphs/`` and the planning half of ``core/`` (query, hypergraph, gao,
   agm, plan, planner) are copies of the JAX package's numpy/scipy
@@ -18,8 +19,12 @@ and rows match exactly.
 * ``results/`` holds the enumeration side: flat and factorized result
   sets, the bounded-memory page cursor and backward expansion for the
   message-passing engines (``core.engine.enumerate`` / ``stream``).
+* ``layers/``, ``models/transformer.py`` and ``configs/`` serve the
+  dense decoder-only LM (prefill, KV-cache decode, forward) with the
+  flash-attention kernel in every layer.
 * ``convert.py`` builds the port's graph databases and plans from the
-  JAX package's plain arrays and fields.
+  JAX package's plain arrays and fields, and the transformer's
+  parameters from the JAX package's.
 
 Counts are int64, written out explicitly (the JAX package gets int64
 from its global x64 switch).

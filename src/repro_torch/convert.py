@@ -77,3 +77,27 @@ def plan_from_fields(query, engine: str, gao, *, level_layouts=(),
     return JoinPlan(query=query_from_text(query), engine=engine,
                     gao=tuple(gao), decomposition=hp, root=root,
                     level_layouts=tuple(level_layouts))
+
+
+def transformer_params_from_numpy(params: dict, cfg, *,
+                                  device: torch.device | str) -> dict:
+    """The port's transformer parameters from the JAX package's, given as
+    a dict of numpy arrays (``{k: np.asarray(v) for k, v in p.items()}``;
+    bf16 arrives as ``ml_dtypes.bfloat16`` and goes through float32).
+    Each keeps its dtype and shape; names and shapes must be those of
+    ``models.transformer.init_params`` for ``cfg``."""
+    from .models.transformer import param_shapes
+    shapes = param_shapes(cfg)
+    if set(params) != set(shapes):
+        raise ValueError(f"parameter names {sorted(params)} != "
+                         f"{sorted(shapes)}")
+    out = {}
+    for name, a in params.items():
+        a = np.asarray(a)
+        if tuple(a.shape) != shapes[name]:
+            raise ValueError(f"{name}: shape {a.shape} != {shapes[name]}")
+        bf16 = a.dtype.name == "bfloat16"
+        t = torch.from_numpy(np.array(a, dtype=np.float32 if bf16 else a.dtype))
+        out[name] = t.to(device=device,
+                         dtype=torch.bfloat16 if bf16 else t.dtype)
+    return out

@@ -26,20 +26,10 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..graphs.csr import CSRGraph
 from ..graphs.layout import (HybridLayout, degree_sort_permutation,
                              map_rows_back, renumber_csr)
-
-
-def resolve_device(device) -> torch.device:
-    """``torch.device`` of ``device``; raises for a CUDA device that this
-    process cannot use (no silent move to the CPU)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "GraphDB(device='cuda') needs a CUDA device and none is "
-            "available; pass device='cpu' to run the plain PyTorch path")
-    return dev
 
 
 @dataclass

@@ -36,6 +36,7 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
+_I32 = ctypes.c_int
 #: C signature of every entry point: name -> argtypes (restype is int)
 SIGNATURES = {
     "searchsorted_segments_launch": (
@@ -50,12 +51,16 @@ SIGNATURES = {
     "intersect_count_launch": (
         _P, _I64, _P, _P, _I64, _P, _I64, _P, _P),
     "bitset_intersect_count_launch": (_P, _P, _I64, _I64, _P, _P),
+    "flash_attention_launch": (
+        _P, _P, _P, _P, *(_I64,) * 15, ctypes.c_float, _I32, _I32, _P),
+    "segment_outer_launch": (_P, _P, _P, _P, *(_I64,) * 7, _P, _P),
 }
 
 #: kernel name -> launches since the last reset_launches()
 LAUNCHES = {"searchsorted_segments": 0, "bitset_member_mask": 0,
             "bitset_member_count": 0, "tile_member_mask": 0,
-            "intersect_count": 0, "bitset_intersect_count": 0}
+            "intersect_count": 0, "bitset_intersect_count": 0,
+            "flash_attention": 0, "segment_outer": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

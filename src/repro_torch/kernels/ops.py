@@ -10,11 +10,14 @@ from __future__ import annotations
 import torch
 
 from . import ref as _ref
+from .flash_attention import flash_attention_cuda
 from .intersect import intersect_count_cuda, tile_member_mask_cuda
 from .intersect_bitset import (bitset_intersect_count_cuda,
                                bitset_member_count_cuda,
                                bitset_member_mask_cuda)
 from .searchsorted import searchsorted_segments_cuda
+from .segment_outer import DEF_BN, DEF_TE, segment_outer_cuda
+from .segment_outer import check_shapes as _segment_outer_shapes
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -84,3 +87,28 @@ def bitset_member_count(words, b, b_len):
     if _on_cpu(words):
         return _ref.bitset_member_count_ref(words, b, b_len)
     return bitset_member_count_cuda(words, b, b_len)
+
+
+def flash_attention(q, k, v, causal: bool = True, scale=None):
+    """Causal GQA softmax attention, queries the last Tq positions of the
+    Tk stream; see :func:`kernels.ref.flash_attention_ref`.  As in the JAX
+    package, the plain path takes any shape and the kernel path raises
+    where ``flash_attention_pallas`` asserts
+    (:func:`kernels.flash_attention.check_shapes`: Tq and Tk multiples of
+    min(128, T))."""
+    if _on_cpu(q):
+        return _ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
+    return flash_attention_cuda(q, k, v, causal=causal, scale=scale)
+
+
+def segment_outer(msg, basis, dst, block_tile0, n_nodes: int, n_tiles: int,
+                  bn: int = DEF_BN, te: int = DEF_TE):
+    """Segment-sum of per-edge outer products over dst-sorted edges, the
+    arguments of ``segment_outer_pallas``; see
+    :func:`kernels.ref.segment_outer_ref`.  Both paths raise where the
+    JAX function asserts (E % te == 0, n_nodes % bn == 0)."""
+    _segment_outer_shapes(msg, basis, dst, n_nodes, bn, te)
+    if _on_cpu(msg):
+        return _ref.segment_outer_ref(msg, basis, dst, n_nodes)
+    return segment_outer_cuda(msg, basis, dst, block_tile0, n_nodes, n_tiles,
+                              bn=bn, te=te)

@@ -185,3 +185,56 @@ def bitset_member_count_ref(words: torch.Tensor, b: torch.Tensor,
     valid = lanes[None, :] < b_len[:, None]
     hit = bitset_member_ref(words, torch.where(valid, b, 0)) & valid
     return hit.sum(dim=1, dtype=torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (causal, GQA) and the segment outer product
+# ---------------------------------------------------------------------------
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True,
+                        scale: float | None = None) -> torch.Tensor:
+    """Plain softmax attention: f32 math, output in q's dtype.
+
+    q: (B, Hq, Tq, D); k, v: (B, Hkv, Tk, D); Hq % Hkv == 0 (query head h
+    reads KV head h // (Hq / Hkv)).  The queries are the last Tq
+    positions of the Tk stream."""
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    qg = q.reshape(b, hkv, group, tq, d).float()
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * scale
+    if causal:
+        qpos = torch.arange(tq, device=q.device) + (tk - tq)
+        mask = qpos[:, None] >= torch.arange(tk, device=q.device)[None, :]
+        logits = logits.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    return out.reshape(b, hq, tq, d).to(q.dtype)
+
+
+def segment_outer_ref(msg: torch.Tensor, basis: torch.Tensor,
+                      dst: torch.Tensor, n_nodes: int,
+                      chunk_bytes: int = 1 << 28) -> torch.Tensor:
+    """Segment-sum of explicit outer products:
+    ``out[n, c, m] = sum over j with dst[j] == n of msg[j, c] * basis[j, m]``.
+
+    msg (E, C), basis (E, M), dst (E,); ``dst`` is clipped to
+    [0, n_nodes] and the rows landing on ``n_nodes`` (the padding) are
+    dropped.  The (E, C, M) products are formed in the inputs' dtype
+    ``chunk_bytes`` at a time and scattered with ``index_add_`` into a
+    float64 sum, rounded once to float32: a node may have 10^5 edges,
+    where float32 sums in two orders differ by ~1e-2 on entries near 0.
+    Returns (n_nodes, C, M) float32."""
+    e, c = msg.shape
+    m = basis.shape[1]
+    out = torch.zeros((n_nodes + 1, c, m), dtype=torch.float64,
+                      device=msg.device)
+    safe = dst.long().clamp(0, n_nodes)
+    step = max(1, chunk_bytes // (8 * c * m))
+    for s in range(0, e, step):
+        prod = msg[s:s + step, :, None] * basis[s:s + step, None, :]
+        out.index_add_(0, safe[s:s + step], prod.double())
+    return out[:n_nodes].float()

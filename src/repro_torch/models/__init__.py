@@ -1,0 +1,3 @@
+"""The port's models.  ``transformer``: the dense decoder-only LM
+(forward, prefill, KV-cache decode), held against
+``repro.models.transformer`` on the same parameters."""

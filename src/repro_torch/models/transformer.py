@@ -1,0 +1,305 @@
+"""Decoder-only dense transformer: forward, prefill and KV-cache decode.
+
+The PyTorch version of ``repro.models.transformer`` for one card, with
+the same config fields, parameter names and stacked ``(L, ...)`` layout,
+so the JAX package's parameters carry across unchanged
+(``convert.transformer_params_from_numpy``):
+
+* GQA attention with RoPE (full, or ChatGLM-style on half the head dims)
+  through ``kernels.ops.flash_attention`` in every layer of ``forward``
+  and ``prefill``: the hand-written CUDA kernel on the card, its plain
+  version on the CPU;
+* the projections are plain ``torch`` matrix products (the JAX package
+  leaves them to XLA, outside any kernel), with float32 accumulation;
+  the gate and up projections keep their float32 results up to the
+  activation, as the JAX package does;
+* ``decode_step`` attends over the KV cache with the plain
+  ``_cached_attention`` (plain jnp in the JAX package too).  It writes the
+  new token's K and V into the cache tensors **in place** (the JAX
+  package returns new arrays), which saves a copy of the whole cache per
+  step; the returned cache holds the same tensors.
+
+Two JAX behaviours are reproduced on purpose: token ids are clamped into
+the embedding table (JAX clamps an out-of-range gather, PyTorch raises),
+and the decode write position is clamped to ``max_len - 1``
+(``jax.lax.dynamic_update_slice`` clamps its start).
+
+The mesh options (``fsdp``, ``seq_shard``, ``attn_head_shard``) and
+``remat`` are fields for parity and do nothing here: one card has no
+mesh, and remat is a training concern.  MoE configs wait for
+``layers/moe.py``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..device import resolve_device
+from ..kernels import ops as kops
+from ..layers.common import act_fn, apply_rope, make_norm, normal_init
+
+#: the ROADMAP item that ports ``layers/moe.py``
+MOE_ITEM = "ROADMAP Queue 1 item 11b (layers/moe.py and the MoE configs)"
+
+
+@dataclass(frozen=True)
+class TransformerConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    d_head: int | None = None
+    rope_frac: float = 1.0
+    rope_theta: float = 10_000.0
+    act: str = "silu"
+    norm: str = "rmsnorm"
+    use_bias: bool = False
+    tie_embeddings: bool = True
+    moe: object | None = None
+    dtype: torch.dtype = torch.bfloat16
+    remat: bool = True
+    fsdp: bool = False
+    seq_shard: bool = False
+    attn_head_shard: bool = True
+    loss_seq_chunk: int = 0
+    max_cache_len: int = 32768
+
+    def __post_init__(self):
+        if self.moe is not None:
+            raise NotImplementedError(
+                f"{self.name}: MoE blocks are not ported yet ({MOE_ITEM})")
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_head or self.d_model // self.n_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab rounded up to a multiple of 256 (padded logits are masked)."""
+        if self.vocab_size % 256 == 0:
+            return self.vocab_size
+        return ((self.vocab_size + 255) // 256) * 256
+
+    @property
+    def n_params(self) -> int:
+        d, l, v = self.d_model, self.n_layers, self.vocab_size
+        hq, hkv, dh = self.n_heads, self.n_kv_heads, self.head_dim
+        attn = d * hq * dh * 2 + d * hkv * dh * 2
+        ffn = 3 * d * self.d_ff
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        return l * (attn + ffn + 2 * d) + emb + d
+
+    @property
+    def n_active_params(self) -> int:
+        """Active params per token: all of them in a dense model."""
+        return self.n_params
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+_NORMS = ("ln1", "ln2", "ln_f")
+
+
+def init_params(cfg: TransformerConfig, generator: torch.Generator | None = None,
+                device: torch.device | str = "cuda") -> dict:
+    """Random parameters with the JAX package's names and stacked shapes:
+    normal(0, 0.02) weights in ``cfg.dtype`` from ``generator`` (a fresh
+    one seeded 0 on ``device`` when omitted), float32 norm scales of 1."""
+    dev = resolve_device(device, "init_params")
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    return {name: (torch.ones(shape, dtype=torch.float32, device=dev)
+                   if name in _NORMS else
+                   normal_init(generator, shape, dtype=cfg.dtype, device=dev))
+            for name, shape in param_shapes(cfg).items()}
+
+
+def param_shapes(cfg: TransformerConfig) -> dict:
+    """Parameter name -> shape, as :func:`init_params` makes them."""
+    l, d, v = cfg.n_layers, cfg.d_model, cfg.padded_vocab
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    shapes = {"embed": (v, d), "ln1": (l, d), "wq": (l, d, hq * dh),
+              "wk": (l, d, hkv * dh), "wv": (l, d, hkv * dh),
+              "wo": (l, hq * dh, d), "ln2": (l, d), "ln_f": (d,),
+              "w_gate": (l, d, cfg.d_ff), "w_up": (l, d, cfg.d_ff),
+              "w_down": (l, cfg.d_ff, d)}
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = (d, v)
+    return shapes
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+def _matmul(x: torch.Tensor, w: torch.Tensor,
+            out_dtype: torch.dtype) -> torch.Tensor:
+    """``einsum(x, w, preferred_element_type=f32).astype(out_dtype)``: a
+    product with float32 accumulation.  A bf16 product asked for a
+    float32 result keeps it unrounded (``torch.mm``'s ``out_dtype`` on the
+    card; float32 operands on the CPU)."""
+    if out_dtype == torch.float32 and x.dtype != torch.float32:
+        if x.is_cuda:
+            y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=out_dtype)
+            return y.reshape(*x.shape[:-1], w.shape[-1])
+        return torch.matmul(x.float(), w.float())
+    return torch.matmul(x, w).to(out_dtype)
+
+
+def _embed(params: dict, tokens: torch.Tensor, cfg: TransformerConfig):
+    """``params["embed"][tokens]`` with JAX's gather semantics: a negative
+    id counts from the end, then ids are clamped into the table (7 -> 4
+    and -7 -> 0 in a table of 5), where PyTorch would raise."""
+    table = params["embed"]
+    n = table.shape[0]
+    t = tokens.long()
+    t = torch.where(t < 0, t + n, t).clamp(0, n - 1)
+    return table[t].to(cfg.dtype)
+
+
+def _attention(x, lp, cfg: TransformerConfig, positions):
+    b, s, _ = x.shape
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = _matmul(x, lp["wq"], cfg.dtype).reshape(b, s, hq, dh)
+    k = _matmul(x, lp["wk"], cfg.dtype).reshape(b, s, hkv, dh)
+    v = _matmul(x, lp["wv"], cfg.dtype).reshape(b, s, hkv, dh)
+    q = apply_rope(q, positions, cfg.rope_frac, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_frac, cfg.rope_theta)
+    # (B, H, S, D) views: the kernel reads them through their strides
+    q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    o = kops.flash_attention(q, k, v, causal=True)            # (B,Hq,S,Dh)
+    o = o.transpose(1, 2).reshape(b, s, hq * dh)
+    return _matmul(o, lp["wo"], cfg.dtype), (k, v)
+
+
+def _dense_ffn(x, lp, cfg: TransformerConfig):
+    g = _matmul(x, lp["w_gate"], torch.float32)
+    u = _matmul(x, lp["w_up"], torch.float32)
+    h = (act_fn(cfg.act)(g) * u).to(cfg.dtype)
+    return _matmul(h, lp["w_down"], cfg.dtype)
+
+
+def _layer(x, lp, cfg: TransformerConfig, positions):
+    norm = make_norm(cfg.norm)
+    attn_out, kv = _attention(norm(x, {"scale": lp["ln1"]}), lp, cfg,
+                              positions)
+    x = x + attn_out
+    x = x + _dense_ffn(norm(x, {"scale": lp["ln2"]}), lp, cfg)
+    return x, kv
+
+
+_LAYER_KEYS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "w_gate", "w_up",
+               "w_down")
+
+
+def _layer_params(params: dict, i: int) -> dict:
+    return {k: params[k][i] for k in _LAYER_KEYS}
+
+
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig):
+    """Token ids (B, S) -> final hidden states (B, S, d) and the mean aux
+    loss (0 for a dense model)."""
+    b, s = tokens.shape
+    x = _embed(params, tokens, cfg)
+    positions = _positions(b, s, x.device)
+    for i in range(cfg.n_layers):
+        x, _ = _layer(x, _layer_params(params, i), cfg, positions)
+    x = make_norm(cfg.norm)(x, {"scale": params["ln_f"]})
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _lm_logits(x, params: dict, cfg: TransformerConfig) -> torch.Tensor:
+    """float32 logits over the padded vocab; padded ids masked to -1e30."""
+    head = (params["embed"].T if cfg.tie_embeddings
+            else params["lm_head"]).to(cfg.dtype)
+    logits = _matmul(x, head, torch.float32)
+    if cfg.padded_vocab != cfg.vocab_size:
+        logits[..., cfg.vocab_size:] = -1e30
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + decode with KV cache
+# ---------------------------------------------------------------------------
+
+def prefill(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
+            max_len: int | None = None):
+    """Run the prompt, return (cache, last-position logits).  The cache's
+    ``k`` and ``v`` are (L, B, Hkv, max_len, Dh) in ``cfg.dtype``, zero
+    past the prompt; ``len`` is the prompt length."""
+    b, s = tokens.shape
+    ml = max_len or cfg.max_cache_len
+    if s > ml:
+        raise ValueError(f"prefill: prompt of {s} tokens > max_len {ml}")
+    x = _embed(params, tokens, cfg)
+    positions = _positions(b, s, x.device)
+    shape = (cfg.n_layers, b, cfg.n_kv_heads, ml, cfg.head_dim)
+    ks = torch.zeros(shape, dtype=cfg.dtype, device=x.device)
+    vs = torch.zeros(shape, dtype=cfg.dtype, device=x.device)
+    for i in range(cfg.n_layers):
+        x, (k, v) = _layer(x, _layer_params(params, i), cfg, positions)
+        ks[i, :, :, :s] = k
+        vs[i, :, :, :s] = v
+    x = make_norm(cfg.norm)(x, {"scale": params["ln_f"]})
+    logits = _lm_logits(x[:, -1:, :], params, cfg)
+    return {"k": ks, "v": vs, "len": s}, logits
+
+
+def _cached_attention(q, kc, vc, valid_len: int, cfg: TransformerConfig):
+    """q: (B, Hq, 1, Dh) vs cache (B, Hkv, M, Dh) masked to valid_len."""
+    b, hq, _, dh = q.shape
+    hkv, m = kc.shape[1], kc.shape[2]
+    qg = q.reshape(b, hkv, hq // hkv, dh).float()
+    logits = torch.einsum("bhgd,bhmd->bhgm", qg, kc.float()) / (dh ** 0.5)
+    mask = torch.arange(m, device=q.device) < valid_len
+    logits = logits.masked_fill(~mask, -1e30)
+    p = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bhgm,bhmd->bhgd", p, vc.float())
+    return o.reshape(b, hq, 1, dh).to(cfg.dtype)
+
+
+def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
+                cfg: TransformerConfig):
+    """One token for every sequence: tokens (B, 1) -> (logits, new cache).
+
+    The token's K and V are written into ``cache["k"]``/``cache["v"]`` in
+    place at position ``cache["len"]``, clamped into [0, max_len - 1] as
+    ``jax.lax.dynamic_update_slice`` clamps it; the returned cache holds
+    the same tensors with ``len`` one larger."""
+    b = tokens.shape[0]
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n = cache["len"]
+    ml = cache["k"].shape[3]
+    slot = n + ml if n < 0 else n
+    slot = min(max(slot, 0), ml - 1)
+    norm = make_norm(cfg.norm)
+    x = _embed(params, tokens, cfg)
+    pos = torch.full((b, 1), n, dtype=torch.int32, device=x.device)
+    for i in range(cfg.n_layers):
+        lp = _layer_params(params, i)
+        kc, vc = cache["k"][i], cache["v"][i]
+        h = norm(x, {"scale": lp["ln1"]})
+        q = _matmul(h, lp["wq"], cfg.dtype).reshape(b, 1, hq, dh)
+        k = _matmul(h, lp["wk"], cfg.dtype).reshape(b, 1, hkv, dh)
+        v = _matmul(h, lp["wv"], cfg.dtype).reshape(b, 1, hkv, dh)
+        q = apply_rope(q, pos, cfg.rope_frac, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_frac, cfg.rope_theta)
+        kc[:, :, slot] = k[:, 0]
+        vc[:, :, slot] = v[:, 0]
+        o = _cached_attention(q.transpose(1, 2), kc, vc, n + 1, cfg)
+        o = o.transpose(1, 2).reshape(b, 1, hq * dh)
+        x = x + _matmul(o, lp["wo"], cfg.dtype)
+        x = x + _dense_ffn(norm(x, {"scale": lp["ln2"]}), lp, cfg)
+    x = make_norm(cfg.norm)(x, {"scale": params["ln_f"]})
+    logits = _lm_logits(x, params, cfg)
+    return logits, {"k": cache["k"], "v": cache["v"], "len": n + 1}

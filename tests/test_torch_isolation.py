@@ -29,7 +29,12 @@ def test_importing_every_port_module_imports_no_jax():
             "repro_torch.kernels.intersect", "repro_torch.results.cursor",
             "repro_torch.results.expand", "repro_torch.results.backward",
             "repro_torch.results.factorize",
-            "repro_torch.results.result_set"} <= set(mods)
+            "repro_torch.results.result_set",
+            "repro_torch.kernels.flash_attention",
+            "repro_torch.kernels.segment_outer",
+            "repro_torch.layers.common", "repro_torch.models.transformer",
+            "repro_torch.configs.common", "repro_torch.configs.chatglm3_6b",
+            "repro_torch.configs.stablelm_3b"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -73,3 +78,19 @@ def test_default_device_is_the_card(monkeypatch):
     assert db.dev("indices").device.type == "cpu"
     hdb = HybridGraphDB.build(g, device="cpu")
     assert hdb.dev("bitset_words").device.type == "cpu"
+
+
+def test_default_device_is_the_card_for_the_transformer(monkeypatch):
+    """Parameters built for the default device raise without a card;
+    device='cpu' is the explicit way."""
+    import torch
+    from repro_torch.configs import STABLELM_3B, reduced_cfg
+    from repro_torch.models.transformer import init_params
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced_cfg(STABLELM_3B)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(cfg, torch.Generator().manual_seed(0))
+    p = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    assert p["embed"].device.type == "cpu"

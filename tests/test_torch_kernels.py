@@ -207,7 +207,8 @@ def test_ops_route_cpu_tensors_to_plain_versions():
                        ref.bitset_intersect_count_ref(words, words.flip(0)))
     assert set(build.LAUNCHES) == {
         "searchsorted_segments", "bitset_member_mask", "bitset_member_count",
-        "tile_member_mask", "intersect_count", "bitset_intersect_count"}
+        "tile_member_mask", "intersect_count", "bitset_intersect_count",
+        "flash_attention", "segment_outer"}
     assert not any(build.LAUNCHES.values())
 
 
@@ -247,7 +248,7 @@ def test_ctypes_signatures_match_c_entry_points():
             found[m.group(1)] = len(m.group(2).split(","))
     assert {p.name for p in build.sources()} == {
         "searchsorted.cu", "bitset_member.cu", "intersect.cu",
-        "bitset_intersect.cu"}
+        "bitset_intersect.cu", "flash_attention.cu", "segment_outer.cu"}
     assert found == {k: len(v) for k, v in build.SIGNATURES.items()}
 
 

@@ -1,0 +1,231 @@
+"""The port's flash-attention and segment-outer paths on the CPU against
+the JAX package: the Pallas kernels (interpret mode, as
+``tests/test_kernels.py`` and ``tests/test_kernels_extra.py`` run them)
+and the jnp references, on the same numpy inputs.
+
+Tolerances are the JAX package's own for these kernels: 2e-5 for
+float32 attention and 2e-2 for bfloat16 (bf16 rounds the inputs and the
+output), 2e-4 for the segment outer product (its sums run in another
+order than ``segment_sum``'s).  The CUDA kernels run only on the card;
+``chip_smoke.py`` holds them against these same plain versions there.
+"""
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+from numpy.testing import assert_allclose
+
+import repro  # noqa: F401  (x64 for the reference)
+from repro.kernels.flash_attention import flash_attention_pallas
+from repro.kernels.ref import flash_attention_ref as j_flash_ref
+from repro.kernels.segment_outer import block_tile_starts as j_tile_starts
+from repro.kernels.segment_outer import (segment_outer_pallas,
+                                         segment_outer_ref as j_outer_ref)
+
+from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.segment_outer import (block_tile_starts,
+                                               segment_outer_cuda)
+
+# the port's CPU tensors here are small: one intra-op thread per test
+# process keeps parallel test workers from oversubscribing the cores
+torch.set_num_threads(1)
+
+TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+JAX_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _qkv(seed, b, hq, hkv, tq, tk, d, dtype):
+    """q, k, v drawn with numpy and rounded to ``dtype`` once, so both
+    packages see the same values."""
+    rng = np.random.default_rng(seed)
+    np_dt = ml_dtypes.bfloat16 if dtype == "bfloat16" else np.float32
+    return tuple(rng.standard_normal(s).astype(np_dt) for s in
+                 ((b, hq, tq, d), (b, hkv, tk, d), (b, hkv, tk, d)))
+
+
+def _both(arrs, dtype):
+    j = tuple(jnp.asarray(a, JAX_DT[dtype]) for a in arrs)
+    t = tuple(torch.from_numpy(np.asarray(a, np.float32)).to(TORCH_DT[dtype])
+              for a in arrs)
+    return j, t
+
+
+def _f32(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else x,
+                      np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_plain_matches_pallas_and_ref(dtype, hq, hkv, causal):
+    (jq, jk, jv), (q, k, v) = _both(_qkv(0, 2, hq, hkv, 256, 256, 64, dtype),
+                                    dtype)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert got.dtype == TORCH_DT[dtype] and got.shape == q.shape
+    tol = TOL[dtype]
+    for want in (flash_attention_pallas(jq, jk, jv, causal=causal),
+                 j_flash_ref(jq, jk, jv, causal=causal)):
+        assert_allclose(_f32(got), _f32(want), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("hq,hkv,tq,tk", [
+    (4, 2, 1, 256),      # the decode shape: Tq = 1 against Tk = 256
+    (32, 2, 128, 128),   # chatglm3's GQA group of 16
+    (32, 2, 1, 256),
+    (4, 4, 12, 12),      # a prompt below one block
+])
+def test_flash_attention_shapes(hq, hkv, tq, tk):
+    (jq, jk, jv), (q, k, v) = _both(_qkv(1, 2, hq, hkv, tq, tk, 64,
+                                         "float32"), "float32")
+    got = ops.flash_attention(q, k, v, causal=True)
+    for want in (flash_attention_pallas(jq, jk, jv, causal=True),
+                 j_flash_ref(jq, jk, jv, causal=True)):
+        assert_allclose(_f32(got), _f32(want), atol=2e-5, rtol=2e-5)
+
+
+def test_flash_attention_reads_strided_views():
+    """The transformer passes (B, T, H, D) tensors transposed to
+    (B, H, T, D), which are not contiguous: the result is the same."""
+    (_, _, _), (q, k, v) = _both(_qkv(2, 2, 8, 2, 128, 128, 32, "float32"),
+                                 "float32")
+    qs, ks, vs = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                  for t in (q, k, v))
+    assert not qs.is_contiguous()
+    assert torch.equal(ops.flash_attention(qs, ks, vs),
+                       ops.flash_attention(q, k, v))
+
+
+@pytest.mark.parametrize("shape_q,shape_k,msg", [
+    ((1, 6, 128, 16), (1, 4, 128, 16), "multiple of Hkv"),
+    ((1, 4, 200, 16), (1, 4, 200, 16), "Tq 200"),
+    ((1, 4, 128, 16), (1, 4, 300, 16), "Tk 300"),
+    ((1, 4, 128, 16), (1, 4, 128, 32), "agree on B and D"),
+])
+def test_flash_attention_shape_contract(shape_q, shape_k, msg):
+    """The kernel's wrapper raises where ``flash_attention_pallas``
+    asserts, and the JAX kernel refuses the same shapes."""
+    q = torch.zeros(shape_q)
+    k = torch.zeros(shape_k)
+    with pytest.raises(ValueError, match=msg):
+        flash_attention_cuda(q, k, k)
+    with pytest.raises((AssertionError, TypeError, ValueError)):
+        flash_attention_pallas(jnp.zeros(shape_q), jnp.zeros(shape_k),
+                               jnp.zeros(shape_k))
+
+
+def test_flash_attention_plain_path_takes_any_length():
+    """The plain path, like the JAX package's default ``ops`` route (its
+    jnp reference), takes lengths outside the kernel's contract."""
+    (jq, jk, jv), (q, k, v) = _both(_qkv(5, 1, 4, 2, 200, 300, 16,
+                                         "float32"), "float32")
+    with pytest.raises(ValueError, match="Tq 200"):
+        flash_attention_cuda(q, k, v)
+    assert_allclose(_f32(ops.flash_attention(q, k, v)),
+                    _f32(j_flash_ref(jq, jk, jv)), atol=2e-5, rtol=2e-5)
+
+
+def _outer_inputs(dist, c, m, seed):
+    """The sweep of ``tests/test_kernels_extra.py``: 64 nodes in blocks
+    of 8, 900 real edges (none for ``empty``) padded to 128-edge tiles
+    with ``dst = n_nodes``."""
+    rng = np.random.default_rng(seed)
+    n, bn, te = 64, 8, 128
+    e_real = 0 if dist == "empty" else 900
+    if dist == "uniform":
+        dst = np.sort(rng.integers(0, n, e_real))
+    elif dist == "powerlaw":
+        dst = np.sort((n * rng.random(e_real) ** 3).astype(np.int64))
+    elif dist == "one_block":
+        dst = np.sort(rng.integers(0, bn, e_real))
+    else:
+        dst = np.zeros(0, np.int64)
+    e = max(te, -(-max(e_real, 1) // te) * te)
+    msg = rng.standard_normal((e, c)).astype(np.float32)
+    basis = rng.standard_normal((e, m)).astype(np.float32)
+    dstp = np.full(e, n, np.int32)
+    dstp[:e_real] = dst
+    msg[e_real:] = 0
+    basis[e_real:] = 0
+    return msg, basis, dstp, n, bn, te
+
+
+@pytest.mark.parametrize("dist", ["uniform", "powerlaw", "one_block",
+                                  "empty"])
+@pytest.mark.parametrize("c,m", [(32, 16), (64, 8)])
+def test_segment_outer_plain_matches_pallas_and_ref(dist, c, m):
+    msg, basis, dstp, n, bn, te = _outer_inputs(dist, c, m, seed=1)
+    bt, n_tiles = block_tile_starts(dstp, n, bn, te)
+    got = ops.segment_outer(torch.from_numpy(msg), torch.from_numpy(basis),
+                            torch.from_numpy(dstp), bt, n, n_tiles, bn, te)
+    assert got.shape == (n, c, m) and got.dtype == torch.float32
+    jm, jb, jd = jnp.asarray(msg), jnp.asarray(basis), jnp.asarray(dstp)
+    for want in (segment_outer_pallas(jm, jb, jd, bt, n_nodes=n,
+                                      n_tiles=n_tiles, bn=bn, te=te),
+                 j_outer_ref(jm, jb, jd, n)):
+        assert_allclose(got.numpy(), np.asarray(want), atol=2e-4, rtol=2e-4)
+    if dist == "empty":
+        assert not got.any()
+
+
+def test_segment_outer_plain_in_chunks():
+    """The plain version forms the products a chunk of edges at a time
+    (on the card the whole (E, C, M) product would not fit); the chunk
+    size does not change the sums beyond float64 rounding."""
+    msg, basis, dstp, n, _, _ = _outer_inputs("powerlaw", 32, 16, seed=2)
+    args = (torch.from_numpy(msg), torch.from_numpy(basis),
+            torch.from_numpy(dstp), n)
+    whole = ref.segment_outer_ref(*args)
+    for chunk_bytes in (8 * 32 * 16, 8 * 32 * 16 * 100):
+        assert_allclose(ref.segment_outer_ref(*args, chunk_bytes=chunk_bytes)
+                        .numpy(), whole.numpy(), atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("e,n,bn,te", [(300, 64, 8, 128), (256, 60, 8, 128)])
+def test_segment_outer_shape_contract(e, n, bn, te):
+    """E % te and n_nodes % bn are asserted by the JAX function; the port
+    raises on both paths."""
+    msg, basis = torch.zeros((e, 4)), torch.zeros((e, 2))
+    dst = torch.full((e,), n, dtype=torch.int32)
+    bt = np.zeros(max(1, n // bn), np.int32)
+    with pytest.raises(ValueError, match="pad"):
+        ops.segment_outer(msg, basis, dst, bt, n, 1, bn, te)
+    with pytest.raises(ValueError, match="pad"):
+        segment_outer_cuda(msg, basis, dst, bt, n, 1, bn, te)
+    with pytest.raises(AssertionError, match="pad"):
+        segment_outer_pallas(jnp.zeros((e, 4)), jnp.zeros((e, 2)),
+                             jnp.full((e,), n, jnp.int32), bt, n_nodes=n,
+                             n_tiles=1, bn=bn, te=te)
+
+
+@pytest.mark.parametrize("dist", ["uniform", "powerlaw", "one_block",
+                                  "empty"])
+@pytest.mark.parametrize("bn,te", [(8, 128), (4, 64), (16, 32)])
+def test_block_tile_starts_matches_reference(dist, bn, te):
+    _, _, dstp, n, _, _ = _outer_inputs(dist, 4, 2, seed=3)
+    got_t0, got_n = block_tile_starts(dstp, n, bn, te)
+    want_t0, want_n = j_tile_starts(dstp, n, bn, te)
+    np.testing.assert_array_equal(got_t0, want_t0)
+    assert got_t0.dtype == want_t0.dtype and got_n == want_n
+
+
+def test_new_kernels_route_cpu_tensors_to_plain_versions():
+    build.reset_launches()
+    (_, (q, k, v)) = _both(_qkv(4, 1, 4, 2, 16, 16, 8, "float32"), "float32")
+    assert torch.equal(ops.flash_attention(q, k, v),
+                       ref.flash_attention_ref(q, k, v))
+    msg, basis, dstp, n, bn, te = _outer_inputs("uniform", 8, 4, seed=4)
+    bt, n_tiles = block_tile_starts(dstp, n, bn, te)
+    args = (torch.from_numpy(msg), torch.from_numpy(basis),
+            torch.from_numpy(dstp))
+    assert torch.equal(ops.segment_outer(*args, bt, n, n_tiles, bn, te),
+                       ref.segment_outer_ref(*args, n))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(q, k, v)
+    with pytest.raises(ValueError, match="CUDA"):
+        segment_outer_cuda(*args, bt, n, n_tiles, bn, te)
+    assert build.LAUNCHES["flash_attention"] == 0
+    assert build.LAUNCHES["segment_outer"] == 0
