@@ -7,8 +7,19 @@ kernel against its plain PyTorch version at the main path's shapes
 (exact equality for the join kernels; 2e-2 for bf16 and 2e-5 for f32
 flash attention, 2e-4 for the segment outer product) and times both,
 with the one PyTorch call that computes the same function where there
-is one (``torch.searchsorted``, ``scaled_dot_product_attention``), then
-drives the port's paths on the
+is one (``torch.searchsorted``, ``scaled_dot_product_attention``).  A
+kernel's ``ms`` is its device time from ``torch.profiler``; ``event_ms``
+is the CUDA-event time of back-to-back wrapper calls, host dispatch
+included.  The searchsorted kernel is also held exactly on the inputs
+that leave its shared-memory path (a segment past its staging capacity,
+lo > hi, bounds outside [0, M], per-lane bounds, narrow widths).  Flash
+attention has two kernels, routed by dtype and head dim: bf16 with D 64
+or 128 on the tensor cores (``flash_attention_tc``: the path shape, and
+a bf16 sweep over D, GQA groups, causal offsets, short and ragged
+streams and strided views; its line counts the ``HGMMA`` instructions in
+the built library's SASS where ``cuobjdump`` exists) and the rest on the
+CUDA cores (``flash_attention_simt``: f32 at the path shape and the f32
+sweep).  Then it drives the port's paths on the
 ``soc-Slashdot0811``-like graph (77,360 nodes, 1,778,854 directed edges)
 as a plain ``GraphDB`` and as a ``HybridGraphDB``, each path with the
 kernels' launch counters set to 0 just before it and read just after:
@@ -24,11 +35,12 @@ kernels' launch counters set to 0 just before it and read just after:
 * ``stream`` of those three in ``tile`` mode, every row checked on the
   host with numpy alone, and the factorized 3-clique;
 * chatglm3-6b served at full width and depth in bf16 (``lm serve``): 4
-  requests of 2048 prompt tokens, prefill (28 flash-attention launches)
-  and 32 greedy decode steps, then one prefill profiled; and at full
-  width with 2 layers in f32 (``lm parity``) the card's prefill and
-  decode logits against the port's CPU path (1e-3) and decode against
-  ``forward`` over the concatenated stream (2e-4).
+  requests of 2048 prompt tokens, prefill (28 launches of the
+  tensor-core flash kernel, none of the CUDA-core one) and 32 greedy
+  decode steps, then one prefill profiled; and at full width with 2
+  layers in f32 (``lm parity``, on the CUDA-core flash kernel) the
+  card's prefill and decode logits against the port's CPU path (1e-3)
+  and decode against ``forward`` over the concatenated stream (2e-4).
 
 The counts are checked against counts made on the host with scipy and
 numpy alone (the cliques, 3-path and lollipops), across the two dbs
@@ -97,6 +109,12 @@ OUTER_NODES, OUTER_C, OUTER_M, OUTER_BN, OUTER_TE = 131072, 128, 9, 8, 128
 OUTER_DEGREE = 123718280 / 2449029
 
 
+#: the flash kernel's time at the path shape before its redesign, measured
+#: by this script with CUDA events on an NVIDIA H100 80GB HBM3 at 700 W
+#: (the PERF.md kernel table), printed beside this run's as ``previous_ms``
+PREVIOUS_FLASH_MS = 8.725
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -133,6 +151,36 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_us(e) -> float:
+    """Device time of a ``torch.profiler`` event, in microseconds."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0))
+
+
+def device_ms(fn, reps: int, kernel: str) -> float:
+    """Device time of one launch of the CUDA kernel named ``kernel`` (its
+    function name in ``csrc/``), from ``torch.profiler`` over ``reps``
+    calls of ``fn``: the kernel's own time, averaged over the launches
+    the profiler recorded, without the host's dispatch between launches
+    that ``cuda_ms`` includes when a call's host work outlasts its kernel.
+    Fails if the profiler records no launch of it, twice."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if f"::{kernel}(" in e.key or f"::{kernel}<" in e.key]
+        n = sum(e.count for e in hits)
+        if n:
+            return sum(device_us(e) for e in hits) / 1e3 / n
+    raise SmokeFailure(f"the profiler recorded no launch of {kernel}")
 
 
 def level_inputs(db, rng, rows: int, hubs_only: bool,
@@ -231,6 +279,54 @@ def bound(k: dict) -> dict:
     return k
 
 
+def searchsorted_edges(values, lo, hi, q, n_iter: int) -> dict:
+    """``searchsorted_segments`` exactly against its plain version on the
+    inputs that leave the shared-memory path: a segment longer than the
+    kernel's staging capacity (8,192 values), also with too few rounds to
+    finish; lo > hi; lo < 0 and hi > M; per-lane (R, W) bounds; narrow
+    widths, where a block holds several rows (and the rows' segments
+    together overflow the capacity).  Returns the found count per case."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    dev = q.device
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    m = values.shape[0]
+    n_long = 20000
+    long_v = torch.sort(torch.randint(0, 1 << 20, (n_long,), generator=g,
+                                      device=dev)).values.int()
+    q_long = torch.randint(0, 1 << 20, (16, 512), generator=g, device=dev,
+                           dtype=torch.int32)
+    z = torch.zeros((16, 1), dtype=torch.int32, device=dev)
+    lo_gt, hi_gt = lo.clone(), hi.clone()
+    lo_gt[::3] = hi_gt[::3] + 5
+    lo_out, hi_out = lo.clone(), hi.clone()
+    lo_out[::4] = -7
+    hi_out[1::4] = m + 100
+    hi_out[2::4] = m
+    lo_lane = (lo + torch.randint(0, 3, q.shape, generator=g, device=dev,
+                                  dtype=torch.int32)).contiguous()
+    hi_lane = torch.maximum(lo_lane, hi - torch.randint(
+        0, 3, q.shape, generator=g, device=dev, dtype=torch.int32))
+    cases = {"segment above capacity": (long_v, z, z + n_long, q_long, 16),
+             "segment above capacity, 6 rounds": (long_v, z, z + n_long,
+                                                  q_long, 6),
+             "lo > hi": (values, lo_gt, hi_gt, q, n_iter),
+             "lo < 0, hi > M": (values, lo_out, hi_out, q, n_iter),
+             "per-lane (R, W) bounds": (values, lo_lane, hi_lane, q, n_iter)}
+    for w in (1, 3, 8, 40, 256, 600):
+        cases[f"W {w}"] = (values, lo, hi, q[:, :w].contiguous(), n_iter)
+    found = {}
+    for name, args in cases.items():
+        pos, hit = ops.searchsorted_segments(*args)
+        torch.cuda.synchronize()
+        pos_ref, hit_ref = ref.searchsorted_segments_ref(*args)
+        need(torch.equal(pos, pos_ref) and torch.equal(hit, hit_ref),
+             f"searchsorted_segments ({name}) disagrees with its plain "
+             "version")
+        found[name] = int(hit.sum())
+    return found
+
+
 def kernel_phase(T, db, hdb):
     """Each kernel against its plain version at the main path's shapes,
     on the same CUDA tensors; then both timed."""
@@ -270,22 +366,28 @@ def kernel_phase(T, db, hdb):
     lib_pos = torch.searchsorted(segs, q)
     need(torch.equal(lib_pos.int() + lo, pos),
          "torch.searchsorted disagrees with searchsorted_segments")
+    edges = searchsorted_edges(values, lo, hi, q, n_iter)
     out["searchsorted_segments"] = dict(
         source="src/repro_torch/csrc/searchsorted.cu",
         replaces="src/repro/kernels/searchsorted.py:55",
         shape=f"values ({values.shape[0]},) int32, queries ({r}, {w}), "
               f"n_iter {n_iter}",
         max_abs_err=err, found=int(found.sum()),
-        ms=cuda_ms(lambda: ops.searchsorted_segments(values, lo, hi, q,
-                                                     n_iter), 50),
+        ms=device_ms(lambda: ops.searchsorted_segments(
+            values, lo, hi, q, n_iter), 50,
+                     "searchsorted_segments_kernel"),
+        event_ms=cuda_ms(lambda: ops.searchsorted_segments(
+            values, lo, hi, q, n_iter), 50),
         plain_ms=cuda_ms(lambda: ref.searchsorted_segments_ref(
             values, lo, hi, q, n_iter), 10),
+        edge_cases=edges,
         values_read=probed, active_rounds=rounds,
-        ops_model="10 int32 ops per active round (compare, add, shift, "
-                  "2 clamps, compare, and, add, 2 selects) + 5 per lane",
+        ops_model="3 int32 ops per active round (index add, compare, "
+                  "select; the probe is a load) + 3 per lane (pos = lo + l, "
+                  "the in-window and the equality compare)",
         bytes=4 * probed + lo.nbytes + hi.nbytes + q.nbytes + pos.nbytes
         + found.nbytes,
-        ops=10 * rounds + 5 * r * w,
+        ops=3 * rounds + 3 * r * w,
         library_ms=cuda_ms(lambda: torch.searchsorted(segs, q), 50),
         library_call=f"torch.searchsorted(segs, queries), segs the gathered "
                      f"INT32_MAX-padded ({r}, {width}) segments")
@@ -309,7 +411,9 @@ def kernel_phase(T, db, hdb):
         replaces="src/repro/kernels/intersect_bitset.py:103",
         shape=f"words {tuple(words.shape)} int32, cand ({r}, {w})",
         max_abs_err=err, found=int(mask.sum()),
-        ms=cuda_ms(lambda: ops.bitset_member_mask(words, row, qh), 50),
+        ms=device_ms(lambda: ops.bitset_member_mask(words, row, qh), 50,
+                     "bitset_member_mask_kernel"),
+        event_ms=cuda_ms(lambda: ops.bitset_member_mask(words, row, qh), 50),
         plain_ms=cuda_ms(lambda: ref.bitset_member_mask_ref(words, row, qh),
                          10),
         distinct_rows=int(torch.unique(row).numel()),
@@ -340,7 +444,9 @@ def kernel_phase(T, db, hdb):
         replaces="src/repro/kernels/intersect_bitset.py:103",
         shape=f"words {tuple(wrows.shape)} int32, b ({r}, {w})",
         max_abs_err=err, hits=int(cnt.sum()),
-        ms=cuda_ms(lambda: ops.bitset_member_count(wrows, qh, blen), 50),
+        ms=device_ms(lambda: ops.bitset_member_count(wrows, qh, blen), 50,
+                     "bitset_member_count_kernel"),
+        event_ms=cuda_ms(lambda: ops.bitset_member_count(wrows, qh, blen), 50),
         plain_ms=cuda_ms(lambda: ref.bitset_member_count_ref(
             wrows, qh, blen), 10),
         valid_lanes=n_valid, words_read=count_words,
@@ -393,7 +499,10 @@ def kernel_phase_intersect(T, db, hdb):
         replaces="src/repro/kernels/intersect.py:82",
         shape=f"indices ({m},) int32, cand ({r}, {w}), check_width {cw}",
         max_abs_err=err, found=int(mask.sum()),
-        ms=cuda_ms(lambda: ops.tile_member_mask(values, lo, hi, q, cw), 50),
+        ms=device_ms(lambda: ops.tile_member_mask(values, lo, hi, q, cw),
+                     50, "tile_member_mask_kernel"),
+        event_ms=cuda_ms(lambda: ops.tile_member_mask(values, lo, hi, q,
+                                                      cw), 50),
         plain_ms=cuda_ms(lambda: ref.tile_member_mask_ref(values, lo, hi, q,
                                                           cw), 3),
         staged_values=staged, search_rounds=rounds,
@@ -443,7 +552,9 @@ def kernel_phase_intersect(T, db, hdb):
         replaces="src/repro/kernels/intersect.py:82",
         shape=f"a ({r}, {w}), b {tuple(segs.shape)} int32",
         max_abs_err=err, hits=int(cnt.sum()),
-        ms=cuda_ms(lambda: ops.intersect_count(q, alen, segs, n), 50),
+        ms=device_ms(lambda: ops.intersect_count(q, alen, segs, n), 50,
+                     "intersect_count_kernel"),
+        event_ms=cuda_ms(lambda: ops.intersect_count(q, alen, segs, n), 50),
         plain_ms=cuda_ms(lambda: ref.intersect_count_ref(q, alen, segs, n),
                          3),
         valid_lanes=n_valid, search_rounds=rounds,
@@ -485,7 +596,9 @@ def kernel_phase_intersect(T, db, hdb):
         shape=f"a, b {tuple(aw.shape)} int32 (rows of the "
               f"{tuple(words.shape)} bitset matrix)",
         max_abs_err=err, hits=int(both.sum()),
-        ms=cuda_ms(lambda: ops.bitset_intersect_count(aw, bw), 50),
+        ms=device_ms(lambda: ops.bitset_intersect_count(aw, bw), 50,
+                     "bitset_intersect_count_kernel"),
+        event_ms=cuda_ms(lambda: ops.bitset_intersect_count(aw, bw), 50),
         plain_ms=cuda_ms(lambda: ref.bitset_intersect_count_ref(aw, bw), 10),
         ops_model="3 int32 ops per word pair (and, popc, add)",
         bytes=aw.nbytes + bw.nbytes + both.nbytes, ops=3 * aw.numel(),
@@ -501,13 +614,76 @@ def allclose_err(got, want, tol: float) -> tuple[float, bool]:
     return float(err.max()), bool((err <= tol + tol * want.abs()).all())
 
 
+def flash_bf16_sweep(randn) -> list:
+    """The tensor-core flash kernel against its plain version at 2e-2 in
+    bf16: D 64 and 128, GQA groups 1, 4 and 16, causal and not, Tq 1, 64,
+    128 and 2048 against Tk 2048 (the causal offset), a short stream (Tk
+    64) and a ragged one (Tk 100, less than a key tile), contiguous and as
+    transposed (B, T, H, D) views.  Every case must launch the tensor-core
+    kernel.  Returns [D, Hq, Hkv, Tq, Tk, causal, strided, max abs err]."""
+    import torch
+    from repro_torch.kernels import build, ops, ref
+    bf, rows = torch.bfloat16, []
+    build.reset_launches()
+    for d in (64, 128):
+        for group in (1, 4, 16):
+            hkv = 2
+            hq = hkv * group
+            for tq, tk in ((1, 2048), (64, 2048), (128, 2048), (2048, 2048),
+                           (64, 64), (1, 64), (100, 100)):
+                for causal in (True, False):
+                    for strided in (False, True):
+                        if strided:
+                            q, k, v = (randn(1, t_, h_, d, dtype=bf
+                                             ).transpose(1, 2)
+                                       for h_, t_ in ((hq, tq), (hkv, tk),
+                                                      (hkv, tk)))
+                        else:
+                            q, k, v = (randn(1, h_, t_, d, dtype=bf)
+                                       for h_, t_ in ((hq, tq), (hkv, tk),
+                                                      (hkv, tk)))
+                        e, ok = allclose_err(
+                            ops.flash_attention(q, k, v, causal),
+                            ref.flash_attention_ref(q, k, v, causal), 2e-2)
+                        need(ok, f"flash_attention_tc D {d} {hq}/{hkv} Tq "
+                             f"{tq} Tk {tk} causal={causal} strided="
+                             f"{strided}: beyond 2e-2 (max abs err {e})")
+                        rows.append([d, hq, hkv, tq, tk, causal, strided, e])
+    need(build.LAUNCHES["flash_attention_tc"] == len(rows)
+         and build.LAUNCHES["flash_attention_simt"] == 0,
+         f"the bf16 sweep did not run on the tensor-core kernel: "
+         f"{build.LAUNCHES}")
+    return rows
+
+
+def hgmma_counts():
+    """``HGMMA`` instructions (the tensor cores' wgmma) in the SASS of each
+    kernel function of the built library, by ``cuobjdump -sass`` where the
+    toolkit has it; "not available" where it does not."""
+    import shutil
+    from repro_torch.kernels import build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return "not available"
+    sass = subprocess.run([tool, "-sass", build.build_info["path"]],
+                          capture_output=True, text=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif "HGMMA" in line and fn is not None:
+            counts[fn] = counts.get(fn, 0) + 1
+    return counts
+
+
 def kernel_phase_lm():
     """The flash-attention and segment-outer kernels against their plain
     versions on the same CUDA tensors, at the shapes their paths give
     them; then timed, with the library call where PyTorch has one."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels.flash_attention import _launch_simt, route
     from repro_torch.kernels.segment_outer import block_tile_starts
     g = torch.Generator(device="cuda").manual_seed(SEED)
     out = {}
@@ -518,20 +694,32 @@ def kernel_phase_lm():
     # flash_attention at the LM path's shape: chatglm3-6b's 32 query and 2
     # KV heads of 128 dims, 4 requests of 2048 tokens, bf16, causal; q, k
     # and v are (B, T, H, D) projections seen as (B, H, T, D), as prefill
-    # passes them
+    # passes them.  bf16 with D 128 routes to the tensor-core kernel.
     b, hq, hkv, t, d = LM_BATCH, 32, 2, LM_PROMPT, 128
     bf = torch.bfloat16
     q = randn(b, t, hq, d, dtype=bf).transpose(1, 2)
     k = randn(b, t, hkv, d, dtype=bf).transpose(1, 2)
     v = randn(b, t, hkv, d, dtype=bf).transpose(1, 2)
+    need(route(q.device, q.dtype, d) == "tc", "flash route of the path "
+         "shape is not the tensor-core kernel")
+    build.reset_launches()
     o = ops.flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
+    need(build.LAUNCHES["flash_attention_tc"] == 1,
+         f"the path shape did not launch flash_attention_tc: "
+         f"{build.LAUNCHES}")
     err, ok = allclose_err(o, ref.flash_attention_ref(q, k, v), 2e-2)
-    need(ok, f"flash_attention (bf16, path shape) disagrees with its plain "
-         f"version beyond 2e-2 (max abs err {err})")
+    need(ok, f"flash_attention_tc (bf16, path shape) disagrees with its "
+         f"plain version beyond 2e-2 (max abs err {err})")
+    # against the f32 attention of the same bf16 inputs, before rounding
+    err_f32 = float((o.float() - ref.flash_attention_ref(
+        q.float(), k.float(), v.float())).abs().max())
+    tc_sweep = flash_bf16_sweep(randn)
     # the f32 sweep of the JAX package's tests (D 64), the decode shape
-    # (Tq 1 against Tk 256), and chatglm3's group of 16 at D 128
+    # (Tq 1 against Tk 256), and chatglm3's group of 16 at D 128, through
+    # the CUDA-core kernel
     sweep = []
+    build.reset_launches()
     for hq_, hkv_, tq_, tk_, d_ in ((4, 4, 256, 256, 64), (8, 2, 256, 256, 64),
                                     (4, 2, 1, 256, 64), (32, 2, 256, 256, 128),
                                     (32, 2, 1, 256, 128)):
@@ -544,27 +732,73 @@ def kernel_phase_lm():
             need(ok, f"flash_attention f32 {hq_}/{hkv_} Tq {tq_} Tk {tk_} "
                  f"D {d_} causal={causal}: beyond 2e-5 (max abs err {e})")
             sweep.append([hq_, hkv_, tq_, tk_, d_, causal, e])
+    need(build.LAUNCHES["flash_attention_simt"] == len(sweep)
+         and build.LAUNCHES["flash_attention_tc"] == 0,
+         f"the f32 sweep did not run on the CUDA-core kernel: "
+         f"{build.LAUNCHES}")
     qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
     flops = 4 * b * hq * t * t * d / 2
-    out["flash_attention"] = dict(
-        source="src/repro_torch/csrc/flash_attention.cu",
+    tc = dict(
+        source="src/repro_torch/csrc/flash_attention_tc.cu",
         replaces="src/repro/kernels/flash_attention.py:81",
         shape=f"q ({b}, {hq}, {t}, {d}) bf16 as a transposed (B, T, H, D) "
               f"view, k, v ({b}, {hkv}, {t}, {d}), causal",
-        max_abs_err=err, tolerance=2e-2, f32_sweep=sweep,
-        f32_sweep_max_abs_err=max(x[-1] for x in sweep),
-        ms=cuda_ms(lambda: ops.flash_attention(q, k, v), 10),
-        contiguous_ms=cuda_ms(lambda: ops.flash_attention(qc, kc, vc), 10),
+        max_abs_err=err, tolerance=2e-2, max_abs_err_vs_f32=err_f32,
+        bf16_sweep=tc_sweep,
+        bf16_sweep_max_abs_err=max(x[-1] for x in tc_sweep),
+        ms=device_ms(lambda: ops.flash_attention(q, k, v), 20,
+                     "flash_attention_tc_kernel"),
+        event_ms=cuda_ms(lambda: ops.flash_attention(q, k, v), 20),
+        contiguous_ms=cuda_ms(lambda: ops.flash_attention(qc, kc, vc), 20),
+        simt_ms=cuda_ms(lambda: _launch_simt(q, k, v, True, d ** -0.5), 3),
+        previous_ms=PREVIOUS_FLASH_MS,
         plain_ms=cuda_ms(lambda: ref.flash_attention_ref(q, k, v), 3),
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            qc, kc, vc, is_causal=True, enable_gqa=True), 10),
+            qc, kc, vc, is_causal=True, enable_gqa=True), 20),
         library_call="torch.nn.functional.scaled_dot_product_attention("
                      "q, k, v, is_causal=True, enable_gqa=True), contiguous",
         flops_model="4 B Hq T^2 D / 2 (QK^T and PV, causal half)",
         flops=flops, flops_type="bf16",
+        bytes=q.nbytes + k.nbytes + v.nbytes + o.nbytes,
+        hgmma=hgmma_counts())
+    tc["achieved_tflop_s"] = flops / tc["ms"] / 1e9
+    out["flash_attention_tc"] = tc
+    del q, k, v, qc, kc, vc, o
+
+    # the CUDA-core kernel where it runs now: float32, here at the path
+    # shape (the lm parity phase runs it at full width and 2 layers)
+    q = randn(b, t, hq, d).transpose(1, 2)
+    k = randn(b, t, hkv, d).transpose(1, 2)
+    v = randn(b, t, hkv, d).transpose(1, 2)
+    need(route(q.device, q.dtype, d) == "simt", "flash route of f32 is not "
+         "the CUDA-core kernel")
+    o = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err, ok = allclose_err(o, ref.flash_attention_ref(q, k, v), 2e-5)
+    need(ok, f"flash_attention_simt (f32, path shape) disagrees with its "
+         f"plain version beyond 2e-5 (max abs err {err})")
+    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    out["flash_attention_simt"] = dict(
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:81",
+        shape=f"q ({b}, {hq}, {t}, {d}) f32 as a transposed (B, T, H, D) "
+              f"view, k, v ({b}, {hkv}, {t}, {d}), causal",
+        max_abs_err=err, tolerance=2e-5, f32_sweep=sweep,
+        f32_sweep_max_abs_err=max(x[-1] for x in sweep),
+        ms=device_ms(lambda: ops.flash_attention(q, k, v), 5,
+                     "flash_attention_kernel"),
+        event_ms=cuda_ms(lambda: ops.flash_attention(q, k, v), 3),
+        plain_ms=cuda_ms(lambda: ref.flash_attention_ref(q, k, v), 2),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            qc, kc, vc, is_causal=True, enable_gqa=True), 3),
+        library_call="torch.nn.functional.scaled_dot_product_attention("
+                     "q, k, v, is_causal=True, enable_gqa=True), f32, "
+                     "contiguous",
+        flops_model="4 B Hq T^2 D / 2 (QK^T and PV, causal half)",
+        flops=flops, flops_type="fp32",
         bytes=q.nbytes + k.nbytes + v.nbytes + o.nbytes)
-    out["flash_attention"]["achieved_tflop_s"] = (
-        flops / out["flash_attention"]["ms"] / 1e9)
+    out["flash_attention_simt"]["achieved_tflop_s"] = (
+        flops / out["flash_attention_simt"]["ms"] / 1e9)
     del q, k, v, qc, kc, vc, o
 
     # segment_outer at MACE's widths, dst uniform and powerlaw (n u^3)
@@ -593,7 +827,9 @@ def kernel_phase_lm():
         lines[dist] = dict(
             n_tiles=n_tiles, max_abs_err=err,
             max_block_edges=int(torch.bincount(real // OUTER_BN).max()),
-            ms=cuda_ms(lambda: ops.segment_outer(*args), 5),
+            ms=device_ms(lambda: ops.segment_outer(*args), 5,
+                         "segment_outer_kernel"),
+            event_ms=cuda_ms(lambda: ops.segment_outer(*args), 5),
             plain_ms=cuda_ms(lambda: ref.segment_outer_ref(msg, basis, dst,
                                                            n), 2))
         del a
@@ -630,15 +866,11 @@ def gpu_profile(fn, what: str) -> dict:
         fn()
         torch.cuda.synchronize()
 
-    def device_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-
     events = sorted(prof.key_averages(), key=device_us, reverse=True)
     groups = {"flash_attention": 0.0, "gemm": 0.0, "other": 0.0}
     for e in events:
         key = e.key.lower()
-        group = ("flash_attention" if "flash_attention_kernel" in key else
+        group = ("flash_attention" if "flash_attention" in key else
                  "gemm" if any(w in key for w in ("gemm", "xmma", "nvjet",
                                                   "cutlass", "matmul"))
                  else "other")
@@ -702,10 +934,12 @@ def lm_serve():
          and int(ids.min()) >= 0 and int(ids.max()) < cfg.vocab_size,
          "lm serve: greedy ids out of range")
     need(cache["len"] == ml, f"lm serve: cache len {cache['len']} != {ml}")
-    need(prefill_launches["flash_attention"] == cfg.n_layers
-         and launches["flash_attention"] == cfg.n_layers,
-         f"lm serve: {launches['flash_attention']} flash launches, "
-         f"{cfg.n_layers} expected (one per layer of the prefill)")
+    need(prefill_launches["flash_attention_tc"] == cfg.n_layers
+         and launches["flash_attention_tc"] == cfg.n_layers
+         and launches["flash_attention_simt"] == 0,
+         f"lm serve: {launches['flash_attention_tc']} tensor-core and "
+         f"{launches['flash_attention_simt']} CUDA-core flash launches; "
+         f"{cfg.n_layers} and 0 expected (one per layer of the prefill)")
     log(json.dumps(dict(
         path="lm serve", model=cfg.name, n_layers=cfg.n_layers,
         batch=LM_BATCH, prompt_tokens=LM_PROMPT, decode_steps=LM_DECODE,
@@ -733,6 +967,7 @@ def lm_parity():
     from dataclasses import replace
     import torch
     from repro_torch.configs import CHATGLM3_6B
+    from repro_torch.kernels import build
     from repro_torch.models import transformer as tfm
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -746,6 +981,7 @@ def lm_parity():
     errs = {}
     t0 = time.perf_counter()
     runs = {}
+    build.reset_launches()
     for dev, p in (("cuda", params), ("cpu", cpu_params)):
         cache, logits = tfm.prefill(p, tokens.to(dev), cfg, max_len=ml)
         out = [logits]
@@ -786,9 +1022,17 @@ def lm_parity():
         dtype="float32", prompt_tokens=PARITY_PROMPT, steps=PARITY_STEPS,
         forward_prompt_tokens=PARITY_FORWARD_PROMPT,
         card_vs_cpu_max_abs_err=errs, decode_vs_forward_max_abs_err=fwd_errs,
-        wall_s=time.perf_counter() - t0, card_and_cpu_s=cpu_s)))
+        wall_s=time.perf_counter() - t0, card_and_cpu_s=cpu_s,
+        launches=dict(build.LAUNCHES))))
+    launches = dict(build.LAUNCHES)
+    # f32 attention runs on the CUDA-core kernel: one launch per layer of
+    # each prefill and forward
+    need(launches["flash_attention_simt"] > 0
+         and launches["flash_attention_tc"] == 0,
+         f"lm parity: f32 flash launches {launches}")
     del params, cpu_params, runs
     torch.cuda.empty_cache()
+    return launches
 
 
 def main_path(T, dbs):
@@ -992,10 +1236,6 @@ def profile_count(T, db, shape: str, **kw) -> None:
         T.count(query, db, **kw)
         torch.cuda.synchronize()
         wall_profiled = time.perf_counter() - t0
-
-    def device_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
 
     events = sorted(prof.key_averages(), key=device_us, reverse=True)
     busy = sum(device_us(e) for e in events) / 1e6
@@ -1238,14 +1478,17 @@ def main() -> int:
     lm_launches = lm_serve()
     log(f"lm serve: {time.perf_counter() - t0:.2f} s, launches {lm_launches}")
     t0 = time.perf_counter()
-    lm_parity()
-    log(f"lm parity: {time.perf_counter() - t0:.2f} s")
+    parity_launches = lm_parity()
+    log(f"lm parity: {time.perf_counter() - t0:.2f} s, launches "
+        f"{parity_launches}")
 
-    # each TPU kernel once, with the launches of the path that runs it:
-    # the bsearch main path for the first two, the auto path for the tile
+    # each kernel once, with the launches of the path that runs it: the
+    # bsearch main path for the first two, the auto path for the tile
     # kernel (the mask form of intersect_count_pallas; its count form is
     # the "kernel intersect_count" line above), the LM serving path for
-    # flash attention; no path runs the bitset AND-popcount or the segment
+    # the tensor-core flash kernel, the f32 LM parity path for the
+    # CUDA-core one (both replace flash_attention_pallas, split by dtype
+    # and head dim); no path runs the bitset AND-popcount or the segment
     # outer product, which only the kernel router reaches
     entries = (("searchsorted_segments", "searchsorted_segments",
                 launches["searchsorted_segments"]),
@@ -1255,8 +1498,10 @@ def main() -> int:
                 auto_launches["tile_member_mask"]),
                ("bitset_intersect_count", "bitset_intersect_count",
                 auto_launches["bitset_intersect_count"]),
-               ("flash_attention", "flash_attention",
-                lm_launches["flash_attention"]),
+               ("flash_attention_tc", "flash_attention_tc",
+                lm_launches["flash_attention_tc"]),
+               ("flash_attention_simt", "flash_attention_simt",
+                parity_launches["flash_attention_simt"]),
                ("segment_outer", "segment_outer",
                 lm_launches["segment_outer"]))
     keys = ("source", "replaces", "max_abs_err", "ms", "plain_ms",

@@ -3,9 +3,11 @@
 //
 // Replaces: src/repro/kernels/flash_attention.py, flash_attention_pallas
 // (the TPU kernel body _flash_kernel).  Plain PyTorch version:
-// src/repro_torch/kernels/ref.py, flash_attention_ref.  Reached through
-// the kernel router (src/repro_torch/kernels/ops.py) from every layer of
-// the dense transformer's forward and prefill.
+// src/repro_torch/kernels/ref.py, flash_attention_ref.  Since the
+// tensor-core kernel (flash_attention_tc.cu) took bf16 with head dim 64
+// and 128, this one serves float32 and every other head dim (1..128),
+// as kernels/flash_attention.py, route() chooses: the f32 forward and
+// prefill, and models whose heads are 80 or 16 wide.
 //
 // q (B, Hq, Tq, D), k and v (B, Hkv, Tk, D), f32 or bf16, read through
 // element strides for the first three dims (the last one is contiguous),
@@ -41,8 +43,8 @@
 // and o, so the tensor cores' rate bounds it (0.139 ms at 989 TFLOP/s
 // bf16).  This kernel runs on the CUDA cores in f32 (67 TFLOP/s at most)
 // with one or two blocks per SM (117 KB of shared memory per block at
-// D = 128), so it is far from that bound by design: wgmma, TMA and warp
-// specialisation are the redesign's work.
+// D = 128), so it is far from that bound by design; for bf16 at D 64 and
+// 128, flash_attention_tc.cu runs the same work on the tensor cores.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

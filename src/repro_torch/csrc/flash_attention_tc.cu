@@ -1,0 +1,652 @@
+// Flash attention on Hopper's tensor cores (causal, GQA, online softmax):
+// bf16 inputs with head dim 64 or 128, written by hand for sm_90a.
+//
+// Replaces: src/repro/kernels/flash_attention.py, flash_attention_pallas
+// (the TPU kernel body _flash_kernel), for bf16 with D in {64, 128}: the
+// dense transformer's prefill and forward.  Every other dtype and head
+// dim goes to the CUDA-core kernel in flash_attention.cu; the choice is
+// kernels/flash_attention.py, route().  Plain PyTorch version:
+// src/repro_torch/kernels/ref.py, flash_attention_ref.
+//
+// q (B, Hq, Tq, D), k and v (B, Hkv, Tk, D), bf16, read by TMA through
+// 4-D tensor maps over (D, T, H, B) with the tensors' own byte strides,
+// so prefill's (B, T, H, D) -> (B, H, T, D) transposed views are read in
+// place.  Query head h of batch b reads KV head h / (Hq / Hkv).  The
+// queries are the last Tq positions of the Tk stream (q_offset = Tk - Tq).
+// Output (B, Hq, Tq, D) contiguous bf16.
+//
+// What bounds it on the H100: at the main path's shape (B 4, Hq 32,
+// Hkv 2, T 2048, D 128, causal) the work is 137.4 GFLOP against 143 MB of
+// q, k, v and o, so the tensor cores bound it: 0.139 ms at 989 TFLOP/s
+// bf16.  The CUDA-core kernel (flash_attention.cu) reaches about 16
+// TFLOP/s there on an H100 80GB HBM3; this one runs both products on the
+// tensor cores and overlaps the loads with them.
+//
+// Design: one block of 384 threads per (128-query tile, b * Hq + h),
+// the heaviest causal tiles launched first.  Warps 0-7 are two consumer
+// warpgroups of 64 query rows each, warps 8-11 the producer warpgroup;
+// setmaxnreg moves registers from the producer (24 a thread) to the
+// consumers (240), and one producer thread starts every load:
+//  * Q once, and K and V tiles of 128 keys into a ring of three stages,
+//    by TMA with 128-byte swizzle (a D 128 row is 256 B, so each tile
+//    is two boxes of 64 columns), each stage with a full and an empty
+//    mbarrier, so the loads run ahead of the products.
+//  * S = Q K^T: wgmma m64n128k16, Q and K from shared memory (both
+//    K-major, D contiguous), f32 accumulators in registers.
+//  * The online softmax on the accumulator layout: each thread holds
+//    two rows; the row max is taken by shuffles over the 4 threads of a
+//    row, then one FMA (the scale pre-multiplied by log2 e) and one
+//    ex2.approx per score, the running sum kept per thread and reduced
+//    once at the end.
+//  * O += P V: wgmma m64nDk16 with P from registers (the S accumulator
+//    of a 16-key slice, packed to bf16 pairs, is the A-fragment layout)
+//    and V from shared memory through the transpose flag (V has D
+//    contiguous; the keys are the reduction dim).
+//  * Each warpgroup starts tile j's Q K^T and tile j - 1's P V together
+//    and waits for the first only, so tile j's softmax runs while P V is
+//    still on the tensor cores; the output is rescaled once P V is done.
+//    The two warpgroups take turns to start them (named barriers), so one's
+//    products run while the other computes its softmax.
+// Causal: key tiles wholly above the block's diagonal are never loaded
+// (the TPU kernel's `needed` predicate); only tiles that straddle the
+// diagonal or pass Tk are masked elementwise, with the TPU kernel's
+// finite -1e30, never -inf.  Keys past Tk (TMA fills them with zeros)
+// get p = 0; query rows past Tq are computed and never stored.  The
+// result is acc / max(l, 1e-30).
+//
+// Numerics: P is rounded to bf16 before P V, where the TPU kernel keeps
+// it in f32; l sums the f32 p; ex2.approx is within 2 ulp of 2^x.  Against
+// the plain version the difference stays within the bf16 tolerance (2e-2):
+// an output of size 2 to 4 may land one bf16 ulp (1.6e-2) away.
+//
+// Left for later: persistent blocks (each block now waits for its first
+// loads alone on its SM), skipping the rescale where the row max did not
+// move, and a TMA store of the output.
+#include <cstdint>
+#include <cuda.h>  // CUtensorMap and its enums (header only; no -lcuda)
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kBM = 128;        // query rows per block (2 warpgroups x 64)
+constexpr int kBN = 128;        // keys per K/V tile
+constexpr int kStages = 3;      // K/V ring depth
+constexpr int kConsumerWarps = 8;
+constexpr int kThreads = 32 * kConsumerWarps + 128;  // + the producer wg
+constexpr int kRowBytes = 128;  // one swizzled box row: 64 bf16 columns
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct Layout {
+  static constexpr int kQ = kBM * D * 2;    // Q tile bytes
+  static constexpr int kKV = kBN * D * 2;   // K (or V) tile bytes
+  static constexpr int kStage = 2 * kKV;    // K then V
+  static constexpr int kBytes = kQ + kStages * kStage;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets (16-byte units), layout type 1 (B128).
+__device__ __forceinline__ uint64_t desc_b128(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (uint64_t{1} << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed groups of this warpgroup are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Named barriers 1 and 2 order the two consumer warpgroups' wgmma starts
+// (barrier 0 is __syncthreads): a warpgroup waits for its turn on its own
+// barrier and passes the turn on the other's.
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
+}
+
+// Keeps the compiler from moving reads of wgmma accumulators across the
+// wait (the asm statements stay in order; the registers pass through).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+// The same for the P fragments an in-flight wgmma reads: their registers
+// must hold P until the wgmma is done.
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[8][4]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// S = Q K^T for one k16 slice: A (64 x 16) and B (16 x 128 keys) from
+// shared memory, both K-major; scale_d = 0 starts the sum.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// O += P V for one k16 slice: A (64 x 16 of P) from registers, B (16 keys
+// x 128) from shared memory, MN-major (transposed: V has D contiguous).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// O += P V for one k16 slice: A (64 x 16 of P) from registers, B (16 keys
+// x 64) from shared memory, MN-major (transposed: V has D contiguous).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// What the softmax of one warpgroup's tile needs to know of its rows.
+struct Tile {
+  int qpos0;       // stream position of this thread's row r (r + 8: +8)
+  int col0;        // this thread's first column in each 8-column group
+  int wg_first;    // stream position of the warpgroup's first row
+  int tk;
+  int causal;
+  float scale_log2;
+};
+
+// S = Q K^T of a 128-key tile: D / 16 slices of k16; slice k lies in box
+// (column half) k / 4, 32 bytes per slice inside it.  scale_d = 0 on the
+// first slice starts the sum.
+template <int D>
+__device__ __forceinline__ void qk_start(float (&sc)[64], uint32_t qa,
+                                         uint32_t k_s) {
+#pragma unroll
+  for (int k = 0; k < D / 16; ++k) {
+    const uint32_t off = (k % 4) * 32;
+    wgmma_ss_n128(sc,
+                  desc_b128(qa + (k / 4) * kBM * kRowBytes + off, 16, 1024),
+                  desc_b128(k_s + (k / 4) * kBN * kRowBytes + off, 16, 1024),
+                  k > 0);
+  }
+}
+
+// O += P V: V rows 16 kk .. 16 kk + 15 for slice kk; the second column
+// half (D 128) lies kBN rows further (the leading byte offset), 8-row
+// groups 1024 B apart (the stride byte offset).
+template <int D>
+__device__ __forceinline__ void pv_start(float (&acc)[D / 2],
+                                         const uint32_t (&pa)[8][4],
+                                         uint32_t v_s) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const uint64_t db =
+        desc_b128(v_s + 16 * kk * kRowBytes, kBN * kRowBytes, 1024);
+    if constexpr (D == 128) wgmma_rs_n128(acc, pa[kk], db);
+    else wgmma_rs_n64(acc, pa[kk], db);
+  }
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The online softmax of one tile on the accumulator layout, in place:
+// scores sc become p = 2^(s * scale * log2 e - m), m (in those scaled
+// units) and l move on, alpha is the factor the output rows must be
+// rescaled by.  The row max is taken on the raw scores (the scale is
+// positive), a masked score is the finite -1e30 once scaled, and one FMA
+// scales and shifts each score.  Elementwise masks only where the tile
+// passes Tk or straddles the diagonal of this warpgroup's rows.
+__device__ __forceinline__ void softmax_tile(float (&sc)[64], int k0,
+                                             const Tile& t, float (&m)[2],
+                                             float (&l)[2],
+                                             float (&alpha)[2]) {
+  const bool masked =
+      k0 + kBN > t.tk || (t.causal && k0 + kBN - 1 > t.wg_first);
+  const float neg = kNegInf / t.scale_log2;  // -1e30 once scaled
+  float mx[2] = {neg, neg};
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (masked) {
+        const int kpos = k0 + 8 * j + t.col0 + (e & 1);
+        const int qpos = t.qpos0 + 8 * (e >> 1);
+        if (kpos >= t.tk || (t.causal && kpos > qpos)) sc[4 * j + e] = neg;
+      }
+      mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * j + e]);
+    }
+  }
+  float shift[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m[i], mx[i] * t.scale_log2);
+    alpha[i] = ex2(m[i] - m_new);
+    m[i] = m_new;
+    l[i] *= alpha[i];
+    shift[i] = -m_new;
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float p = ex2(fmaf(sc[4 * j + e], t.scale_log2, shift[e >> 1]));
+      if (masked && k0 + 8 * j + t.col0 + (e & 1) >= t.tk) p = 0.f;
+      sc[4 * j + e] = p;
+      l[e >> 1] += p;
+    }
+  }
+}
+
+// P as bf16 A fragments: slice kk covers keys 16 kk .. 16 kk + 15, the
+// accumulator columns j = 2 kk (k 0-7) and 2 kk + 1 (k 8-15).
+__device__ __forceinline__ void pack_p(const float (&sc)[64],
+                                       uint32_t (&pa)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1) flash_attention_tc_kernel(
+    const __grid_constant__ CUtensorMap q_map,
+    const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ o,
+    int hq, int group, int tq, int tk, int n_bh, float scale_log2,
+    int causal) {
+  using L = Layout<D>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * kStages];
+  // 128-byte swizzle repeats every 1024 bytes: align the tiles to it
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t kv_s = q_s + L::kQ;
+  const uint32_t bar_q = smem_u32(&bars[0]);
+  const uint32_t bar_full = smem_u32(&bars[1]);
+  const uint32_t bar_empty = smem_u32(&bars[1 + kStages]);
+
+  // heaviest query tiles first: blockIdx.x runs over (b, h) fastest
+  const int n_qb = static_cast<int>(gridDim.x) / n_bh;
+  const int qb = n_qb - 1 - static_cast<int>(blockIdx.x) / n_bh;
+  const int bh = static_cast<int>(blockIdx.x) % n_bh;
+  const int b = bh / hq, h = bh % hq, kvh = h / group;
+  const int q0 = qb * kBM;
+  const int q_offset = tk - tq;
+  int n_kb = (tk + kBN - 1) / kBN;
+  if (causal) {
+    // the last key any query of this tile may see is q_offset + q0 + 127;
+    // with none visible (Tq > Tk) nothing is accumulated and the output
+    // is 0, as the TPU kernel skips every key block of such a tile
+    const int last = q_offset + q0 + kBM - 1;
+    n_kb = last < 0 ? 0 : min(n_kb, last / kBN + 1);
+  }
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp >= kConsumerWarps) {
+    // the producer warpgroup gives its registers to the consumers; one
+    // thread starts every TMA load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (warp == kConsumerWarps && lane == 0) {
+      mbar_expect_tx(bar_q, L::kQ);
+      for (int c = 0; c < D / 64; ++c)
+        tma_load_4d(q_s + c * kBM * kRowBytes, &q_map, bar_q, 64 * c, q0, h,
+                    b);
+      for (int kb = 0; kb < n_kb; ++kb) {
+        const int s = kb % kStages;
+        // the first pass over the ring finds every stage empty
+        mbar_wait(bar_empty + 8 * s, ((kb / kStages) & 1) ^ 1);
+        const uint32_t full = bar_full + 8 * s;
+        const uint32_t k_s = kv_s + s * L::kStage, v_s = k_s + L::kKV;
+        mbar_expect_tx(full, L::kStage);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_4d(k_s + c * kBN * kRowBytes, &k_map, full, 64 * c,
+                      kb * kBN, kvh, b);
+          tma_load_4d(v_s + c * kBN * kRowBytes, &v_map, full, 64 * c,
+                      kb * kBN, kvh, b);
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  // a consumer warpgroup: query rows 64 wg .. 64 wg + 63 of the tile.  In
+  // the accumulator layout this thread holds rows r and r + 8 (r below),
+  // columns 8 j + 2 (lane % 4) + {0, 1} for j = 0 .. N / 8 - 1.
+  const int wg = warp / 4;
+  const int r = 16 * (warp % 4) + lane / 4;
+  const int row0 = q0 + 64 * wg + r;           // query index of row r
+  Tile tile;
+  tile.qpos0 = q_offset + row0;                // its stream position
+  tile.col0 = 2 * (lane % 4);
+  tile.wg_first = q_offset + q0 + 64 * wg;     // first position of the wg
+  tile.tk = tk;
+  tile.causal = causal;
+  tile.scale_log2 = scale_log2;
+
+  float acc[D / 2], sc[64];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+  uint32_t pa[8][4];
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
+
+  mbar_wait(bar_q, 0);
+  const uint32_t qa = q_s + 64 * wg * kRowBytes;
+  // warpgroup 0 starts first; each starts n_kb + 1 batches, and the last
+  // turn warpgroup 1 would pass on is never waited for
+  if (wg == 1 && n_kb > 0) turn_pass(wg);
+  if (n_kb > 0) {
+    mbar_wait(bar_full, 0);
+    turn_wait(wg);
+    wgmma_fence();
+    qk_start<D>(sc, qa, kv_s);
+    wgmma_commit();
+    turn_pass(wg);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    softmax_tile(sc, 0, tile, m, l, alpha);
+    pack_p(sc, pa);
+  }
+  // Tile kb's Q K^T and tile kb - 1's P V are started together; the
+  // softmax of tile kb runs while P V is still on the tensor cores.
+  for (int kb = 1; kb < n_kb; ++kb) {
+    mbar_wait(bar_full + 8 * (kb % kStages), (kb / kStages) & 1);
+    turn_wait(wg);
+    wgmma_fence();
+    qk_start<D>(sc, qa, kv_s + (kb % kStages) * L::kStage);
+    wgmma_commit();
+    pv_start<D>(acc, pa, kv_s + ((kb - 1) % kStages) * L::kStage + L::kKV);
+    wgmma_commit();
+    turn_pass(wg);
+    wgmma_wait<1>();  // Q K^T done; P V may still run
+    fence_regs(sc);
+    softmax_tile(sc, kb * kBN, tile, m, l, alpha);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(pa);  // P's registers stay untouched until P V is done
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * ((kb - 1) % kStages));
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      acc[4 * j + 0] *= alpha[0];
+      acc[4 * j + 1] *= alpha[0];
+      acc[4 * j + 2] *= alpha[1];
+      acc[4 * j + 3] *= alpha[1];
+    }
+    pack_p(sc, pa);
+  }
+  if (n_kb > 0) {
+    turn_wait(wg);
+    wgmma_fence();
+    pv_start<D>(acc, pa, kv_s + ((n_kb - 1) % kStages) * L::kStage + L::kKV);
+    wgmma_commit();
+    if (wg == 0) turn_pass(wg);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(pa);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] = fmaxf(l[i], 1e-30f);
+  }
+  __nv_bfloat16* op = o + static_cast<int64_t>(bh) * tq * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    if (row >= tq) continue;
+    __nv_bfloat16* orow = op + static_cast<int64_t>(row) * D + tile.col0;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * i] / l[i],
+                                acc[4 * j + 2 * i + 1] / l[i]);
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
+// query, so the library needs no -lcuda
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-D map over (D, T, H, B), innermost first, with byte strides of the
+// T, H and B dims; boxes of 64 columns x `rows` positions of one head.
+bool make_map(CUtensorMap* map, const void* ptr, int64_t d, int64_t t,
+              int64_t h, int64_t b, const int64_t* byte_strides, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(t),
+                              static_cast<cuuint64_t>(h),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(byte_strides[0]),
+                                 static_cast<cuuint64_t>(byte_strides[1]),
+                                 static_cast<cuuint64_t>(byte_strides[2])};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int64_t b,
+           int64_t hq, int64_t hkv, int64_t tq, int64_t tk,
+           const int64_t* q_bs, const int64_t* k_bs, const int64_t* v_bs,
+           float scale, int causal, cudaStream_t stream) {
+  const int64_t n_qb = (tq + kBM - 1) / kBM;
+  const int64_t n_bh = b * hq;
+  const int64_t blocks = n_bh * n_qb;
+  if (blocks == 0) return 0;
+  if (blocks >= (int64_t{1} << 31) || tq >= (int64_t{1} << 31) ||
+      tk >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap q_map, k_map, v_map;
+  if (!make_map(&q_map, q, D, tq, hq, b, q_bs, kBM) ||
+      !make_map(&k_map, k, D, tk, hkv, b, k_bs, kBN) ||
+      !make_map(&v_map, v, D, tk, hkv, b, v_bs, kBN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = Layout<D>::kBytes + 1024;  // + room to align to 1024
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_tc_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_attention_tc_kernel<D><<<static_cast<unsigned>(blocks), kThreads,
+                                 smem, stream>>>(
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o),
+      static_cast<int>(hq), static_cast<int>(hq / hkv), static_cast<int>(tq),
+      static_cast<int>(tk), static_cast<int>(n_bh), scale * kLog2e, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// bf16 only, d 64 or 128.  Byte strides of the (T, H, B) dims of each
+// tensor (the D dim is contiguous); the wrapper (kernels/flash_attention.py,
+// tma_geometry) checks that the base is 16-byte aligned and every stride a
+// multiple of 16 bytes.  o (B, Hq, Tq, D) contiguous.
+extern "C" int flash_attention_tc_launch(
+    const void* q, const void* k, const void* v, void* o, int64_t b,
+    int64_t hq, int64_t hkv, int64_t tq, int64_t tk, int64_t d,
+    int64_t q_st, int64_t q_sh, int64_t q_sb, int64_t k_st, int64_t k_sh,
+    int64_t k_sb, int64_t v_st, int64_t v_sh, int64_t v_sb, float scale,
+    int causal, void* stream) {
+  if (hkv < 1 || hq % hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t qs[3] = {q_st, q_sh, q_sb}, ks[3] = {k_st, k_sh, k_sb},
+                vs[3] = {v_st, v_sh, v_sb};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 64)
+    return launch<64>(q, k, v, o, b, hq, hkv, tq, tk, qs, ks, vs, scale,
+                      causal, s);
+  if (d == 128)
+    return launch<128>(q, k, v, o, b, hq, hkv, tq, tk, qs, ks, vs, scale,
+                       causal, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -53,6 +53,8 @@ SIGNATURES = {
     "bitset_intersect_count_launch": (_P, _P, _I64, _I64, _P, _P),
     "flash_attention_launch": (
         _P, _P, _P, _P, *(_I64,) * 15, ctypes.c_float, _I32, _I32, _P),
+    "flash_attention_tc_launch": (
+        _P, _P, _P, _P, *(_I64,) * 15, ctypes.c_float, _I32, _P),
     "segment_outer_launch": (_P, _P, _P, _P, *(_I64,) * 7, _P, _P),
 }
 
@@ -60,7 +62,8 @@ SIGNATURES = {
 LAUNCHES = {"searchsorted_segments": 0, "bitset_member_mask": 0,
             "bitset_member_count": 0, "tile_member_mask": 0,
             "intersect_count": 0, "bitset_intersect_count": 0,
-            "flash_attention": 0, "segment_outer": 0}
+            "flash_attention_tc": 0, "flash_attention_simt": 0,
+            "segment_outer": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

@@ -1,11 +1,18 @@
 """Flash attention on the card — the attention of every transformer layer.
 
-Wrapper of ``csrc/flash_attention.cu``, the Hopper kernel that replaces
-``repro.kernels.flash_attention.flash_attention_pallas``: causal GQA
+Two hand-written Hopper kernels replace
+``repro.kernels.flash_attention.flash_attention_pallas`` (causal GQA
 attention with an online softmax, the queries being the last Tq positions
-of the Tk stream.  See the source for the design.  The plain PyTorch
-version is ``kernels.ref.flash_attention_ref``; ``kernels.ops`` routes
-between the two by the tensors' device.
+of the Tk stream), chosen by dtype and head dim (:func:`route`):
+
+* ``csrc/flash_attention_tc.cu``: bf16 with D 64 or 128 (the models'
+  prefill and forward) on the tensor cores, wgmma with TMA loads;
+* ``csrc/flash_attention.cu``: everything else (float32, other head dims)
+  on the CUDA cores.
+
+See the sources for the designs.  Each launch counts under its own name,
+``flash_attention_tc`` or ``flash_attention_simt``.  The plain PyTorch
+version is ``kernels.ref.flash_attention_ref``, run for CPU tensors.
 """
 from __future__ import annotations
 
@@ -16,10 +23,51 @@ from . import build
 #: the TPU kernel's default query and key block (``DEF_BQ``, ``DEF_BK``):
 #: its shape contract asks Tq and Tk to be multiples of min(128, T)
 PALLAS_BLOCK = 128
-#: the widest head the kernel takes (its output tile is 128 columns)
+#: the widest head the kernels take (their output tile is 128 columns)
 MAX_HEAD_DIM = 128
-#: dtype -> the C entry point's dtype code
+#: dtype -> the CUDA-core entry point's dtype code
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: head dims of the tensor-core kernel's template instances (bf16 only)
+TC_HEAD_DIMS = (64, 128)
+
+
+def route(device, dtype: torch.dtype, head_dim: int) -> str:
+    """Which flash path runs for queries of this device, dtype and head
+    dim: ``"plain"`` on the CPU, ``"tc"`` (the tensor-core kernel) for
+    bf16 on a CUDA device with a head dim in :data:`TC_HEAD_DIMS`,
+    ``"simt"`` (the CUDA-core kernel) for any other CUDA input.  A route
+    by shape, not a fallback: the chosen kernel raises if it cannot build
+    or launch."""
+    kind = torch.device(device).type
+    if kind == "cpu":
+        return "plain"
+    if kind != "cuda":
+        raise ValueError(f"flash_attention: no kernel for tensors on "
+                         f"{device}")
+    if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
+        return "tc"
+    return "simt"
+
+
+def tma_geometry(t: torch.Tensor):
+    """The TMA tensor map of a (B, H, T, D) tensor read in place: its dims
+    innermost first, (D, T, H, B), and the byte strides of the T, H and B
+    dims.  A dim of size 1 gets the stride a contiguous tensor would have
+    (it is never stepped over).  ``None`` where TMA cannot read the tensor
+    in place: the D dim not contiguous, the base not 16-byte aligned, or
+    a stride not a multiple of 16 bytes."""
+    b, h, n, d = t.shape
+    es = t.element_size()
+    if d > 1 and t.stride(3) != 1:
+        return None
+    strides, inner = [], d
+    for size, stride in ((n, t.stride(2)), (h, t.stride(1)),
+                         (b, t.stride(0))):
+        strides.append((stride if size > 1 else inner) * es)
+        inner *= size
+    if t.data_ptr() % 16 or any(s % 16 or s >= 1 << 40 for s in strides):
+        return None
+    return (d, n, h, b), tuple(strides)
 
 
 def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -47,10 +95,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True,
                          scale: float | None = None) -> torch.Tensor:
     """Causal GQA attention of (B, Hq, Tq, D) queries over (B, Hkv, Tk, D)
-    keys and values, all f32 or all bf16 on one CUDA device, D <= 128.
-    Any strides, as long as the last dim is contiguous (a transposed view
-    costs no copy).  Returns (B, Hq, Tq, D) contiguous, in q's dtype;
-    ``scale`` defaults to 1 / sqrt(D)."""
+    keys and values, all f32 or all bf16 on one CUDA device, D <= 128,
+    through the kernel :func:`route` picks.  Any strides, as long as the
+    last dim is contiguous (a transposed view costs no copy).  Returns
+    (B, Hq, Tq, D) contiguous, in q's dtype; ``scale`` defaults to
+    1 / sqrt(D)."""
     name = "flash_attention"
     check_shapes(q, k, v)
     if not q.is_cuda:
@@ -59,22 +108,53 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError(f"{name}: {arg} must match q's device and dtype")
     if q.dtype not in DTYPES:
-        raise ValueError(f"{name}: dtype {q.dtype} (the kernel takes "
+        raise ValueError(f"{name}: dtype {q.dtype} (the kernels take "
                          "float32 and bfloat16)")
+    if q.shape[3] > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {q.shape[3]} > {MAX_HEAD_DIM}")
+    if scale is None:
+        scale = 1.0 / (q.shape[3] ** 0.5)
+    if route(q.device, q.dtype, q.shape[3]) == "tc":
+        return _launch_tc(q, k, v, causal, float(scale))
+    return _launch_simt(q, k, v, causal, float(scale))
+
+
+def _launch_tc(q, k, v, causal: bool, scale: float) -> torch.Tensor:
+    """The tensor-core kernel (bf16, D in TC_HEAD_DIMS).  A tensor TMA
+    cannot read in place is copied to a contiguous one first."""
     b, hq, tq, d = q.shape
     hkv, tk = k.shape[1], k.shape[2]
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"{name}: head dim {d} > {MAX_HEAD_DIM}")
+    maps = []
+    for t in (q, k, v):
+        geo = tma_geometry(t)
+        if geo is None:
+            t = t.contiguous()
+            geo = tma_geometry(t)
+        maps.append((t, geo[1]))
+    out = torch.empty((b, hq, tq, d), dtype=q.dtype, device=q.device)
+    lib = build.library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    (qt, qs), (kt, ks), (vt, vs) = maps
+    rc = lib.flash_attention_tc_launch(
+        qt.data_ptr(), kt.data_ptr(), vt.data_ptr(), out.data_ptr(), b, hq,
+        hkv, tq, tk, d, *qs, *ks, *vs, scale, int(bool(causal)), stream)
+    build.check(rc, "flash_attention_tc")
+    build.count_launch("flash_attention_tc")
+    return out
+
+
+def _launch_simt(q, k, v, causal: bool, scale: float) -> torch.Tensor:
+    """The CUDA-core kernel (f32 or bf16, any D <= 128)."""
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
     q, k, v = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v))
-    if scale is None:
-        scale = 1.0 / (d ** 0.5)
     out = torch.empty((b, hq, tq, d), dtype=q.dtype, device=q.device)
     lib = build.library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv,
         tq, tk, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        float(scale), int(bool(causal)), DTYPES[q.dtype], stream)
-    build.check(rc, name)
-    build.count_launch(name)
+        scale, int(bool(causal)), DTYPES[q.dtype], stream)
+    build.check(rc, "flash_attention_simt")
+    build.count_launch("flash_attention_simt")
     return out

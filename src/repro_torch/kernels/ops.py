@@ -11,6 +11,7 @@ import torch
 
 from . import ref as _ref
 from .flash_attention import flash_attention_cuda
+from .flash_attention import route as _flash_route
 from .intersect import intersect_count_cuda, tile_member_mask_cuda
 from .intersect_bitset import (bitset_intersect_count_cuda,
                                bitset_member_count_cuda,
@@ -91,12 +92,15 @@ def bitset_member_count(words, b, b_len):
 
 def flash_attention(q, k, v, causal: bool = True, scale=None):
     """Causal GQA softmax attention, queries the last Tq positions of the
-    Tk stream; see :func:`kernels.ref.flash_attention_ref`.  As in the JAX
-    package, the plain path takes any shape and the kernel path raises
-    where ``flash_attention_pallas`` asserts
+    Tk stream; see :func:`kernels.ref.flash_attention_ref`.  On the card
+    the dtype and head dim pick the kernel
+    (:func:`kernels.flash_attention.route`: bf16 with D 64 or 128 on the
+    tensor cores, the rest on the CUDA cores).  As in the JAX package,
+    the plain path takes any shape and the kernel path raises where
+    ``flash_attention_pallas`` asserts
     (:func:`kernels.flash_attention.check_shapes`: Tq and Tk multiples of
     min(128, T))."""
-    if _on_cpu(q):
+    if _flash_route(q.device, q.dtype, q.shape[-1]) == "plain":
         return _ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
     return flash_attention_cuda(q, k, v, causal=causal, scale=scale)
 

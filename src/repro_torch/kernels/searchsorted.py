@@ -2,8 +2,11 @@
 
 Wrapper of ``csrc/searchsorted.cu``, the Hopper kernel that replaces
 ``repro.kernels.searchsorted.searchsorted_segments_pallas``.  Every lane
-carries one (query, segment) pair and runs exactly ``n_iter`` branchless
-rounds; see the source for the design.  The plain PyTorch version is
+carries one (query, segment) pair.  A row whose segment is per row,
+sorted and closed by ``n_iter`` rounds searches it in shared memory with
+a fixed-step lower bound (the same, unique answer); every other row runs
+the reference's branchless rounds.  See the source for the design.  The
+plain PyTorch version is
 ``kernels.ref.searchsorted_segments_ref``; ``kernels.ops`` routes between
 the two by the tensors' device.
 """
@@ -48,14 +51,18 @@ def searchsorted_segments_cuda(values: torch.Tensor, lo: torch.Tensor,
                  f"{name} must have shape (R, 1) or (R, W)")
     _require(n_iter >= 0, "n_iter must be >= 0")
     lo_b, hi_b = lo.expand(r, w), hi.expand(r, w)   # views: stride 0
+    # a per-row bound has column stride 0 (the kernel stages its segment
+    # in shared memory); with W == 1 every bound is one
+    lo_s1 = 0 if w == 1 else lo_b.stride(1)
+    hi_s1 = 0 if w == 1 else hi_b.stride(1)
     pos = torch.empty((r, w), dtype=torch.int32, device=values.device)
     found = torch.empty((r, w), dtype=torch.bool, device=values.device)
     lib = build.library()
     stream = torch.cuda.current_stream(values.device).cuda_stream
     rc = lib.searchsorted_segments_launch(
         values.data_ptr(), values.shape[0],
-        lo_b.data_ptr(), lo_b.stride(0), lo_b.stride(1),
-        hi_b.data_ptr(), hi_b.stride(0), hi_b.stride(1),
+        lo_b.data_ptr(), lo_b.stride(0), lo_s1,
+        hi_b.data_ptr(), hi_b.stride(0), hi_s1,
         queries.data_ptr(), r, w, int(n_iter),
         pos.data_ptr(), found.data_ptr(), stream)
     build.check(rc, "searchsorted_segments")

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``repro_torch`` (nor
-``chip_smoke.py``) imports JAX or the JAX package, and its entry points
-run on the card unless the caller asks for the CPU."""
+``chip_smoke.py`` or ``tools/port_join_ab.py``) imports JAX or the JAX
+package, and its entry points run on the card unless the caller asks
+for the CPU."""
 import ast
 import os
 import pkgutil
@@ -56,7 +57,8 @@ def _imports(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
-                         [ROOT / "chip_smoke.py"],
+                         [ROOT / "chip_smoke.py",
+                          ROOT / "tools" / "port_join_ab.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import(path):
     bad = [m for m in _imports(path)

@@ -103,6 +103,54 @@ def test_searchsorted_segments_per_lane_bounds():
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+def _edge_case(case, rng):
+    """Inputs on which the card's kernel leaves its shared-memory path
+    (the ``chip_smoke.py`` searchsorted edge cases, at CPU size):
+    ``values``, ``lo``, ``hi``, ``queries``, ``n_iter``."""
+    values, starts, ends = _segments(rng, 12, 60, 500, 5)
+    m = values.shape[0]
+    seg = rng.integers(0, 12, 16)
+    lo = starts[seg].astype(np.int32)[:, None]
+    hi = ends[seg].astype(np.int32)[:, None]
+    q = rng.integers(-5, 505, (16, 64)).astype(np.int32)
+    if case.startswith("above capacity"):
+        # one sorted segment of 20,000 values, past the 8,192 the kernel
+        # stages; with 6 rounds the search stops before it closes
+        long_v = np.sort(rng.integers(0, 1 << 20, 20000)).astype(np.int32)
+        n_iter = 16 if case == "above capacity" else 6
+        return (long_v, np.zeros((4, 1), np.int32),
+                np.full((4, 1), 20000, np.int32),
+                rng.integers(0, 1 << 20, (4, 128)).astype(np.int32), n_iter)
+    if case == "lo > hi":
+        lo[::3] = hi[::3] + 5
+    elif case == "lo < 0, hi > M":
+        lo[::4] = -7
+        hi[1::4] = m + 100
+        hi[2::4] = m
+    elif case == "per-lane bounds":
+        lo = (lo + rng.integers(0, 3, q.shape)).astype(np.int32)
+        hi = np.maximum(lo, hi - rng.integers(0, 3, q.shape)).astype(
+            np.int32)
+    elif case.startswith("W "):
+        q = np.ascontiguousarray(q[:, :int(case[2:])])
+    return values, lo, hi, q, 7
+
+
+@pytest.mark.parametrize("case", [
+    "above capacity", "above capacity, 6 rounds", "lo > hi",
+    "lo < 0, hi > M", "per-lane bounds", "W 1", "W 3", "W 8"])
+def test_searchsorted_segments_edge_cases_match_reference(case):
+    """The plain version, which ``chip_smoke.py`` holds the kernel against
+    on these inputs, agrees exactly with the JAX package's reference."""
+    values, lo, hi, q, n_iter = _edge_case(case, np.random.default_rng(11))
+    pos_t, found_t = ref.searchsorted_segments_ref(
+        *map(torch.from_numpy, (values, lo, hi, q)), n_iter)
+    pos_r, found_r = j_ss_ref(*map(jnp.asarray, (values, lo, hi, q)),
+                              n_iter=n_iter)
+    np.testing.assert_array_equal(pos_t.numpy(), np.asarray(pos_r))
+    np.testing.assert_array_equal(found_t.numpy(), np.asarray(found_r))
+
+
 def _pack(sets, n_words):
     words = np.zeros((len(sets), n_words), dtype=np.uint32)
     for i, s in enumerate(sets):
@@ -208,7 +256,7 @@ def test_ops_route_cpu_tensors_to_plain_versions():
     assert set(build.LAUNCHES) == {
         "searchsorted_segments", "bitset_member_mask", "bitset_member_count",
         "tile_member_mask", "intersect_count", "bitset_intersect_count",
-        "flash_attention", "segment_outer"}
+        "flash_attention_tc", "flash_attention_simt", "segment_outer"}
     assert not any(build.LAUNCHES.values())
 
 
@@ -248,7 +296,8 @@ def test_ctypes_signatures_match_c_entry_points():
             found[m.group(1)] = len(m.group(2).split(","))
     assert {p.name for p in build.sources()} == {
         "searchsorted.cu", "bitset_member.cu", "intersect.cu",
-        "bitset_intersect.cu", "flash_attention.cu", "segment_outer.cu"}
+        "bitset_intersect.cu", "flash_attention.cu", "flash_attention_tc.cu",
+        "segment_outer.cu"}
     assert found == {k: len(v) for k, v in build.SIGNATURES.items()}
 
 

@@ -24,7 +24,8 @@ from repro.kernels.segment_outer import (segment_outer_pallas,
                                          segment_outer_ref as j_outer_ref)
 
 from repro_torch.kernels import build, ops, ref
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 route, tma_geometry)
 from repro_torch.kernels.segment_outer import (block_tile_starts,
                                                segment_outer_cuda)
 
@@ -128,6 +129,92 @@ def test_flash_attention_plain_path_takes_any_length():
                     _f32(j_flash_ref(jq, jk, jv)), atol=2e-5, rtol=2e-5)
 
 
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("group", [1, 4, 16])
+@pytest.mark.parametrize("tq,tk", [(1, 256), (64, 256), (100, 100)])
+def test_flash_attention_bf16_plain_matches_ref_on_tc_shapes(d, group, tq,
+                                                              tk):
+    """The shapes the card's bf16 sweep gives the tensor-core kernel (D 64
+    and 128, GQA groups 1, 4, 16, the causal offset, a ragged stream below
+    one key tile), cut to Tk 256: the plain version, which the card holds
+    that kernel against, agrees with the JAX package's reference."""
+    (jq, jk, jv), (q, k, v) = _both(_qkv(7, 1, 2 * group, 2, tq, tk, d,
+                                         "bfloat16"), "bfloat16")
+    for causal in (True, False):
+        assert_allclose(_f32(ops.flash_attention(q, k, v, causal=causal)),
+                        _f32(j_flash_ref(jq, jk, jv, causal=causal)),
+                        atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("device,dtype,d,want", [
+    ("cuda", torch.bfloat16, 64, "tc"),
+    ("cuda", torch.bfloat16, 128, "tc"),
+    ("cuda", torch.float32, 128, "simt"),
+    ("cuda", torch.float32, 64, "simt"),
+    ("cuda", torch.bfloat16, 80, "simt"),    # stablelm-3b's heads
+    ("cuda", torch.bfloat16, 16, "simt"),    # the reduced configs' heads
+    ("cuda:0", torch.bfloat16, 128, "tc"),
+    ("cpu", torch.bfloat16, 128, "plain"),
+    ("cpu", torch.float32, 80, "plain"),
+])
+def test_flash_route(device, dtype, d, want):
+    """bf16 with D 64 or 128 takes the tensor-core kernel, every other
+    CUDA input the CUDA-core one, and CPU tensors the plain version."""
+    assert route(device, dtype, d) == want
+
+
+def test_flash_route_refuses_other_devices():
+    with pytest.raises(ValueError, match="no kernel"):
+        route("meta", torch.bfloat16, 128)
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.flash_attention(*(torch.zeros(1, 2, 4, 64, device="meta")
+                              for _ in range(3)))
+
+
+def _rebuild(t, geo):
+    """The tensor TMA reads: element strides from the map's byte strides,
+    dims (D, T, H, B) innermost first, over t's storage."""
+    (d, n, h, b), byte_strides = geo
+    es = t.element_size()
+    st, sh, sb = (x // es for x in byte_strides)
+    return torch.as_strided(t, (b, h, n, d), (sb, sh, st, 1),
+                            t.storage_offset())
+
+
+@pytest.mark.parametrize("b,t,h,d", [(4, 256, 8, 128), (2, 100, 2, 64),
+                                     (1, 128, 1, 64), (3, 64, 16, 128)])
+def test_tma_geometry_rebuilds_the_tensor(b, t, h, d):
+    """Dims and byte strides of the tensor maps rebuild the tensor with
+    ``as_strided``: prefill's (B, T, H, D) -> (B, H, T, D) transposed view
+    in place, and a contiguous (B, H, T, D) tensor."""
+    x = torch.from_numpy(np.random.default_rng(b * t + h + d)
+                         .standard_normal((b, t, h, d)).astype(np.float32)
+                         ).to(torch.bfloat16)
+    view = x.transpose(1, 2)
+    for tensor in (view, view.contiguous()):
+        geo = tma_geometry(tensor)
+        assert geo is not None
+        assert geo[0] == (d, t, h, b)
+        assert all(s % 16 == 0 for s in geo[1])
+        assert torch.equal(_rebuild(tensor, geo), tensor)
+    # the transposed view: T steps over all heads, H over one head (a
+    # single head gets the stride a contiguous tensor would have)
+    assert tma_geometry(view)[1][0] == h * d * 2
+    assert tma_geometry(view)[1][1] == (d * 2 if h > 1 else t * d * 2)
+
+
+def test_tma_geometry_refuses_what_tma_cannot_read():
+    """A base off 16 bytes, a stride off 16 bytes or a non-contiguous last
+    dim: the wrapper copies such a tensor to a contiguous one."""
+    x = torch.zeros(2, 4, 64, 130, dtype=torch.bfloat16)
+    assert tma_geometry(x[..., 1:65]) is None          # base + 2 bytes
+    assert tma_geometry(x[..., :64]) is None           # T stride 260 B
+    y = torch.zeros(2, 4, 64, 128, dtype=torch.bfloat16)
+    assert tma_geometry(y.transpose(2, 3)) is None     # D not contiguous
+    assert tma_geometry(y) is not None
+    assert tma_geometry(x[..., :64].contiguous()) is not None
+
+
 def _outer_inputs(dist, c, m, seed):
     """The sweep of ``tests/test_kernels_extra.py``: 64 nodes in blocks
     of 8, 900 real edges (none for ``empty``) padded to 128-edge tiles
@@ -227,5 +314,6 @@ def test_new_kernels_route_cpu_tensors_to_plain_versions():
         flash_attention_cuda(q, k, v)
     with pytest.raises(ValueError, match="CUDA"):
         segment_outer_cuda(*args, bt, n, n_tiles, bn, te)
-    assert build.LAUNCHES["flash_attention"] == 0
+    assert build.LAUNCHES["flash_attention_tc"] == 0
+    assert build.LAUNCHES["flash_attention_simt"] == 0
     assert build.LAUNCHES["segment_outer"] == 0
