@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases kernels,join,lm]
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
 kernel against its plain PyTorch version at the main path's shapes
@@ -12,14 +12,18 @@ kernel's ``ms`` is its device time from ``torch.profiler``; ``event_ms``
 is the CUDA-event time of back-to-back wrapper calls, host dispatch
 included.  The searchsorted kernel is also held exactly on the inputs
 that leave its shared-memory path (a segment past its staging capacity,
-lo > hi, bounds outside [0, M], per-lane bounds, narrow widths).  Flash
-attention has two kernels, routed by dtype and head dim: bf16 with D 64
-or 128 on the tensor cores (``flash_attention_tc``: the path shape, and
-a bf16 sweep over D, GQA groups, causal offsets, short and ragged
-streams and strided views; its line counts the ``HGMMA`` instructions in
-the built library's SASS where ``cuobjdump`` exists) and the rest on the
-CUDA cores (``flash_attention_simt``: f32 at the path shape and the f32
-sweep).  Then it drives the port's paths on the
+lo > hi, bounds outside [0, M], per-lane bounds, narrow widths).  The
+tile mask is timed in both its contracts, every lane and ``lane_len``
+(the live lanes the level step passes), and held exactly on its own
+edge cases.  Flash attention has two kernels, routed by dtype and head
+dim: bf16 with D a multiple of 16 up to 128 on the tensor cores
+(``flash_attention_tc``: chatglm3-6b's and stablelm-3b's prefill shapes,
+the CUDA-core kernel and SDPA on the same tensors, and a bf16 sweep over
+D 16-128, GQA groups, causal offsets, short and ragged streams and
+strided views; its line counts the ``HGMMA`` instructions in the built
+library's SASS where ``cuobjdump`` exists) and the rest on the CUDA cores
+(``flash_attention_simt``: f32 at the path shape and the f32 sweep).
+Then it drives the port's paths on the
 ``soc-Slashdot0811``-like graph (77,360 nodes, 1,778,854 directed edges)
 as a plain ``GraphDB`` and as a ``HybridGraphDB``, each path with the
 kernels' launch counters set to 0 just before it and read just after:
@@ -34,13 +38,14 @@ kernels' launch counters set to 0 just before it and read just after:
   2048, above the max degree) and ``"bsearch2"`` on the plain db;
 * ``stream`` of those three in ``tile`` mode, every row checked on the
   host with numpy alone, and the factorized 3-clique;
-* chatglm3-6b served at full width and depth in bf16 (``lm serve``): 4
-  requests of 2048 prompt tokens, prefill (28 launches of the
-  tensor-core flash kernel, none of the CUDA-core one) and 32 greedy
-  decode steps, then one prefill profiled; and at full width with 2
-  layers in f32 (``lm parity``, on the CUDA-core flash kernel) the
-  card's prefill and decode logits against the port's CPU path (1e-3)
-  and decode against ``forward`` over the concatenated stream (2e-4).
+* chatglm3-6b and stablelm-3b served at full width and depth in bf16
+  (``lm serve``): 4 requests of 2048 prompt tokens, prefill (one launch
+  of the tensor-core flash kernel a layer, 28 and 32, none of the
+  CUDA-core one) and 32 greedy decode steps, then one prefill profiled;
+  and each at full width with 2 layers in f32 (``lm parity``, on the
+  CUDA-core flash kernel) the card's prefill and decode logits against
+  the port's CPU path (1e-3) and decode against ``forward`` over the
+  concatenated stream (2e-4).
 
 The counts are checked against counts made on the host with scipy and
 numpy alone (the cliques, 3-path and lollipops), across the two dbs
@@ -54,7 +59,9 @@ raises and exits non-zero.
 Needs one CUDA device and the rest of the repository; it imports nothing
 of JAX.  Prints one JSON line per shape and path, a ``kernels`` JSON
 line, the card's name and power limit, and as its last line
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset (the
+kernels against their plain versions, the join paths, the LM paths) and
+then prints neither the ``kernels`` line nor the last line.
 """
 from __future__ import annotations
 
@@ -93,9 +100,10 @@ PEAK_INT32_OPS_S = 67e12 / 4
 #: floating-point peaks from the same data sheet: dense bf16 on the tensor
 #: cores, and float32 on the CUDA cores
 PEAK_FLOPS_S = {"bf16": 989e12, "fp32": 67e12}
-#: the LM phases: chatglm3-6b served at full width and depth (4 requests of
-#: 2048 prompt tokens, 32 greedy decode steps), and its f32 parity check
-#: at full width and 2 layers (card against the port's CPU path)
+#: the LM phases: chatglm3-6b and stablelm-3b served at full width and
+#: depth (4 requests of 2048 prompt tokens, 32 greedy decode steps), and
+#: their f32 parity checks at full width and 2 layers (card against the
+#: port's CPU path)
 LM_BATCH, LM_PROMPT, LM_DECODE = 4, 2048, 32
 PARITY_LAYERS, PARITY_PROMPT, PARITY_STEPS = 2, 256, 4
 #: the decode-vs-forward check's prompt: forward then runs over 125..127
@@ -113,6 +121,18 @@ OUTER_DEGREE = 123718280 / 2449029
 #: by this script with CUDA events on an NVIDIA H100 80GB HBM3 at 700 W
 #: (the PERF.md kernel table), printed beside this run's as ``previous_ms``
 PREVIOUS_FLASH_MS = 8.725
+#: the tile mask's device time at its line's chunk (every lane) before its
+#: redesign, by this script on an NVIDIA H100 80GB HBM3 at 700 W (the
+#: PERF.md kernel table), printed beside this run's as ``previous_ms``
+PREVIOUS_TILE_MS = 0.0315
+
+
+#: what a run drives, in order: the kernels against their plain versions,
+#: the join paths, the LM paths
+PHASES = ("kernels", "join", "lm")
+#: the join path's kernel functions, reported by name in count profiles
+PORT_JOIN_KERNELS = ("searchsorted_segments_kernel", "tile_member_mask_kernel",
+                     "bitset_member_mask_kernel")
 
 
 class SmokeFailure(RuntimeError):
@@ -261,6 +281,18 @@ def lower_bound_rounds(seg, n, q, lane_ok) -> int:
         h = torch.where(active & ~right, mid, h)
 
 
+def halving_rounds(n, live) -> int:
+    """Rounds of the fixed-step lower bound that the tile mask runs,
+    summed over the searched lanes: ceil(log2 n[r]) for each of the
+    ``live[r]`` lanes of a row that stages n[r] >= 1 values."""
+    k = (n.long() - 1).clamp(min=0)
+    steps = k.new_zeros(k.shape)
+    while bool((k > 0).any()):
+        steps += (k > 0).long()
+        k = k >> 1
+    return int((steps * live.long().clamp(min=0)).sum())
+
+
 def bound(k: dict) -> dict:
     """The larger of bytes over the HBM rate and the operations over their
     peak rate — int32 ops (``ops``) at the int32 rate, or floating-point
@@ -323,6 +355,55 @@ def searchsorted_edges(values, lo, hi, q, n_iter: int) -> dict:
         need(torch.equal(pos, pos_ref) and torch.equal(hit, hit_ref),
              f"searchsorted_segments ({name}) disagrees with its plain "
              "version")
+        found[name] = int(hit.sum())
+    return found
+
+
+def tile_edges(values, indptr, lo, hi, q, lanes) -> dict:
+    """``tile_member_mask`` exactly against its plain version on inputs
+    off the level step's path: widths that are not a multiple of 8 (one
+    lane at a time) and a candidate pointer off 16 bytes, a row of more
+    than one 512-lane slice, lane_len above W and negative, check widths
+    that cut segments (7) or stage nothing (0), one so wide that a warp
+    gets one buffer (40,000), lo > hi, and lo < 0 with hi > M (windows
+    inside the first and the last CSR segment, so that the clamped values
+    stay sorted, as the mask requires).  Returns the found count per
+    case."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    m = values.shape[0]
+    r, w = q.shape
+    lo_gt, hi_gt = lo.clone(), hi.clone()
+    lo_gt[::3] = hi_gt[::3] + 5
+    lo_out, hi_out = lo.clone(), hi.clone()
+    lo_out[::4], hi_out[::4] = -7, int(indptr[1])
+    lo_out[1::4], hi_out[1::4] = int(indptr[-2]), m + 100
+    wild = lanes.clone()
+    wild[::2] = w + 77
+    wild[1::4] = -3
+    flat = torch.empty(r * w + 1, dtype=torch.int32, device=q.device)
+    flat[1:] = q.reshape(-1)
+    off16 = flat[1:].view(r, w)
+    cases = {"lo > hi": (lo_gt, hi_gt, q, 512, lanes),
+             "lo < 0, hi > M": (lo_out, hi_out, q, 512, lanes),
+             "lane_len above W and negative": (lo, hi, q, 512, wild),
+             "check_width 7": (lo, hi, q, 7, None),
+             "check_width 0": (lo, hi, q, 0, lanes),
+             "check_width 40000": (lo, hi, q[:64, :64].contiguous(), 40000,
+                                   None),
+             "cand off 16 bytes": (lo, hi, off16, 512, lanes)}
+    for width in (3, 44, 601):
+        cases[f"W {width}"] = (lo, hi, q[:, :width].contiguous(), 512,
+                               lanes.clamp(max=width - 2))
+    found = {}
+    for name, (lo_, hi_, q_, cw, lane_len) in cases.items():
+        rows = q_.shape[0]
+        args = (values, lo_[:rows], hi_[:rows], q_, cw,
+                None if lane_len is None else lane_len[:rows].contiguous())
+        hit = ops.tile_member_mask(*args)
+        torch.cuda.synchronize()
+        need(torch.equal(hit, ref.tile_member_mask_ref(*args)),
+             f"tile_member_mask ({name}) disagrees with its plain version")
         found[name] = int(hit.sum())
     return found
 
@@ -467,7 +548,9 @@ def kernel_phase_intersect(T, db, hdb):
     rng = np.random.default_rng(SEED + 1)
     out = {}
 
-    # tile_member_mask: 2048 rows that auto sends down the tile path
+    # tile_member_mask: 2048 rows that auto sends down the tile path, in
+    # both contracts: every lane, and lane_len = the probe degrees (the
+    # live lanes, as the level step passes them)
     cand, check, deg = level_inputs(db, rng, 2048, hubs_only=False,
                                     max_degree=TILE_WIDTH)
     indptr = db.csr.indptr
@@ -476,14 +559,22 @@ def kernel_phase_intersect(T, db, hdb):
     q = torch.from_numpy(cand).to(dev)
     lo = torch.from_numpy(indptr[check][:, None].astype(np.int32)).to(dev)
     hi = torch.from_numpy(indptr[check + 1][:, None].astype(np.int32)).to(dev)
+    lanes = torch.from_numpy(deg).to(dev)
     cw = TILE_WIDTH
     mask = ops.tile_member_mask(values, lo, hi, q, cw)
+    mask_live = ops.tile_member_mask(values, lo, hi, q, cw, lanes)
     torch.cuda.synchronize()
     mask_ref = ref.tile_member_mask_ref(values, lo, hi, q, cw)
-    err = int((mask.int() - mask_ref.int()).abs().max())
+    err = max(int((mask.int() - mask_ref.int()).abs().max()),
+              int((mask_live.int() - ref.tile_member_mask_ref(
+                  values, lo, hi, q, cw, lanes).int()).abs().max()))
     need(err == 0, f"tile_member_mask disagrees with its plain version "
          f"(max abs err {err})")
     r, w = q.shape
+    lane_ok = torch.arange(w, device=dev)[None] < lanes[:, None]
+    need(torch.equal(mask_live, mask & lane_ok), "tile_member_mask with "
+         "lane_len is not the all-lane mask ANDed with j < lane_len")
+    edges = tile_edges(values, indptr, lo, hi, q, lanes)
     # each row's staged segment, padded with INT32_MAX: the library call's
     # sorted rows and the count form's B (gathered once, not timed)
     n = (hi - lo)[:, 0].clamp(0, cw)
@@ -492,27 +583,53 @@ def kernel_phase_intersect(T, db, hdb):
                        values[(lo + j2[None]).clamp(0, m - 1)],
                        INT32_MAX).to(torch.int32).contiguous()
     library_ms = cuda_ms(lambda: torch.searchsorted(segs, q), 50)
-    staged = int(n.sum())
-    rounds = lower_bound_rounds(segs, n, q, torch.ones_like(mask))
-    out["tile_member_mask"] = dict(
-        source="src/repro_torch/csrc/intersect.cu",
-        replaces="src/repro/kernels/intersect.py:82",
-        shape=f"indices ({m},) int32, cand ({r}, {w}), check_width {cw}",
-        max_abs_err=err, found=int(mask.sum()),
+    ops_model = ("3 int32 ops per search round (index add, compare, select; "
+                 "the probe is a load), ceil(log2 n) rounds a searched lane "
+                 "of a row staging n values, + 3 per searched lane (2 "
+                 "compares, select) + 3 per staged value (add, 2 clamps)")
+
+    def work(live, lane_len_bytes):
+        """Bytes and int32 ops the mask needs when ``live`` lanes of each
+        row are searched: their candidates read once, the whole mask
+        written once, the staged values of rows with a live lane read
+        once, and lo, hi and lane_len."""
+        searched = int(live.sum())
+        staged = int(n[live > 0].sum())
+        return dict(searched_lanes=searched, staged_values=staged,
+                    search_rounds=halving_rounds(n, live), ops_model=ops_model,
+                    bytes=4 * searched + 4 * staged + lo.nbytes + hi.nbytes
+                    + mask.nbytes + lane_len_bytes,
+                    ops=3 * halving_rounds(n, live) + 3 * searched
+                    + 3 * staged)
+
+    every = torch.full_like(lanes, w)
+    all_lanes = bound(dict(
         ms=device_ms(lambda: ops.tile_member_mask(values, lo, hi, q, cw),
                      50, "tile_member_mask_kernel"),
         event_ms=cuda_ms(lambda: ops.tile_member_mask(values, lo, hi, q,
                                                       cw), 50),
         plain_ms=cuda_ms(lambda: ref.tile_member_mask_ref(values, lo, hi, q,
                                                           cw), 3),
-        staged_values=staged, search_rounds=rounds,
-        ops_model="6 int32 ops per search round (compare, add, shift, "
-                  "compare, 2 selects) + 4 per lane (2 compares, and, "
-                  "index) + 3 per staged value (add, 2 clamps)",
-        bytes=4 * staged + lo.nbytes + hi.nbytes + q.nbytes + mask.nbytes,
-        ops=6 * rounds + 4 * r * w + 3 * staged, library_ms=library_ms,
+        **work(every, 0)))
+    all_lanes["previous_ms"] = PREVIOUS_TILE_MS
+    out["tile_member_mask"] = dict(
+        source="src/repro_torch/csrc/intersect.cu",
+        replaces="src/repro/kernels/intersect.py:82",
+        shape=f"indices ({m},) int32, cand ({r}, {w}), check_width {cw}, "
+              f"lane_len the probe degrees ({int(lanes.sum())} live lanes)",
+        max_abs_err=err, found=int(mask_live.sum()),
+        ms=device_ms(lambda: ops.tile_member_mask(values, lo, hi, q, cw,
+                                                  lanes), 50,
+                     "tile_member_mask_kernel"),
+        event_ms=cuda_ms(lambda: ops.tile_member_mask(values, lo, hi, q, cw,
+                                                      lanes), 50),
+        plain_ms=cuda_ms(lambda: ref.tile_member_mask_ref(
+            values, lo, hi, q, cw, lanes), 3),
+        all_lanes=all_lanes, edge_cases=edges, library_ms=library_ms,
         library_call="torch.searchsorted(segs, cand), segs the gathered "
-                     "INT32_MAX-padded (rows, check_width) segments")
+                     "INT32_MAX-padded (rows, check_width) segments, every "
+                     "lane", **work(lanes, lanes.nbytes))
+    staged = int(n.sum())
 
     # the mask at full width (2048) on the searchsorted chunk of
     # kernel_phase (same seed, all rows): no segment is cut, so it must
@@ -535,15 +652,14 @@ def kernel_phase_intersect(T, db, hdb):
         full_width_staged_values=int((hi_f - lo_f).sum()))
 
     # the count form, the Pallas kernel's contract: (2048, 2048) x (2048, 512)
-    alen = torch.from_numpy(deg).to(dev)
+    alen = lanes
     cnt = ops.intersect_count(q, alen, segs, n)
     torch.cuda.synchronize()
     cnt_ref = ref.intersect_count_ref(q, alen, segs, n)
     err = int((cnt - cnt_ref).abs().max())
     need(err == 0, f"intersect_count disagrees with its plain version "
          f"(max abs err {err})")
-    lane_ok = torch.arange(w, device=dev)[None] < alen[:, None]
-    need(torch.equal(cnt.long(), (mask & lane_ok).sum(dim=1)),
+    need(torch.equal(cnt.long(), mask_live.sum(dim=1)),
          "intersect_count disagrees with tile_member_mask's row sums")
     n_valid = int(lane_ok.sum())
     rounds = lower_bound_rounds(segs, n, q, lane_ok)
@@ -616,17 +732,20 @@ def allclose_err(got, want, tol: float) -> tuple[float, bool]:
 
 def flash_bf16_sweep(randn) -> list:
     """The tensor-core flash kernel against its plain version at 2e-2 in
-    bf16: D 64 and 128, GQA groups 1, 4 and 16, causal and not, Tq 1, 64,
-    128 and 2048 against Tk 2048 (the causal offset), a short stream (Tk
-    64) and a ragged one (Tk 100, less than a key tile), contiguous and as
-    transposed (B, T, H, D) views.  Every case must launch the tensor-core
-    kernel.  Returns [D, Hq, Hkv, Tq, Tk, causal, strided, max abs err]."""
+    bf16: D 64 and 128 with GQA groups 1, 4 and 16, every other multiple
+    of 16 up to 128 (16 to 48 run the 64 instance with zero columns, 80
+    its own, 96 and 112 the 128 one) with groups 1 and 4; causal and not,
+    Tq 1, 64, 128 and 2048 against Tk 2048 (the causal offset), a short
+    stream (Tk 64) and a ragged one (Tk 100, less than a key tile),
+    contiguous and as transposed (B, T, H, D) views.  Every case must
+    launch the tensor-core kernel.  Returns [D, Hq, Hkv, Tq, Tk, causal,
+    strided, max abs err]."""
     import torch
     from repro_torch.kernels import build, ops, ref
     bf, rows = torch.bfloat16, []
     build.reset_launches()
-    for d in (64, 128):
-        for group in (1, 4, 16):
+    for d in (64, 128, 16, 32, 48, 80, 96, 112):
+        for group in ((1, 4, 16) if d in (64, 128) else (1, 4)):
             hkv = 2
             hq = hkv * group
             for tq, tk in ((1, 2048), (64, 2048), (128, 2048), (2048, 2048),
@@ -687,16 +806,64 @@ def kernel_phase_lm():
     from repro_torch.kernels.segment_outer import block_tile_starts
     g = torch.Generator(device="cuda").manual_seed(SEED)
     out = {}
+    bf = torch.bfloat16
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    # flash_attention at stablelm-3b's prefill shape: 32 query and 32 KV
+    # heads of 80 dims, 4 requests of 2048 tokens, bf16, causal, seen as
+    # prefill passes them.  First the CUDA-core kernel, which ran bf16 at
+    # D 80 until the route sent it to the tensor cores, beside SDPA on the
+    # same tensors (the kernel table's row 5b in bf16); then the
+    # tensor-core kernel's D 80 instance.
+    b, hq, hkv, t, d = LM_BATCH, 32, 32, LM_PROMPT, 80
+    q, k, v = (randn(b, t, h_, d, dtype=bf).transpose(1, 2)
+               for h_ in (hq, hkv, hkv))
+    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    work = dict(flops_model="4 B Hq T^2 D / 2 (QK^T and PV, causal half)",
+                flops=4 * b * hq * t * t * d / 2, flops_type="bf16",
+                bytes=q.nbytes + k.nbytes + v.nbytes + q.nbytes)
+    lm_shape = (f"q ({b}, {hq}, {t}, {d}) bf16 as a transposed (B, T, H, "
+                f"D) view, k, v ({b}, {hkv}, {t}, {d}), causal")
+    simt_bf16 = bound(dict(
+        shape=lm_shape,
+        ms=device_ms(lambda: _launch_simt(q, k, v, True, d ** -0.5), 3,
+                     "flash_attention_kernel"),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            qc, kc, vc, is_causal=True), 20),
+        library_call="scaled_dot_product_attention(q, k, v, "
+                     "is_causal=True), contiguous", **work))
+    log(json.dumps({"flash stablelm-3b prefill shape, bf16":
+                    {"flash_attention_simt": simt_bf16}}))
+    need(route(q.device, q.dtype, d) == "tc", "flash route of stablelm-3b's "
+         "bf16 heads is not the tensor-core kernel")
+    build.reset_launches()
+    o = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    need(build.LAUNCHES["flash_attention_tc"] == 1
+         and build.LAUNCHES["flash_attention_simt"] == 0,
+         f"stablelm-3b's shape did not launch flash_attention_tc: "
+         f"{build.LAUNCHES}")
+    err, ok = allclose_err(o, ref.flash_attention_ref(q, k, v), 2e-2)
+    need(ok, f"flash_attention_tc (bf16, stablelm-3b's shape) disagrees "
+         f"with its plain version beyond 2e-2 (max abs err {err})")
+    tc_stablelm = bound(dict(
+        shape=lm_shape, instance="D 80", max_abs_err=err,
+        tolerance=2e-2,
+        ms=device_ms(lambda: ops.flash_attention(q, k, v), 20,
+                     "flash_attention_tc_kernel"),
+        event_ms=cuda_ms(lambda: ops.flash_attention(q, k, v), 20),
+        simt_ms=simt_bf16["ms"], library_ms=simt_bf16["library_ms"],
+        **work))
+    tc_stablelm["achieved_tflop_s"] = work["flops"] / tc_stablelm["ms"] / 1e9
+    del q, k, v, qc, kc, vc, o
 
     # flash_attention at the LM path's shape: chatglm3-6b's 32 query and 2
     # KV heads of 128 dims, 4 requests of 2048 tokens, bf16, causal; q, k
     # and v are (B, T, H, D) projections seen as (B, H, T, D), as prefill
     # passes them.  bf16 with D 128 routes to the tensor-core kernel.
     b, hq, hkv, t, d = LM_BATCH, 32, 2, LM_PROMPT, 128
-    bf = torch.bfloat16
     q = randn(b, t, hq, d, dtype=bf).transpose(1, 2)
     k = randn(b, t, hkv, d, dtype=bf).transpose(1, 2)
     v = randn(b, t, hkv, d, dtype=bf).transpose(1, 2)
@@ -760,7 +927,7 @@ def kernel_phase_lm():
         flops_model="4 B Hq T^2 D / 2 (QK^T and PV, causal half)",
         flops=flops, flops_type="bf16",
         bytes=q.nbytes + k.nbytes + v.nbytes + o.nbytes,
-        hgmma=hgmma_counts())
+        stablelm_3b=tc_stablelm, hgmma=hgmma_counts())
     tc["achieved_tflop_s"] = flops / tc["ms"] / 1e9
     out["flash_attention_tc"] = tc
     del q, k, v, qc, kc, vc, o
@@ -796,7 +963,8 @@ def kernel_phase_lm():
                      "contiguous",
         flops_model="4 B Hq T^2 D / 2 (QK^T and PV, causal half)",
         flops=flops, flops_type="fp32",
-        bytes=q.nbytes + k.nbytes + v.nbytes + o.nbytes)
+        bytes=q.nbytes + k.nbytes + v.nbytes + o.nbytes,
+        bf16_stablelm_3b=simt_bf16)
     out["flash_attention_simt"]["achieved_tflop_s"] = (
         flops / out["flash_attention_simt"]["ms"] / 1e9)
     del q, k, v, qc, kc, vc, o
@@ -884,17 +1052,17 @@ def gpu_profile(fn, what: str) -> dict:
                               for e in events[:10] if device_us(e) > 0]}
 
 
-def lm_serve():
-    """chatglm3-6b at full width and depth in bf16, weights from a seeded
-    generator on the card: a batch of 4 requests of 2048 synthetic prompt
-    tokens, prefill, then 32 greedy decode steps.  The kernels' launch
-    counters are set to 0 just before and read just after; then one
-    prefill is profiled."""
+def lm_serve(cfg):
+    """A model at full width and depth in bf16 (chatglm3-6b or
+    stablelm-3b), weights from a seeded generator on the card: a batch of
+    4 requests of 2048 synthetic prompt tokens, prefill, then 32 greedy
+    decode steps.  The kernels' launch counters are set to 0 just before
+    and read just after; every prefill layer must launch the tensor-core
+    flash kernel once and the CUDA-core one never.  Then one prefill is
+    profiled."""
     import torch
-    from repro_torch.configs import CHATGLM3_6B
     from repro_torch.kernels import build
     from repro_torch.models import transformer as tfm
-    cfg = CHATGLM3_6B
     g = torch.Generator(device="cuda").manual_seed(SEED)
     t0 = time.perf_counter()
     params = tfm.init_params(cfg, g, device="cuda")
@@ -942,6 +1110,7 @@ def lm_serve():
          f"{cfg.n_layers} and 0 expected (one per layer of the prefill)")
     log(json.dumps(dict(
         path="lm serve", model=cfg.name, n_layers=cfg.n_layers,
+        head_dim=cfg.head_dim,
         batch=LM_BATCH, prompt_tokens=LM_PROMPT, decode_steps=LM_DECODE,
         max_len=ml, prefill_s=prefill_s,
         prefill_tokens_s=LM_BATCH * LM_PROMPT / prefill_s,
@@ -955,23 +1124,24 @@ def lm_serve():
         f"prefill {cfg.name} {LM_BATCH}x{LM_PROMPT}")))
     del params
     torch.cuda.empty_cache()
-    return launches
+    return launches, prefill_s
 
 
-def lm_parity():
-    """chatglm3-6b at full width with 2 layers in float32 (TF32 off): the
-    card's prefill logits and 4 greedy decode steps against the port's
-    CPU path on the same weights (1e-3), and on the card the decode
-    logits against ``forward`` over the concatenated stream (2e-4, the
-    JAX package's own decode-vs-forward tolerance)."""
+def lm_parity(model):
+    """A model (chatglm3-6b: RMSNorm, half rotary, GQA; stablelm-3b:
+    LayerNorm, 25% rotary, tied embeddings, heads of 80) at full width
+    with 2 layers in float32 (TF32 off): the card's prefill logits and 4
+    greedy decode steps against the port's CPU path on the same weights
+    (1e-3), and on the card the decode logits against ``forward`` over
+    the concatenated stream (2e-4, the JAX package's own decode-vs-forward
+    tolerance)."""
     from dataclasses import replace
     import torch
-    from repro_torch.configs import CHATGLM3_6B
     from repro_torch.kernels import build
     from repro_torch.models import transformer as tfm
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = replace(CHATGLM3_6B, n_layers=PARITY_LAYERS, dtype=torch.float32)
+    cfg = replace(model, n_layers=PARITY_LAYERS, dtype=torch.float32)
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     params = tfm.init_params(cfg, g, device="cuda")
     cpu_params = {k: v.cpu() for k, v in params.items()}
@@ -1019,6 +1189,7 @@ def lm_parity():
         stream = torch.cat([stream, full.argmax(-1)], dim=1)
     log(json.dumps(dict(
         path="lm parity", model=cfg.name, n_layers=cfg.n_layers,
+        head_dim=cfg.head_dim,
         dtype="float32", prompt_tokens=PARITY_PROMPT, steps=PARITY_STEPS,
         forward_prompt_tokens=PARITY_FORWARD_PROMPT,
         card_vs_cpu_max_abs_err=errs, decode_vs_forward_max_abs_err=fwd_errs,
@@ -1239,10 +1410,20 @@ def profile_count(T, db, shape: str, **kw) -> None:
 
     events = sorted(prof.key_averages(), key=device_us, reverse=True)
     busy = sum(device_us(e) for e in events) / 1e6
+    # the port's check kernels: [device ms, launches], template instances
+    # summed
+    mine = {}
+    for name in PORT_JOIN_KERNELS:
+        hits = [e for e in events if f"::{name}(" in e.key
+                or f"::{name}<" in e.key]
+        if hits:
+            mine[name] = [sum(device_us(e) for e in hits) / 1e3,
+                          sum(e.count for e in hits)]
     log(json.dumps({
         "profile": shape, "db": "plain", "count_kw": kw, "wall_s": wall,
         "wall_profiled_s": wall_profiled, "device_busy_s": busy,
-        "idle_share": 1 - busy / wall, "top_device_ms": [
+        "idle_share": 1 - busy / wall, "port_kernels_device_ms": mine,
+        "top_device_ms": [
             [e.key[:70], device_us(e) / 1e3, e.count]
             for e in events[:12] if device_us(e) > 0]}))
 
@@ -1407,8 +1588,18 @@ def small_scale(T):
         {f"{db}/{s}": n for (dv, db, s), n in got.items() if dv == "cuda"}))
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
     import torch
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma list of phases to run, of "
+                         f"{', '.join(PHASES)} (default: all; the kernels "
+                         "line and the last line come only from a run of "
+                         "all)")
+    phases = ap.parse_args(argv).phases.split(",")
+    if not set(phases) <= set(PHASES):
+        ap.error(f"--phases takes {', '.join(PHASES)}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1419,6 +1610,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(src))
     import repro_torch.core as T
+    from repro_torch.configs import CHATGLM3_6B, STABLELM_3B
     from repro_torch.kernels import build
 
     smi = subprocess.run(
@@ -1434,62 +1626,85 @@ def main() -> int:
         if "Used" in line or "spill" in line:
             log("  ptxas:", line.strip())
 
-    t0 = time.perf_counter()
-    g, db, hdb = bench_gdb(T, 1.0, "cuda")
-    dbs = {"plain": db, "hybrid": hdb}
-    log(f"graph {DATASET}: {g.n_nodes} nodes, {g.indices.shape[0]} directed "
-        f"edges, max degree {g.max_degree}, {hdb.n_hubs} hubs x "
-        f"{hdb.layout.n_words} words ({time.perf_counter() - t0:.2f} s)")
+    if "kernels" in phases or "join" in phases:
+        t0 = time.perf_counter()
+        g, db, hdb = bench_gdb(T, 1.0, "cuda")
+        dbs = {"plain": db, "hybrid": hdb}
+        log(f"graph {DATASET}: {g.n_nodes} nodes, {g.indices.shape[0]} "
+            f"directed edges, max degree {g.max_degree}, {hdb.n_hubs} hubs "
+            f"x {hdb.layout.n_words} words ({time.perf_counter() - t0:.2f} "
+            "s)")
 
-    kern = kernel_phase(T, db, hdb)
-    kern.update(kernel_phase_intersect(T, db, hdb))
-    kern.update(kernel_phase_lm())
-    for name, k in kern.items():
-        log(f"kernel {name}: {json.dumps(k)}")
+    kern = {}
+    if "kernels" in phases:
+        for phase in (lambda: kernel_phase(T, db, hdb),
+                      lambda: kernel_phase_intersect(T, db, hdb),
+                      kernel_phase_lm):
+            lines = phase()
+            for name, k in lines.items():
+                log(f"kernel {name}: {json.dumps(k)}")
+            kern.update(lines)
 
-    t0 = time.perf_counter()
-    counts, launches = main_path(T, dbs)
-    log(f"main path: {time.perf_counter() - t0:.2f} s, launches {launches}")
-    for name in ("searchsorted_segments", "bitset_member_mask"):
-        need(launches[name] > 0, f"the main path never launched {name}")
-    profile_count(T, db, "4-cycle")
+    if "join" in phases:
+        t0 = time.perf_counter()
+        counts, launches = main_path(T, dbs)
+        log(f"main path: {time.perf_counter() - t0:.2f} s, launches "
+            f"{launches}")
+        for name in ("searchsorted_segments", "bitset_member_mask"):
+            need(launches[name] > 0, f"the main path never launched {name}")
+        profile_count(T, db, "4-cycle")
 
-    t0 = time.perf_counter()
-    cross_checks(T, dbs, counts)
-    log(f"cross-checks: {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    auto_launches = auto_path(T, dbs, counts)
-    log(f"auto path: {time.perf_counter() - t0:.2f} s, launches "
-        f"{auto_launches}")
-    t0 = time.perf_counter()
-    mode_turns(T, db)
-    log(f"mode turns: {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    single_modes(T, db, counts)
-    log(f"single modes: {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    stream_launches = stream_path(T, db, counts)
-    log(f"stream path: {time.perf_counter() - t0:.2f} s, launches "
-        f"{stream_launches}")
-    t0 = time.perf_counter()
-    small_scale(T)
-    log(f"small scale: {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    lm_launches = lm_serve()
-    log(f"lm serve: {time.perf_counter() - t0:.2f} s, launches {lm_launches}")
-    t0 = time.perf_counter()
-    parity_launches = lm_parity()
-    log(f"lm parity: {time.perf_counter() - t0:.2f} s, launches "
-        f"{parity_launches}")
+        t0 = time.perf_counter()
+        cross_checks(T, dbs, counts)
+        log(f"cross-checks: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        auto_launches = auto_path(T, dbs, counts)
+        log(f"auto path: {time.perf_counter() - t0:.2f} s, launches "
+            f"{auto_launches}")
+        t0 = time.perf_counter()
+        mode_turns(T, db)
+        log(f"mode turns: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        single_modes(T, db, counts)
+        log(f"single modes: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        stream_launches = stream_path(T, db, counts)
+        log(f"stream path: {time.perf_counter() - t0:.2f} s, launches "
+            f"{stream_launches}")
+        t0 = time.perf_counter()
+        small_scale(T)
+        log(f"small scale: {time.perf_counter() - t0:.2f} s")
 
+    if "lm" in phases:
+        # each model's serving path with its own counters, summed
+        lm_launches = dict.fromkeys(build.LAUNCHES, 0)
+        for cfg in (CHATGLM3_6B, STABLELM_3B):
+            t0 = time.perf_counter()
+            served, _ = lm_serve(cfg)
+            log(f"lm serve {cfg.name}: {time.perf_counter() - t0:.2f} s, "
+                f"launches {served}")
+            for k, n in served.items():
+                lm_launches[k] += n
+        parity_launches = dict.fromkeys(build.LAUNCHES, 0)
+        for cfg in (CHATGLM3_6B, STABLELM_3B):
+            t0 = time.perf_counter()
+            checked = lm_parity(cfg)
+            log(f"lm parity {cfg.name}: {time.perf_counter() - t0:.2f} s, "
+                f"launches {checked}")
+            for k, n in checked.items():
+                parity_launches[k] += n
+
+    if phases != list(PHASES):
+        log(f"partial run of {phases}: every check passed")
+        return 0
     # each kernel once, with the launches of the path that runs it: the
     # bsearch main path for the first two, the auto path for the tile
     # kernel (the mask form of intersect_count_pallas; its count form is
-    # the "kernel intersect_count" line above), the LM serving path for
-    # the tensor-core flash kernel, the f32 LM parity path for the
-    # CUDA-core one (both replace flash_attention_pallas, split by dtype
-    # and head dim); no path runs the bitset AND-popcount or the segment
-    # outer product, which only the kernel router reaches
+    # the "kernel intersect_count" line above), the LM serving paths of
+    # both models for the tensor-core flash kernel, their f32 parity paths
+    # for the CUDA-core one (both replace flash_attention_pallas, split by
+    # dtype and head dim); no path runs the bitset AND-popcount or the
+    # segment outer product, which only the kernel router reaches
     entries = (("searchsorted_segments", "searchsorted_segments",
                 launches["searchsorted_segments"]),
                ("bitset_member", "bitset_member",

@@ -62,9 +62,10 @@ def _expand_level(indptr, indices, bitmaps, frontier, mult, row_valid, *,
     the chunk is a hub, so membership is one gather into its
     ``bitset_words`` row plus a bit test; ``rep_tag`` maps vertex id to
     bitset row (the caller's bucketing guarantees tags >= 0 here).
-    ``'tile'``: the check segment is gathered once and every lane is
-    compared with its first ``check_width`` values (the caller buckets
-    rows so that segments fit, or accepts the truncation).
+    ``'tile'``: the check segment is gathered once and every live lane
+    (``j < deg_star``) is compared with its first ``check_width`` values
+    (the caller buckets rows so that segments fit, or accepts the
+    truncation).
     ``'bsearch2'``: a first search over ``summary`` (every
     ``summary_stride``-th index, ``n_iter`` rounds), then ``n_iter2``
     rounds in the window it leaves.
@@ -87,6 +88,11 @@ def _expand_level(indptr, indices, bitmaps, frontier, mult, row_valid, *,
     cand = indices[cand_idx.clamp(0, max(0, m - 1))]          # (C, W)
     keep = (j[None, :] < deg_star[:, None]) & row_valid[:, None]
 
+    # the tile check searches only the live lanes (0 for invalid rows):
+    # keep already ANDs them, so no count changes
+    lane_len = (torch.where(row_valid, deg_star, 0).to(torch.int32)
+                if check_mode == "tile" else None)
+
     # membership checks against every other bound edge-neighbor's segment.
     # rotate_checks synthesizes exactly the P-1 non-probe sources per row
     # (rotating from the argmin) — no wasted self-check lanes.
@@ -105,7 +111,7 @@ def _expand_level(indptr, indices, bitmaps, frontier, mult, row_valid, *,
             hi = indptr[y + 1][:, None]
             if check_mode == "tile":
                 found = kops.tile_member_mask(indices, lo, hi, cand,
-                                              check_width)
+                                              check_width, lane_len)
             elif check_mode == "bsearch2":
                 _, found = kops.searchsorted_segments_2level(
                     indices, summary, lo, hi, cand, stride=summary_stride,

@@ -1,12 +1,28 @@
 // Flash attention on Hopper's tensor cores (causal, GQA, online softmax):
-// bf16 inputs with head dim 64 or 128, written by hand for sm_90a.
+// bf16 inputs with a head dim that is a multiple of 16 up to 128, written
+// by hand for sm_90a.
 //
 // Replaces: src/repro/kernels/flash_attention.py, flash_attention_pallas
-// (the TPU kernel body _flash_kernel), for bf16 with D in {64, 128}: the
-// dense transformer's prefill and forward.  Every other dtype and head
-// dim goes to the CUDA-core kernel in flash_attention.cu; the choice is
-// kernels/flash_attention.py, route().  Plain PyTorch version:
-// src/repro_torch/kernels/ref.py, flash_attention_ref.
+// (the TPU kernel body _flash_kernel), for bf16 with D in {16, 32, ...,
+// 128}: the dense transformer's prefill and forward.  float32, and bf16
+// at any other head dim, go to the CUDA-core kernel in flash_attention.cu;
+// the choice is kernels/flash_attention.py, route().  Plain PyTorch
+// version: src/repro_torch/kernels/ref.py, flash_attention_ref.
+//
+// Head dims: template instances of width D_I = 64, 80 and 128.  A head of
+// d runs on the smallest instance with D_I >= d: d 16-64 on 64 (chatglm3's
+// heads are 128, stablelm-3b's 80, the reduced configs' 16), 80 on 80,
+// 96-128 on 128.  Tiles are sized by 64-column boxes (ceil(D_I / 64) of
+// them); the tensor maps take the real d as their innermost extent, so
+// TMA fills the columns past d with zeros, which add nothing to Q K^T,
+// give zero output columns in P V, and are never stored.  Where d < D_I
+// (16-48, 96, 112) a padded variant of the instance stores d columns;
+// the others store D_I with no run-time width at all: reading d in the
+// epilogue made the D 128 instance 7% slower (its consumers run at the
+// 168-register cap).  D_I 80 is two
+// boxes, the second zero past column 80: Q K^T runs its five k16 slices,
+// P V is one wgmma m64n80k16, whose 80 columns span box 0 and the first
+// 16 columns of box 1.
 //
 // q (B, Hq, Tq, D), k and v (B, Hkv, Tk, D), bf16, read by TMA through
 // 4-D tensor maps over (D, T, H, B) with the tensors' own byte strides,
@@ -22,15 +38,20 @@
 // TFLOP/s there on an H100 80GB HBM3; this one runs both products on the
 // tensor cores and overlaps the loads with them.
 //
+// At stablelm-3b's prefill shape (B 4, Hq = Hkv = 32, T 2048, D 80,
+// causal) the work is 85.9 GFLOP against 168 MB: 0.087 ms at 989 TFLOP/s.
+// There the softmax, which does not shrink with D, takes a larger share
+// of each tile than at D 128.
+//
 // Design: one block of 384 threads per (128-query tile, b * Hq + h),
 // the heaviest causal tiles launched first.  Warps 0-7 are two consumer
 // warpgroups of 64 query rows each, warps 8-11 the producer warpgroup;
 // setmaxnreg moves registers from the producer (24 a thread) to the
 // consumers (240), and one producer thread starts every load:
 //  * Q once, and K and V tiles of 128 keys into a ring of three stages,
-//    by TMA with 128-byte swizzle (a D 128 row is 256 B, so each tile
-//    is two boxes of 64 columns), each stage with a full and an empty
-//    mbarrier, so the loads run ahead of the products.
+//    by TMA with 128-byte swizzle (a box is 64 columns, 128 B a row; D_I
+//    80 and 128 take two), each stage with a full and an empty mbarrier,
+//    so the loads run ahead of the products.
 //  * S = Q K^T: wgmma m64n128k16, Q and K from shared memory (both
 //    K-major, D contiguous), f32 accumulators in registers.
 //  * The online softmax on the accumulator layout: each thread holds
@@ -78,11 +99,14 @@ constexpr int kRowBytes = 128;  // one swizzled box row: 64 bf16 columns
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
+// Shared-memory tiles of the instance for head dims up to D: whole boxes
+// of 64 columns.
 template <int D>
 struct Layout {
-  static constexpr int kQ = kBM * D * 2;    // Q tile bytes
-  static constexpr int kKV = kBN * D * 2;   // K (or V) tile bytes
-  static constexpr int kStage = 2 * kKV;    // K then V
+  static constexpr int kBoxes = (D + 63) / 64;
+  static constexpr int kQ = kBM * kBoxes * kRowBytes;   // Q tile bytes
+  static constexpr int kKV = kBN * kBoxes * kRowBytes;  // K (or V) tile
+  static constexpr int kStage = 2 * kKV;                // K then V
   static constexpr int kBytes = kQ + kStages * kStage;
 };
 
@@ -266,6 +290,33 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// O += P V for one k16 slice: A (64 x 16 of P) from registers, B (16 keys
+// x 80) from shared memory, MN-major (transposed: V has D contiguous); the
+// 80 columns are box 0 and the first 16 columns of box 1, the leading
+// byte offset apart.
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // What the softmax of one warpgroup's tile needs to know of its rows.
 struct Tile {
   int qpos0;       // stream position of this thread's row r (r + 8: +8)
@@ -292,9 +343,9 @@ __device__ __forceinline__ void qk_start(float (&sc)[64], uint32_t qa,
   }
 }
 
-// O += P V: V rows 16 kk .. 16 kk + 15 for slice kk; the second column
-// half (D 128) lies kBN rows further (the leading byte offset), 8-row
-// groups 1024 B apart (the stride byte offset).
+// O += P V: V rows 16 kk .. 16 kk + 15 for slice kk; the second box of
+// columns (D 80 and 128) lies kBN rows further (the leading byte offset),
+// 8-row groups 1024 B apart (the stride byte offset).
 template <int D>
 __device__ __forceinline__ void pv_start(float (&acc)[D / 2],
                                          const uint32_t (&pa)[8][4],
@@ -304,6 +355,7 @@ __device__ __forceinline__ void pv_start(float (&acc)[D / 2],
     const uint64_t db =
         desc_b128(v_s + 16 * kk * kRowBytes, kBN * kRowBytes, 1024);
     if constexpr (D == 128) wgmma_rs_n128(acc, pa[kk], db);
+    else if constexpr (D == 80) wgmma_rs_n80(acc, pa[kk], db);
     else wgmma_rs_n64(acc, pa[kk], db);
   }
 }
@@ -377,12 +429,14 @@ __device__ __forceinline__ void pack_p(const float (&sc)[64],
   }
 }
 
-template <int D>
+// D: the instance's width; kPad: the head dim d is below it (the
+// epilogue then stores d columns, a run-time width).
+template <int D, bool kPad>
 __global__ void __launch_bounds__(kThreads, 1) flash_attention_tc_kernel(
     const __grid_constant__ CUtensorMap q_map,
     const __grid_constant__ CUtensorMap k_map,
     const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ o,
-    int hq, int group, int tq, int tk, int n_bh, float scale_log2,
+    int d, int hq, int group, int tq, int tk, int n_bh, float scale_log2,
     int causal) {
   using L = Layout<D>;
   extern __shared__ uint8_t smem_raw[];
@@ -427,7 +481,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_tc_kernel(
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (warp == kConsumerWarps && lane == 0) {
       mbar_expect_tx(bar_q, L::kQ);
-      for (int c = 0; c < D / 64; ++c)
+      for (int c = 0; c < L::kBoxes; ++c)
         tma_load_4d(q_s + c * kBM * kRowBytes, &q_map, bar_q, 64 * c, q0, h,
                     b);
       for (int kb = 0; kb < n_kb; ++kb) {
@@ -437,7 +491,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_tc_kernel(
         const uint32_t full = bar_full + 8 * s;
         const uint32_t k_s = kv_s + s * L::kStage, v_s = k_s + L::kKV;
         mbar_expect_tx(full, L::kStage);
-        for (int c = 0; c < D / 64; ++c) {
+        for (int c = 0; c < L::kBoxes; ++c) {
           tma_load_4d(k_s + c * kBN * kRowBytes, &k_map, full, 64 * c,
                       kb * kBN, kvh, b);
           tma_load_4d(v_s + c * kBN * kRowBytes, &v_map, full, 64 * c,
@@ -533,17 +587,20 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_tc_kernel(
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     l[i] = fmaxf(l[i], 1e-30f);
   }
-  __nv_bfloat16* op = o + static_cast<int64_t>(bh) * tq * D;
+  // the real columns (d a multiple of 16, so whole 8-column groups)
+  const int width = kPad ? d : D;
+  __nv_bfloat16* op = o + static_cast<int64_t>(bh) * tq * width;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + 8 * i;
     if (row >= tq) continue;
-    __nv_bfloat16* orow = op + static_cast<int64_t>(row) * D + tile.col0;
+    __nv_bfloat16* orow = op + static_cast<int64_t>(row) * width + tile.col0;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * i] / l[i],
-                                acc[4 * j + 2 * i + 1] / l[i]);
+      if (!kPad || 8 * j < width)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * i] / l[i],
+                                  acc[4 * j + 2 * i + 1] / l[i]);
   }
 }
 
@@ -596,9 +653,11 @@ bool make_map(CUtensorMap* map, const void* ptr, int64_t d, int64_t t,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+// The instance for head dims up to D, run at head dim d <= D (kPad: d <
+// D).
+template <int D, bool kPad>
 int launch(const void* q, const void* k, const void* v, void* o, int64_t b,
-           int64_t hq, int64_t hkv, int64_t tq, int64_t tk,
+           int64_t hq, int64_t hkv, int64_t tq, int64_t tk, int64_t d,
            const int64_t* q_bs, const int64_t* k_bs, const int64_t* v_bs,
            float scale, int causal, cudaStream_t stream) {
   const int64_t n_qb = (tq + kBM - 1) / kBM;
@@ -609,29 +668,32 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t b,
       tk >= (int64_t{1} << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap q_map, k_map, v_map;
-  if (!make_map(&q_map, q, D, tq, hq, b, q_bs, kBM) ||
-      !make_map(&k_map, k, D, tk, hkv, b, k_bs, kBN) ||
-      !make_map(&v_map, v, D, tk, hkv, b, v_bs, kBN))
+  if (!make_map(&q_map, q, d, tq, hq, b, q_bs, kBM) ||
+      !make_map(&k_map, k, d, tk, hkv, b, k_bs, kBN) ||
+      !make_map(&v_map, v, d, tk, hkv, b, v_bs, kBN))
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = Layout<D>::kBytes + 1024;  // + room to align to 1024
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_tc_kernel<D>,
+      flash_attention_tc_kernel<D, kPad>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_attention_tc_kernel<D><<<static_cast<unsigned>(blocks), kThreads,
-                                 smem, stream>>>(
+  flash_attention_tc_kernel<D, kPad><<<static_cast<unsigned>(blocks),
+                                       kThreads, smem, stream>>>(
       q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o),
-      static_cast<int>(hq), static_cast<int>(hq / hkv), static_cast<int>(tq),
+      static_cast<int>(d), static_cast<int>(hq), static_cast<int>(hq / hkv),
+      static_cast<int>(tq),
       static_cast<int>(tk), static_cast<int>(n_bh), scale * kLog2e, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// bf16 only, d 64 or 128.  Byte strides of the (T, H, B) dims of each
-// tensor (the D dim is contiguous); the wrapper (kernels/flash_attention.py,
-// tma_geometry) checks that the base is 16-byte aligned and every stride a
-// multiple of 16 bytes.  o (B, Hq, Tq, D) contiguous.
+// bf16 only, d a multiple of 16 from 16 to 128, run on the instance 64
+// (d <= 64), 80 (d 80) or 128 (d 96-128).  Byte strides of the (T, H, B)
+// dims of each tensor (the D dim is contiguous); the wrapper
+// (kernels/flash_attention.py, tma_geometry) checks that the base is
+// 16-byte aligned and every stride a multiple of 16 bytes.  o (B, Hq, Tq,
+// D) contiguous.
 extern "C" int flash_attention_tc_launch(
     const void* q, const void* k, const void* v, void* o, int64_t b,
     int64_t hq, int64_t hkv, int64_t tq, int64_t tk, int64_t d,
@@ -641,12 +703,16 @@ extern "C" int flash_attention_tc_launch(
   if (hkv < 1 || hq % hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t qs[3] = {q_st, q_sh, q_sb}, ks[3] = {k_st, k_sh, k_sb},
                 vs[3] = {v_st, v_sh, v_sb};
+  if (d < 16 || d > 128 || d % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64)
-    return launch<64>(q, k, v, o, b, hq, hkv, tq, tk, qs, ks, vs, scale,
-                      causal, s);
-  if (d == 128)
-    return launch<128>(q, k, v, o, b, hq, hkv, tq, tk, qs, ks, vs, scale,
-                       causal, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const auto run = [&](auto launch) {
+    return launch(q, k, v, o, b, hq, hkv, tq, tk, d, qs, ks, vs, scale,
+                  causal, s);
+  };
+  if (d == 64) return run(&launch<64, false>);
+  if (d < 64) return run(&launch<64, true>);
+  if (d == 80) return run(&launch<80, false>);
+  if (d == 128) return run(&launch<128, false>);
+  return run(&launch<128, true>);
 }

@@ -47,7 +47,7 @@ SIGNATURES = {
     "bitset_member_count_launch": (
         _P, _I64, _P, _I64, _I64, _P, _P, _P),
     "tile_member_mask_launch": (
-        _P, _I64, _P, _P, _P, _I64, _I64, ctypes.c_int, _P, _P),
+        _P, _I64, _P, _P, _P, _P, _I64, _I64, ctypes.c_int, _P, _P),
     "intersect_count_launch": (
         _P, _I64, _P, _P, _I64, _P, _I64, _P, _P),
     "bitset_intersect_count_launch": (_P, _P, _I64, _I64, _P, _P),

@@ -5,10 +5,11 @@ Two hand-written Hopper kernels replace
 attention with an online softmax, the queries being the last Tq positions
 of the Tk stream), chosen by dtype and head dim (:func:`route`):
 
-* ``csrc/flash_attention_tc.cu``: bf16 with D 64 or 128 (the models'
-  prefill and forward) on the tensor cores, wgmma with TMA loads;
-* ``csrc/flash_attention.cu``: everything else (float32, other head dims)
-  on the CUDA cores.
+* ``csrc/flash_attention_tc.cu``: bf16 with D a multiple of 16 up to 128
+  (the models' prefill and forward: chatglm3-6b's 128, stablelm-3b's 80)
+  on the tensor cores, wgmma with TMA loads;
+* ``csrc/flash_attention.cu``: everything else (float32, and bf16 at a
+  head dim that is not a multiple of 16) on the CUDA cores.
 
 See the sources for the designs.  Each launch counts under its own name,
 ``flash_attention_tc`` or ``flash_attention_simt``.  The plain PyTorch
@@ -27,24 +28,30 @@ PALLAS_BLOCK = 128
 MAX_HEAD_DIM = 128
 #: dtype -> the CUDA-core entry point's dtype code
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: head dims of the tensor-core kernel's template instances (bf16 only)
-TC_HEAD_DIMS = (64, 128)
+
+
+def tc_head_dim(head_dim: int) -> bool:
+    """Whether the tensor-core kernel takes this head dim: a multiple of 16
+    (one wgmma k16 slice) up to :data:`MAX_HEAD_DIM`.  Its launcher runs
+    a head of d on the smallest of its template instances (64, 80, 128)
+    of at least d, the columns past d zero."""
+    return 0 < head_dim <= MAX_HEAD_DIM and head_dim % 16 == 0
 
 
 def route(device, dtype: torch.dtype, head_dim: int) -> str:
     """Which flash path runs for queries of this device, dtype and head
     dim: ``"plain"`` on the CPU, ``"tc"`` (the tensor-core kernel) for
-    bf16 on a CUDA device with a head dim in :data:`TC_HEAD_DIMS`,
-    ``"simt"`` (the CUDA-core kernel) for any other CUDA input.  A route
-    by shape, not a fallback: the chosen kernel raises if it cannot build
-    or launch."""
+    bf16 on a CUDA device with a head dim that is a multiple of 16 up to
+    128 (:func:`tc_head_dim`), ``"simt"`` (the CUDA-core kernel) for any
+    other CUDA input.  A route by shape, not a fallback: the chosen
+    kernel raises if it cannot build or launch."""
     kind = torch.device(device).type
     if kind == "cpu":
         return "plain"
     if kind != "cuda":
         raise ValueError(f"flash_attention: no kernel for tensors on "
                          f"{device}")
-    if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
+    if dtype == torch.bfloat16 and tc_head_dim(head_dim):
         return "tc"
     return "simt"
 
@@ -120,8 +127,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _launch_tc(q, k, v, causal: bool, scale: float) -> torch.Tensor:
-    """The tensor-core kernel (bf16, D in TC_HEAD_DIMS).  A tensor TMA
-    cannot read in place is copied to a contiguous one first."""
+    """The tensor-core kernel (bf16, D a multiple of 16 up to 128).  A
+    tensor TMA cannot read in place is copied to a contiguous one
+    first."""
     b, hq, tq, d = q.shape
     hkv, tk = k.shape[1], k.shape[2]
     maps = []

@@ -15,7 +15,7 @@ import torch
 from . import build
 
 #: shared memory one block may use on sm_90 (227 KB); the mask form
-#: stages ``check_width`` int32 values there
+#: stages ``check_width`` int32 values there for each row in flight
 MAX_SHARED_BYTES = 232448
 
 
@@ -35,22 +35,30 @@ def _check_int32(name: str, tensors: dict[str, torch.Tensor]) -> None:
 
 def tile_member_mask_cuda(indices: torch.Tensor, lo: torch.Tensor,
                           hi: torch.Tensor, cand: torch.Tensor,
-                          check_width: int) -> torch.Tensor:
-    """found[r, j]: ``cand[r, j]`` is among the first ``check_width``
-    values of ``indices[lo[r]:hi[r])``.
+                          check_width: int,
+                          lane_len: torch.Tensor | None = None
+                          ) -> torch.Tensor:
+    """found[r, j]: ``j < lane_len[r]`` (every lane where ``lane_len`` is
+    None) and ``cand[r, j]`` is among the first ``check_width`` values of
+    ``indices[lo[r]:hi[r])``.  The candidates of lanes at or past
+    ``lane_len`` are not used.
 
     indices: (M,) int32, M >= 1, each segment sorted; lo, hi: (R, 1)
-    int32; cand: (R, W) int32; all contiguous on one CUDA device.
-    Returns (R, W) bool."""
+    int32; cand: (R, W) int32; lane_len: (R,) int32 or None; all
+    contiguous on one CUDA device.  Returns (R, W) bool."""
     name = "tile_member_mask"
-    _check_int32(name, {"indices": indices, "lo": lo, "hi": hi,
-                        "cand": cand})
+    tensors = {"indices": indices, "lo": lo, "hi": hi, "cand": cand}
+    if lane_len is not None:
+        tensors["lane_len"] = lane_len
+    _check_int32(name, tensors)
     _require(indices.dim() == 1 and 1 <= indices.shape[0] < 2 ** 31, name,
              "indices must be a non-empty (M,) tensor of int32 ids")
     _require(cand.dim() == 2, name, "cand must be (R, W)")
     r, w = cand.shape
     for arg, t in (("lo", lo), ("hi", hi)):
         _require(tuple(t.shape) == (r, 1), name, f"{arg} must be (R, 1)")
+    _require(lane_len is None or tuple(lane_len.shape) == (r,), name,
+             "lane_len must be (R,)")
     _require(0 <= check_width and 4 * check_width <= MAX_SHARED_BYTES, name,
              f"check_width {check_width} does not fit in shared memory")
     found = torch.empty((r, w), dtype=torch.bool, device=cand.device)
@@ -58,7 +66,8 @@ def tile_member_mask_cuda(indices: torch.Tensor, lo: torch.Tensor,
     stream = torch.cuda.current_stream(cand.device).cuda_stream
     rc = lib.tile_member_mask_launch(
         indices.data_ptr(), indices.shape[0], lo.data_ptr(), hi.data_ptr(),
-        cand.data_ptr(), r, w, int(check_width), found.data_ptr(), stream)
+        cand.data_ptr(), None if lane_len is None else lane_len.data_ptr(),
+        r, w, int(check_width), found.data_ptr(), stream)
     build.check(rc, name)
     build.count_launch(name)
     return found

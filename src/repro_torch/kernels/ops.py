@@ -51,12 +51,16 @@ def searchsorted_segments_2level(values, summary, lo, hi, queries, *,
         values, summary, lo, hi, queries, stride, n1, n2, search=search)
 
 
-def tile_member_mask(indices, lo, hi, cand, check_width: int):
+def tile_member_mask(indices, lo, hi, cand, check_width: int,
+                     lane_len=None):
     """Per-lane membership in the first ``check_width`` values of each
-    row's check segment; see :func:`kernels.ref.tile_member_mask_ref`."""
+    row's check segment, false past ``lane_len`` where it is given; see
+    :func:`kernels.ref.tile_member_mask_ref`."""
     if _on_cpu(indices):
-        return _ref.tile_member_mask_ref(indices, lo, hi, cand, check_width)
-    return tile_member_mask_cuda(indices, lo, hi, cand, check_width)
+        return _ref.tile_member_mask_ref(indices, lo, hi, cand, check_width,
+                                         lane_len)
+    return tile_member_mask_cuda(indices, lo, hi, cand, check_width,
+                                 lane_len)
 
 
 def intersect_count(a, a_len, b, b_len):
@@ -94,8 +98,8 @@ def flash_attention(q, k, v, causal: bool = True, scale=None):
     """Causal GQA softmax attention, queries the last Tq positions of the
     Tk stream; see :func:`kernels.ref.flash_attention_ref`.  On the card
     the dtype and head dim pick the kernel
-    (:func:`kernels.flash_attention.route`: bf16 with D 64 or 128 on the
-    tensor cores, the rest on the CUDA cores).  As in the JAX package,
+    (:func:`kernels.flash_attention.route`: bf16 with D a multiple of 16
+    up to 128 on the tensor cores, the rest on the CUDA cores).  As in the JAX package,
     the plain path takes any shape and the kernel path raises where
     ``flash_attention_pallas`` asserts
     (:func:`kernels.flash_attention.check_shapes`: Tq and Tk multiples of

@@ -86,27 +86,39 @@ def _row_blocks(rows: int, per_row: int):
 
 def tile_member_mask_ref(indices: torch.Tensor, lo: torch.Tensor,
                          hi: torch.Tensor, cand: torch.Tensor,
-                         check_width: int) -> torch.Tensor:
+                         check_width: int,
+                         lane_len: torch.Tensor | None = None
+                         ) -> torch.Tensor:
     """Tile-compare membership: ``cand[r, j]`` against the first
     ``check_width`` values of its row's check segment ``indices[lo:hi)``.
 
-    indices: (M,) int32; lo, hi: (R, 1) int32; cand: (R, W) int32.  The
-    segment is gathered once per row (``seg_idx = lo + arange(
-    check_width)`` clamped to [0, M-1], valid where ``seg_idx < hi``) and
-    every lane is compared with all of it, as the reference's tile
-    branch does.  Values past ``check_width`` are never seen.  Returns
-    (R, W) bool.
+    indices: (M,) int32; lo, hi: (R, 1) int32; cand: (R, W) int32;
+    lane_len: (R,) int32 valid lanes per row (the Pallas kernel's
+    ``a_len``), or None for every lane.  The segment is gathered once per
+    row (``seg_idx = lo + arange(check_width)`` clamped to [0, M-1],
+    valid where ``seg_idx < hi``) and every live lane is compared with
+    all of it, as the reference's tile branch does.  Values past
+    ``check_width`` are never seen; lanes at or past ``lane_len`` are
+    false, and their candidates are not used.  Returns (R, W) bool.
     """
     m = indices.shape[0]
+    rows, w = cand.shape
     j2 = torch.arange(check_width, dtype=torch.int32, device=cand.device)
     seg_idx = lo + j2[None, :]                                  # (R, W2)
     seg = indices[seg_idx.clamp(0, max(0, m - 1))]
     seg_ok = seg_idx < hi
-    found = torch.empty(cand.shape, dtype=torch.bool, device=cand.device)
-    for s, e in _row_blocks(cand.shape[0], cand.shape[1] * check_width):
-        eq = cand[s:e, :, None] == seg[s:e, None, :]
+    found = torch.zeros(cand.shape, dtype=torch.bool, device=cand.device)
+    live = w
+    if lane_len is not None:
+        lanes = lane_len.clamp(0, w)
+        live = int(lanes.max()) if rows else 0
+    for s, e in _row_blocks(rows, live * check_width):
+        eq = cand[s:e, :live, None] == seg[s:e, None, :]
         eq &= seg_ok[s:e, None, :]
-        found[s:e] = eq.any(dim=2)
+        found[s:e, :live] = eq.any(dim=2)
+    if lane_len is not None:
+        found &= (torch.arange(w, device=cand.device)[None, :]
+                  < lanes[:, None])
     return found
 
 

@@ -8,6 +8,7 @@ tensors to the plain versions without launching anything, the CUDA
 wrappers refuse CPU tensors, and the ctypes signatures match the C entry
 points in ``csrc/``.
 """
+import ctypes
 import re
 
 import jax.numpy as jnp
@@ -247,6 +248,9 @@ def test_ops_route_cpu_tensors_to_plain_versions():
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert torch.equal(ops.tile_member_mask(v, lo, hi, q, 8),
                        ref.tile_member_mask_ref(v, lo, hi, q, 8))
+    lanes = torch.arange(8, dtype=torch.int32) * 5
+    assert torch.equal(ops.tile_member_mask(v, lo, hi, q, 8, lanes),
+                       ref.tile_member_mask_ref(v, lo, hi, q, 8, lanes))
     qs = torch.sort(q, dim=1).values
     alen = torch.full((8,), 30, dtype=torch.int32)
     assert torch.equal(ops.intersect_count(qs, alen, cand, blen),
@@ -277,6 +281,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tile_member_mask_cuda(v, lo, lo, q, 4)
     with pytest.raises(ValueError, match="CUDA"):
+        tile_member_mask_cuda(v, lo, lo, q, 4, lo[:, 0].contiguous())
+    with pytest.raises(ValueError, match="CUDA"):
         intersect_count_cuda(q, lo[:, 0], q, lo[:, 0])
     with pytest.raises(ValueError, match="CUDA"):
         bitset_intersect_count_cuda(words, words)
@@ -299,6 +305,14 @@ def test_ctypes_signatures_match_c_entry_points():
         "bitset_intersect.cu", "flash_attention.cu", "flash_attention_tc.cu",
         "segment_outer.cu"}
     assert found == {k: len(v) for k, v in build.SIGNATURES.items()}
+    # the mask form takes the per-row valid-lane count (a pointer, null
+    # for every lane) after the candidates
+    text = (build.CSRC / "intersect.cu").read_text()
+    params = re.search(r'extern "C" int tile_member_mask_launch\(([^)]*)\)',
+                       text).group(1).split(",")
+    names = [x.split()[-1].lstrip("*") for x in params]
+    assert names[4:6] == ["cand", "lane_len"]
+    assert build.SIGNATURES["tile_member_mask_launch"][5] is ctypes.c_void_p
 
 
 # --- tile intersection (intersect_count_pallas and the tile check) -------
@@ -393,13 +407,85 @@ def test_tile_member_mask_plain_matches_reference(check_width):
     np.testing.assert_array_equal(got.numpy(), exact)
 
 
+@pytest.mark.parametrize("case", ["random", "zero", "full", "above",
+                                  "negative"])
+@pytest.mark.parametrize("check_width", [7, 60])
+def test_tile_member_mask_lane_len_matches_reference(case, check_width):
+    """``lane_len`` is the Pallas kernel's ``a_len``: the mask's row sums
+    are the JAX package's ``intersect_count_ref`` of the candidates (A,
+    valid to ``lane_len``) and the staged segments (B, valid to their
+    staged length), and the mask is the all-lane mask ANDed with
+    ``j < lane_len``.  Including ``lane_len`` 0, equal to W, above W and
+    negative."""
+    rng = np.random.default_rng(check_width * 10 + len(case))
+    values, starts, ends = _segments(rng, 30, 60, 150, 4)
+    r, w = 24, 40
+    seg = rng.integers(0, 30, r)
+    lo = starts[seg].astype(np.int32)[:, None]
+    hi = ends[seg].astype(np.int32)[:, None]
+    cand = rng.integers(-5, 155, (r, w)).astype(np.int32)
+    lane_len = {"random": rng.integers(0, w + 1, r),
+                "zero": np.zeros(r),
+                "full": np.full(r, w),
+                "above": np.full(r, w + 13),
+                "negative": rng.integers(-4, 8, r)}[case].astype(np.int32)
+    args = tuple(map(torch.from_numpy, (values, lo, hi, cand)))
+    got = ref.tile_member_mask_ref(*args, check_width,
+                                   torch.from_numpy(lane_len))
+    every = ref.tile_member_mask_ref(*args, check_width)
+    live = np.arange(w)[None, :] < lane_len[:, None]
+    np.testing.assert_array_equal(got.numpy(), every.numpy() & live)
+    # B: each row's staged prefix, padded past its length
+    n = np.clip(hi[:, 0] - lo[:, 0], 0, check_width).astype(np.int32)
+    idx = np.clip(lo + np.arange(check_width)[None, :], 0,
+                  values.shape[0] - 1)
+    b = np.where(np.arange(check_width)[None, :] < n[:, None], values[idx],
+                 -1000).astype(np.int32)
+    want = j_icount_ref(*map(jnp.asarray, (cand, lane_len, b, n)))
+    np.testing.assert_array_equal(got.numpy().sum(axis=1), np.asarray(want))
+
+
+def test_level_step_passes_probe_degrees_as_lane_len(monkeypatch):
+    """In ``tile`` mode the level step gives the mask each row's probe
+    degree as ``lane_len``, 0 for invalid rows; other modes give none."""
+    from repro_torch.core import vlftj as t_vlftj
+    seen = []
+
+    def spy(indices, lo, hi, cand, check_width, lane_len=None):
+        seen.append(lane_len.clone())
+        return ref.tile_member_mask_ref(indices, lo, hi, cand, check_width,
+                                        lane_len)
+
+    monkeypatch.setattr(t_vlftj.kops, "tile_member_mask", spy)
+    rng = np.random.default_rng(12)
+    values, starts, ends = _segments(rng, 40, 50, 40, 6)
+    indptr = np.concatenate([starts, ends[-1:]]).astype(np.int32)
+    frontier = rng.integers(0, 40, (16, 3)).astype(np.int32)
+    row_valid = np.arange(16) < 11
+    t_expand_level(
+        *map(torch.from_numpy, (indptr, values)), (),
+        *map(torch.from_numpy, (frontier, np.ones(16, np.int64), row_valid)),
+        probe_cols=(0, 2), n_unary=0, lower_cols=(), upper_cols=(), width=64,
+        n_iter=7, needs_degree=False, check_mode="tile", check_width=64,
+        count_only=True)
+    deg = indptr[frontier + 1] - indptr[frontier]
+    want = np.where(row_valid, np.minimum(deg[:, 0], deg[:, 2]), 0)
+    assert len(seen) == 2
+    for lane_len in seen:
+        assert lane_len.dtype == torch.int32
+        np.testing.assert_array_equal(lane_len.numpy(), want)
+
+
 @pytest.mark.parametrize("check_mode,check_width", [("tile", 16),
                                                     ("tile", 64),
+                                                    ("tile", 4),
                                                     ("bsearch2", 0)])
 def test_level_step_matches_reference(check_mode, check_width):
     """One full level step (probe choice, candidates, every check, unary
     and ``<`` filters) in the new check modes, both packages on the same
-    chunk: candidates, masks and weighted counts."""
+    chunk: candidates, masks and weighted counts.  ``tile`` at width 64
+    holds every segment (the rows ``auto`` sends there), at 16 and 4 it
+    truncates; the port's mask searches only the live lanes."""
     rng = np.random.default_rng(11)
     values, starts, ends = _segments(rng, 40, 50, 40, 6)
     indptr = np.concatenate([starts, ends[-1:]]).astype(np.int32)

@@ -151,16 +151,36 @@ def test_flash_attention_bf16_plain_matches_ref_on_tc_shapes(d, group, tq,
     ("cuda", torch.bfloat16, 128, "tc"),
     ("cuda", torch.float32, 128, "simt"),
     ("cuda", torch.float32, 64, "simt"),
-    ("cuda", torch.bfloat16, 80, "simt"),    # stablelm-3b's heads
-    ("cuda", torch.bfloat16, 16, "simt"),    # the reduced configs' heads
+    ("cuda", torch.bfloat16, 80, "tc"),      # stablelm-3b's heads
+    ("cuda", torch.bfloat16, 16, "tc"),      # the reduced configs' heads
+    ("cuda", torch.bfloat16, 40, "simt"),    # not a multiple of 16
+    ("cuda", torch.bfloat16, 8, "simt"),
+    ("cuda", torch.float32, 80, "simt"),
     ("cuda:0", torch.bfloat16, 128, "tc"),
     ("cpu", torch.bfloat16, 128, "plain"),
     ("cpu", torch.float32, 80, "plain"),
 ])
 def test_flash_route(device, dtype, d, want):
-    """bf16 with D 64 or 128 takes the tensor-core kernel, every other
-    CUDA input the CUDA-core one, and CPU tensors the plain version."""
+    """bf16 with D a multiple of 16 up to 128 takes the tensor-core
+    kernel, every other CUDA input the CUDA-core one, and CPU tensors the
+    plain version."""
     assert route(device, dtype, d) == want
+
+
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 4)])
+@pytest.mark.parametrize("tq,tk", [(1, 256), (128, 256), (256, 256),
+                                   (100, 100)])
+def test_flash_attention_bf16_plain_matches_ref_at_d80(hq, hkv, tq, tk):
+    """stablelm-3b's head dim (80) in bf16, GQA groups 1 and 2, the causal
+    offset and a ragged stream: the plain version, which the card holds
+    the tensor-core kernel's D 80 instance against, agrees with the JAX
+    package's reference at 2e-2."""
+    (jq, jk, jv), (q, k, v) = _both(_qkv(9, 1, hq, hkv, tq, tk, 80,
+                                         "bfloat16"), "bfloat16")
+    for causal in (True, False):
+        assert_allclose(_f32(ops.flash_attention(q, k, v, causal=causal)),
+                        _f32(j_flash_ref(jq, jk, jv, causal=causal)),
+                        atol=2e-2, rtol=2e-2)
 
 
 def test_flash_route_refuses_other_devices():
@@ -182,11 +202,16 @@ def _rebuild(t, geo):
 
 
 @pytest.mark.parametrize("b,t,h,d", [(4, 256, 8, 128), (2, 100, 2, 64),
-                                     (1, 128, 1, 64), (3, 64, 16, 128)])
+                                     (1, 128, 1, 64), (3, 64, 16, 128),
+                                     # stablelm-3b's prefill views
+                                     (4, 128, 32, 80), (1, 256, 32, 80),
+                                     (2, 64, 1, 80), (2, 64, 4, 16)])
 def test_tma_geometry_rebuilds_the_tensor(b, t, h, d):
     """Dims and byte strides of the tensor maps rebuild the tensor with
     ``as_strided``: prefill's (B, T, H, D) -> (B, H, T, D) transposed view
-    in place, and a contiguous (B, H, T, D) tensor."""
+    in place, and a contiguous (B, H, T, D) tensor.  The map's innermost
+    extent is the real D (80 for stablelm-3b), so TMA zero-fills the
+    rest of a 64-column box."""
     x = torch.from_numpy(np.random.default_rng(b * t + h + d)
                          .standard_normal((b, t, h, d)).astype(np.float32)
                          ).to(torch.bfloat16)

@@ -1,26 +1,45 @@
-"""Wall time of the PyTorch port's join main path, for one source tree.
+"""Parent against change: the PyTorch port's kernel and path times, for
+one source tree.
 
-    python3 tools/port_join_ab.py --src DIR [--label NAME]
+    python3 tools/port_join_ab.py --src DIR [--label NAME] [--parts LIST]
 
 Runs the package ``repro_torch`` found under ``DIR`` (``src`` of this
 checkout by default, or of another checkout, such as an unpacked parent
 commit) on one CUDA device, with the measuring code of this checkout's
-``chip_smoke.py``: the ``soc-Slashdot0811``-like graph at full scale as
-a plain and a hybrid db; ``searchsorted_segments`` at the main path's
-chunk (device time from ``torch.profiler``, and CUDA events over
-back-to-back wrapper calls); the main path (``count`` of the six tier-1
-shapes on both dbs, ``bsearch`` mode), its wall and launches; then the
-plain db's 4-cycle count unprofiled ``--reps`` times and once profiled.
-Prints one JSON line per measurement and a summary line last.  To
-compare two trees, run it once per tree in alternating order in one
-session on one card (parent, change, change, parent): host-bound walls
-differ between machines far more than between two runs on one.
+``chip_smoke.py``.  The parts (``--parts``, all by default):
+
+* ``search``: ``searchsorted_segments`` at the main path's chunk
+  (device time from ``torch.profiler``, and CUDA events over
+  back-to-back wrapper calls);
+* ``main``: the main path (``count`` of the six tier-1 shapes on both
+  dbs, ``bsearch`` mode), its wall and launches;
+* ``cycle4``: the plain db's 4-cycle count in ``bsearch`` mode
+  unprofiled ``--reps`` times and once profiled;
+* ``tile``: ``tile_member_mask`` at the chip_smoke kernel line's chunk,
+  every lane, and with ``lane_len`` = the probe degrees where the tree's
+  mask takes it;
+* ``auto``: the plain db's 4-cycle count in ``check_mode="auto"``
+  (tile width 512) ``--reps`` times and once profiled, with the check
+  kernels' device times;
+* ``flash``: ``ops.flash_attention`` at stablelm-3b's and chatglm3-6b's
+  prefill shapes in bf16, the device time of the kernel the tree routes
+  each to;
+* ``lm``: stablelm-3b at full width and depth in bf16, seeded weights,
+  one 4 x 2048 prefill timed after a warm-up, and one profiled.
+
+The graph parts use the ``soc-Slashdot0811``-like graph at full scale as
+a plain and a hybrid db.  Prints one JSON line per measurement and a
+summary line last.  To compare two trees, run it once per tree in
+alternating order on one card, one process after another (parent,
+change, change, parent): host-bound walls differ between machines far
+more than between two runs on one.
 
 Imports nothing of JAX.
 """
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import subprocess
 import sys
@@ -30,6 +49,18 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent.parent
+PARTS = ("search", "main", "cycle4", "tile", "auto", "flash", "lm")
+
+
+def walls(fn, reps: int) -> list:
+    import torch
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
 
 
 def main() -> int:
@@ -39,7 +70,12 @@ def main() -> int:
     ap.add_argument("--label", default="", help="name printed with results")
     ap.add_argument("--reps", type=int, default=3,
                     help="unprofiled 4-cycle counts")
+    ap.add_argument("--parts", default=",".join(PARTS),
+                    help=f"comma list of {', '.join(PARTS)}")
     args = ap.parse_args()
+    parts = args.parts.split(",")
+    if not set(parts) <= set(PARTS):
+        ap.error(f"--parts takes {', '.join(PARTS)}")
     import torch
     if not torch.cuda.is_available():
         print("port_join_ab: no CUDA device", file=sys.stderr)
@@ -63,42 +99,137 @@ def main() -> int:
     t0 = time.perf_counter()
     build.library()
     out["nvcc_s"] = time.perf_counter() - t0
-    _, db, hdb = cs.bench_gdb(T, 1.0, "cuda")
 
-    # the searchsorted kernel at the chip_smoke.py kernel line's chunk
-    cand, check, _ = cs.level_inputs(db, np.random.default_rng(cs.SEED), 2048,
-                                     hubs_only=False)
-    indptr = db.csr.indptr
-    dev = db.device
-    values = db.dev("indices")
-    q = torch.from_numpy(cand).to(dev)
-    lo = torch.from_numpy(indptr[check][:, None].astype(np.int32)).to(dev)
-    hi = torch.from_numpy(indptr[check + 1][:, None].astype(np.int32)).to(dev)
+    if set(parts) & {"search", "main", "cycle4", "tile", "auto"}:
+        _, db, hdb = cs.bench_gdb(T, 1.0, "cuda")
+        indptr = db.csr.indptr
+        dev = db.device
+        values = db.dev("indices")
 
-    def search():
-        return ops.searchsorted_segments(values, lo, hi, q, db.bsearch_iters)
+    def chunk(seed: int, max_degree=None):
+        cand, check, deg = cs.level_inputs(
+            db, np.random.default_rng(seed), 2048, hubs_only=False,
+            max_degree=max_degree)
+        return (torch.from_numpy(cand).to(dev),
+                torch.from_numpy(indptr[check][:, None].astype(np.int32)
+                                 ).to(dev),
+                torch.from_numpy(indptr[check + 1][:, None].astype(np.int32)
+                                 ).to(dev),
+                torch.from_numpy(deg).to(dev))
 
-    out["searchsorted_ms"] = cs.device_ms(search, 50,
-                                          "searchsorted_segments_kernel")
-    out["searchsorted_event_ms"] = cs.cuda_ms(search, 50)
+    if "search" in parts:
+        # the searchsorted kernel at the chip_smoke.py kernel line's chunk
+        q, lo, hi, _ = chunk(cs.SEED)
 
-    t0 = time.perf_counter()
-    counts, launches = cs.main_path(T, {"plain": db, "hybrid": hdb})
-    out["main_path_s"] = time.perf_counter() - t0
-    out["main_path_launches"] = launches
-    out["counts"] = {f"{d}/{s}": n for (d, s), n in counts.items()}
+        def search():
+            return ops.searchsorted_segments(values, lo, hi, q,
+                                             db.bsearch_iters)
+
+        out["searchsorted_ms"] = cs.device_ms(search, 50,
+                                              "searchsorted_segments_kernel")
+        out["searchsorted_event_ms"] = cs.cuda_ms(search, 50)
+
+    if "main" in parts:
+        t0 = time.perf_counter()
+        counts, launches = cs.main_path(T, {"plain": db, "hybrid": hdb})
+        out["main_path_s"] = time.perf_counter() - t0
+        out["main_path_launches"] = launches
+        out["counts"] = {f"{d}/{s}": n for (d, s), n in counts.items()}
 
     query = T.get_query("4-cycle")
-    walls = []
-    for _ in range(args.reps):
-        t0 = time.perf_counter()
-        T.count(query, db)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    out["count_4cycle_walls_s"] = walls
-    cs.profile_count(T, db, "4-cycle")
+    if "cycle4" in parts:
+        out["count_4cycle_walls_s"] = walls(lambda: T.count(query, db),
+                                            args.reps)
+        cs.profile_count(T, db, "4-cycle")
+
+    if "tile" in parts:
+        # the tile mask at the chip_smoke.py kernel line's chunk (the rows
+        # check_mode="auto" sends down the tile path)
+        q, lo, hi, lanes = chunk(cs.SEED + 1, cs.TILE_WIDTH)
+        cw = cs.TILE_WIDTH
+        out["tile_all_lanes_ms"] = cs.device_ms(
+            lambda: ops.tile_member_mask(values, lo, hi, q, cw), 50,
+            "tile_member_mask_kernel")
+        if "lane_len" in inspect.signature(ops.tile_member_mask).parameters:
+            out["tile_lane_len_ms"] = cs.device_ms(
+                lambda: ops.tile_member_mask(values, lo, hi, q, cw, lanes),
+                50, "tile_member_mask_kernel")
+
+    if "auto" in parts:
+        kw = dict(check_mode="auto", tile_width=cs.TILE_WIDTH)
+        out["count_4cycle_auto_walls_s"] = walls(
+            lambda: T.count(query, db, **kw), args.reps)
+        cs.profile_count(T, db, "4-cycle", **kw)
+
+    if "flash" in parts:
+        out.update(flash_shapes(cs))
+
+    if "lm" in parts:
+        out.update(stablelm_prefill(cs))
+
     print(json.dumps(out), flush=True)
     return 0
+
+
+def flash_shapes(cs) -> dict:
+    """Device time of the tree's flash route at the two models' prefill
+    shapes in bf16, causal, on (B, T, H, D) tensors seen as (B, H, T, D),
+    as prefill passes them: chatglm3-6b's (B 4, 32 query and 2 KV heads
+    of 128, T 2048) first, then stablelm-3b's (32 query and 32 KV heads
+    of 80)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import route
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    out = {}
+    for name, hq, hkv, d in (("chatglm", 32, 2, 128),
+                             ("stablelm", 32, 32, 80)):
+        q, k, v = (torch.randn((cs.LM_BATCH, cs.LM_PROMPT, h, d),
+                               generator=g, device="cuda"
+                               ).to(torch.bfloat16).transpose(1, 2)
+                   for h in (hq, hkv, hkv))
+        path = route(q.device, q.dtype, d)
+        kernel = ("flash_attention_tc_kernel" if path == "tc"
+                  else "flash_attention_kernel")
+        out[f"flash_{name}_route"] = path
+        out[f"flash_{name}_ms"] = cs.device_ms(
+            lambda: ops.flash_attention(q, k, v), 20 if path == "tc" else 5,
+            kernel)
+    return out
+
+
+def stablelm_prefill(cs) -> dict:
+    """stablelm-3b at full width and depth in bf16: one 4 x 2048 prefill
+    after a warm-up, timed to ``synchronize``, its flash launches, and one
+    prefill profiled (``chip_smoke.gpu_profile``)."""
+    import torch
+    from repro_torch.configs import STABLELM_3B as cfg
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer as tfm
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    params = tfm.init_params(cfg, g, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (cs.LM_BATCH, cs.LM_PROMPT),
+                           generator=g, device="cuda")
+    ml = cs.LM_PROMPT + cs.LM_DECODE
+    tfm.prefill(params, tokens[:, :128], cfg, max_len=ml)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    tfm.prefill(params, tokens, cfg, max_len=ml)
+    torch.cuda.synchronize()
+    out = {"stablelm_prefill_s": time.perf_counter() - t0,
+           "stablelm_prefill_launches": {
+               k: n for k, n in build.LAUNCHES.items() if n}}
+    prof = cs.gpu_profile(lambda: tfm.prefill(params, tokens, cfg,
+                                              max_len=ml),
+                          f"prefill {cfg.name} {cs.LM_BATCH}x{cs.LM_PROMPT}")
+    print(json.dumps(prof), flush=True)
+    out["stablelm_prefill_profiled"] = {
+        k: prof[k] for k in ("wall_s", "device_busy_s", "idle_share",
+                             "device_s", "share")}
+    del params
+    torch.cuda.empty_cache()
+    return out
 
 
 if __name__ == "__main__":
