@@ -13,16 +13,19 @@ is the CUDA-event time of back-to-back wrapper calls, host dispatch
 included.  The searchsorted kernel is also held exactly on the inputs
 that leave its shared-memory path (a segment past its staging capacity,
 lo > hi, bounds outside [0, M], per-lane bounds, narrow widths).  The
-tile mask is timed in both its contracts, every lane and ``lane_len``
-(the live lanes the level step passes), and held exactly on its own
-edge cases.  Flash attention has two kernels, routed by dtype and head
-dim: bf16 with D a multiple of 16 up to 128 on the tensor cores
-(``flash_attention_tc``: chatglm3-6b's and stablelm-3b's prefill shapes,
-the CUDA-core kernel and SDPA on the same tensors, and a bf16 sweep over
-D 16-128, GQA groups, causal offsets, short and ragged streams and
-strided views; its line counts the ``HGMMA`` instructions in the built
-library's SASS where ``cuobjdump`` exists) and the rest on the CUDA cores
-(``flash_attention_simt``: f32 at the path shape and the f32 sweep).
+tile mask and the bitset mask are timed in both their contracts, every
+lane and ``lane_len`` (the live lanes the level step passes), and held
+exactly on their own edge cases.  Flash attention has two kernels,
+routed by dtype and head dim: bf16 with D a multiple of 16 up to 128 on
+wgmma (``flash_attention_tc``: chatglm3-6b's and stablelm-3b's prefill
+shapes, the mma.sync kernel and SDPA on the same tensors, and a bf16
+sweep over D 16-128, GQA groups, causal offsets, short and ragged
+streams and strided views) and the rest on mma.sync
+(``flash_attention_mma``: f32 in 3xTF32 at the path shape and the f32
+sweep, bf16 at D 72, 40 and 8 at stablelm-3b's shape, and a sweep of
+off-grid head dims in both dtypes, strided and offset views among
+them).  The two lines count the ``HGMMA`` and ``HMMA`` instructions in
+the built library's SASS where ``cuobjdump`` exists.
 Then it drives the port's paths on the
 ``soc-Slashdot0811``-like graph (77,360 nodes, 1,778,854 directed edges)
 as a plain ``GraphDB`` and as a ``HybridGraphDB``, each path with the
@@ -33,17 +36,19 @@ kernels' launch counters set to 0 just before it and read just after:
 * the same twelve counts with ``check_mode="auto"`` (``tile_width``
   512), which must equal them and send rows down both the tile and the
   binary-search path; then the plain 4-cycle in ``bsearch`` and
-  ``auto`` in turns, and its ``auto`` count profiled;
+  ``auto`` in turns, and its ``auto`` count profiled (the plain
+  4-cycle's ``bsearch`` count and the hybrid one's, with its bitset
+  launches, are profiled after the main path);
 * the 3-clique, 4-clique and 4-cycle in ``check_mode="tile"`` (width
   2048, above the max degree) and ``"bsearch2"`` on the plain db;
 * ``stream`` of those three in ``tile`` mode, every row checked on the
   host with numpy alone, and the factorized 3-clique;
 * chatglm3-6b and stablelm-3b served at full width and depth in bf16
   (``lm serve``): 4 requests of 2048 prompt tokens, prefill (one launch
-  of the tensor-core flash kernel a layer, 28 and 32, none of the
-  CUDA-core one) and 32 greedy decode steps, then one prefill profiled;
+  of the wgmma flash kernel a layer, 28 and 32, none of the mma.sync
+  one) and 32 greedy decode steps, then one prefill profiled;
   and each at full width with 2 layers in f32 (``lm parity``, on the
-  CUDA-core flash kernel) the card's prefill and decode logits against
+  mma.sync flash kernel) the card's prefill and decode logits against
   the port's CPU path (1e-3) and decode against ``forward`` over the
   concatenated stream (2e-4).
 
@@ -97,9 +102,9 @@ INT32_MAX = 2 ** 31 - 1
 #: (against 128 for fp32), so int32 ops peak at 67e12 / 4 per second.
 PEAK_BYTES_S = 3.35e12
 PEAK_INT32_OPS_S = 67e12 / 4
-#: floating-point peaks from the same data sheet: dense bf16 on the tensor
-#: cores, and float32 on the CUDA cores
-PEAK_FLOPS_S = {"bf16": 989e12, "fp32": 67e12}
+#: floating-point peaks from the same data sheet: dense bf16 and TF32 on
+#: the tensor cores, and float32 on the CUDA cores
+PEAK_FLOPS_S = {"bf16": 989e12, "fp32": 67e12, "tf32": 495e12}
 #: the LM phases: chatglm3-6b and stablelm-3b served at full width and
 #: depth (4 requests of 2048 prompt tokens, 32 greedy decode steps), and
 #: their f32 parity checks at full width and 2 layers (card against the
@@ -125,6 +130,16 @@ PREVIOUS_FLASH_MS = 8.725
 #: redesign, by this script on an NVIDIA H100 80GB HBM3 at 700 W (the
 #: PERF.md kernel table), printed beside this run's as ``previous_ms``
 PREVIOUS_TILE_MS = 0.0315
+#: the bitset kernels' device times at their lines' chunk before their
+#: redesign (the mask every lane, and the count form), and the CUDA-core
+#: flash kernel's before the mma.sync design (f32 at the path shape, bf16
+#: at stablelm-3b's prefill shape), all by this script on an NVIDIA H100
+#: 80GB HBM3 at 700 W (the PERF.md kernel table), printed as
+#: ``previous_ms``
+PREVIOUS_BITSET_MASK_MS = 0.0194
+PREVIOUS_BITSET_COUNT_MS = 0.0053
+PREVIOUS_SIMT_F32_MS = 8.832
+PREVIOUS_SIMT_BF16_MS = 5.330
 
 
 #: what a run drives, in order: the kernels against their plain versions,
@@ -408,6 +423,51 @@ def tile_edges(values, indptr, lo, hi, q, lanes) -> dict:
     return found
 
 
+def bitset_edges(words, row, cand, lanes) -> dict:
+    """``bitset_member_mask`` exactly against its plain version off the
+    level step's path: widths that are not a multiple of 8 (a lane a
+    thread: 3 and 601) and one that is (40, less than a warp's 256-lane
+    slice), a candidate pointer off 16 bytes, lane_len above W
+    and negative, rows out of range (negative and past H), and candidates
+    negative and past NW x 32 (clamped to the first and the last word).
+    Both contracts in every case.  Returns the found count per case."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    h, nw = words.shape
+    r, w = cand.shape
+    wild = lanes.clone()
+    wild[::2] = w + 77
+    wild[1::4] = -3
+    bad_row = row.clone()
+    bad_row[::3] = -5
+    bad_row[1::3] = h + 9
+    bad_cand = cand.clone()
+    bad_cand[:, ::3] = -cand[:, ::3] - 1
+    bad_cand[:, 1::3] += 32 * nw
+    flat = torch.empty(r * w + 1, dtype=torch.int32, device=cand.device)
+    flat[1:] = cand.reshape(-1)
+    off16 = flat[1:].view(r, w)
+    cases = {"lane_len above W and negative": (row, cand, wild),
+             "rows out of range": (bad_row, cand, lanes),
+             "cand negative and past NW x 32": (row, bad_cand, lanes),
+             "cand off 16 bytes": (row, off16, lanes)}
+    for width in (3, 40, 601):
+        cases[f"W {width}"] = (row, cand[:, :width].contiguous(),
+                               lanes.clamp(max=width - 2))
+    found = {}
+    for name, (row_, cand_, lane_len) in cases.items():
+        for ll in (None, lane_len):
+            hit = ops.bitset_member_mask(words, row_, cand_, ll)
+            torch.cuda.synchronize()
+            need(torch.equal(hit, ref.bitset_member_mask_ref(
+                words, row_, cand_, ll)), f"bitset_member_mask ({name}, "
+                 f"lane_len {'given' if ll is not None else 'none'}) "
+                 "disagrees with its plain version")
+            found[name if ll is not None else f"{name}, every lane"] = int(
+                hit.sum())
+    return found
+
+
 def kernel_phase(T, db, hdb):
     """Each kernel against its plain version at the main path's shapes,
     on the same CUDA tensors; then both timed."""
@@ -473,53 +533,86 @@ def kernel_phase(T, db, hdb):
         library_call=f"torch.searchsorted(segs, queries), segs the gathered "
                      f"INT32_MAX-padded ({r}, {width}) segments")
 
-    # bitset_member_mask: the hub-only rows of a hybrid-db chunk
+    # bitset_member_mask: the hub-only rows of a hybrid-db chunk, in both
+    # contracts: every lane, and lane_len = the probe degrees (the live
+    # lanes, as the level step passes them)
     cand, check, deg = level_inputs(hdb, rng, 2048, hubs_only=True)
     words = hdb.dev("bitset_words")
     row = hdb.dev("rep_tag")[torch.from_numpy(check).to(dev)]
     qh = torch.from_numpy(cand).to(dev)
+    lanes = torch.from_numpy(deg).to(dev)
     mask = ops.bitset_member_mask(words, row, qh)
+    mask_live = ops.bitset_member_mask(words, row, qh, lanes)
     torch.cuda.synchronize()
     mask_ref = ref.bitset_member_mask_ref(words, row, qh)
-    err = int((mask.int() - mask_ref.int()).abs().max())
+    err = max(int((mask.int() - mask_ref.int()).abs().max()),
+              int((mask_live.int() - ref.bitset_member_mask_ref(
+                  words, row, qh, lanes).int()).abs().max()))
     need(err == 0, f"bitset_member_mask disagrees with its plain version "
          f"(max abs err {err})")
     r, w = qh.shape
+    lane_ok = torch.arange(w, device=dev)[None] < lanes[:, None]
+    need(torch.equal(mask_live, mask & lane_ok), "bitset_member_mask with "
+         "lane_len is not the every-lane mask ANDed with j < lane_len")
     n_words = words.shape[1]
-    mask_words = distinct_words(n_words, row[:, None], qh)
-    out["bitset_member"] = dict(
-        source="src/repro_torch/csrc/bitset_member.cu",
-        replaces="src/repro/kernels/intersect_bitset.py:103",
-        shape=f"words {tuple(words.shape)} int32, cand ({r}, {w})",
-        max_abs_err=err, found=int(mask.sum()),
+    edges = bitset_edges(words, row, qh, lanes)
+
+    def mask_work(live, lane_len_bytes):
+        """Bytes and int32 ops the mask needs when ``live`` lanes of each
+        row are tested: their candidates and the distinct words they hit
+        read once, the whole mask written once, row and lane_len read."""
+        ok = torch.arange(w, device=dev)[None] < live[:, None]
+        n_live = int(ok.sum())
+        lane_row = row[:, None].expand(r, w)
+        words_read = distinct_words(n_words, lane_row[ok], qh[ok])
+        return dict(live_lanes=n_live, live_share=n_live / (r * w),
+                    words_read=words_read,
+                    ops_model="6 int32 ops per live lane (shift, 2 clamps, "
+                              "and, shift, and) + 4 per row (2 clamps each "
+                              "of row and lane_len)",
+                    bytes=4 * n_live + 4 * words_read + row.nbytes
+                    + mask.nbytes + lane_len_bytes,
+                    ops=6 * n_live + 4 * r)
+
+    all_lanes = bound(dict(
         ms=device_ms(lambda: ops.bitset_member_mask(words, row, qh), 50,
                      "bitset_member_mask_kernel"),
         event_ms=cuda_ms(lambda: ops.bitset_member_mask(words, row, qh), 50),
         plain_ms=cuda_ms(lambda: ref.bitset_member_mask_ref(words, row, qh),
                          10),
+        previous_ms=PREVIOUS_BITSET_MASK_MS,
+        **mask_work(torch.full_like(lanes, w), 0)))
+    out["bitset_member"] = dict(
+        source="src/repro_torch/csrc/bitset_member.cu",
+        replaces="src/repro/kernels/intersect_bitset.py:103",
+        shape=f"words {tuple(words.shape)} int32, cand ({r}, {w}), lane_len "
+              f"the probe degrees",
+        max_abs_err=err, found=int(mask_live.sum()),
+        ms=device_ms(lambda: ops.bitset_member_mask(words, row, qh, lanes),
+                     50, "bitset_member_mask_kernel"),
+        event_ms=cuda_ms(lambda: ops.bitset_member_mask(words, row, qh,
+                                                        lanes), 50),
+        plain_ms=cuda_ms(lambda: ref.bitset_member_mask_ref(words, row, qh,
+                                                            lanes), 10),
+        all_lanes=all_lanes, edge_cases=edges,
         distinct_rows=int(torch.unique(row).numel()),
-        words_read=mask_words,
-        ops_model="6 int32 ops per lane (shift, 2 clamps, and, shift, and) "
-                  "+ 2 per row (clamp)",
-        bytes=4 * mask_words + row.nbytes + qh.nbytes + mask.nbytes,
-        ops=6 * r * w + 2 * r, library_ms=None)
+        library_ms=None, library_call="none: no single PyTorch call",
+        **mask_work(lanes, lanes.nbytes))
 
     # the standalone per-row count entry point of the same kernel source
     wrows = words[row.long()].contiguous()
-    blen = torch.from_numpy(deg).to(dev)
+    blen = lanes
     cnt = ops.bitset_member_count(wrows, qh, blen)
     torch.cuda.synchronize()
     cnt_ref = ref.bitset_member_count_ref(wrows, qh, blen)
     err = int((cnt - cnt_ref).abs().max())
     need(err == 0, f"bitset_member_count disagrees with its plain version "
          f"(max abs err {err})")
-    need(int(cnt.sum()) == int((mask & (torch.arange(w, device=dev)[None]
-                                        < blen[:, None])).sum()),
-         "bitset_member_count disagrees with bitset_member_mask")
-    valid = torch.arange(w, device=dev)[None] < blen[:, None]
+    need(torch.equal(cnt.long(), mask_live.sum(dim=1)),
+         "bitset_member_count disagrees with bitset_member_mask's row sums")
     lane_row = torch.arange(r, device=dev)[:, None].expand(r, w)
-    count_words = distinct_words(n_words, lane_row[valid], qh[valid])
-    n_valid = int(valid.sum())
+    count_words = distinct_words(n_words, lane_row[lane_ok], qh[lane_ok])
+    n_valid = int(lane_ok.sum())
     out["bitset_member_count"] = dict(
         source="src/repro_torch/csrc/bitset_member.cu",
         replaces="src/repro/kernels/intersect_bitset.py:103",
@@ -530,6 +623,7 @@ def kernel_phase(T, db, hdb):
         event_ms=cuda_ms(lambda: ops.bitset_member_count(wrows, qh, blen), 50),
         plain_ms=cuda_ms(lambda: ref.bitset_member_count_ref(
             wrows, qh, blen), 10),
+        previous_ms=PREVIOUS_BITSET_COUNT_MS,
         valid_lanes=n_valid, words_read=count_words,
         ops_model="7 int32 ops per valid lane (shift, 2 clamps, and, "
                   "shift, and, add)",
@@ -769,30 +863,112 @@ def flash_bf16_sweep(randn) -> list:
                              f"{strided}: beyond 2e-2 (max abs err {e})")
                         rows.append([d, hq, hkv, tq, tk, causal, strided, e])
     need(build.LAUNCHES["flash_attention_tc"] == len(rows)
-         and build.LAUNCHES["flash_attention_simt"] == 0,
+         and build.LAUNCHES["flash_attention_mma"] == 0,
          f"the bf16 sweep did not run on the tensor-core kernel: "
          f"{build.LAUNCHES}")
     return rows
 
 
-def hgmma_counts():
-    """``HGMMA`` instructions (the tensor cores' wgmma) in the SASS of each
-    kernel function of the built library, by ``cuobjdump -sass`` where the
-    toolkit has it; "not available" where it does not."""
+_SASS: list = []
+
+
+def sass_counts(opcode: str):
+    """``opcode`` instructions (``HGMMA``: wgmma; ``HMMA``: mma.sync) in
+    the SASS of each kernel function of the built library that has any, by
+    ``cuobjdump -sass`` where the toolkit has it; "not available" where it
+    does not."""
     import shutil
     from repro_torch.kernels import build
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not Path(tool).exists():
-        return "not available"
-    sass = subprocess.run([tool, "-sass", build.build_info["path"]],
-                          capture_output=True, text=True).stdout
+    if not _SASS:
+        tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+        if not Path(tool).exists():
+            return "not available"
+        _SASS.append(subprocess.run([tool, "-sass", build.build_info["path"]],
+                                    capture_output=True, text=True).stdout)
     counts, fn = {}, None
-    for line in sass.splitlines():
+    for line in _SASS[0].splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-        elif "HGMMA" in line and fn is not None:
-            counts[fn] = counts.get(fn, 0) + 1
+        elif opcode in line.split() or any(
+                w.startswith(opcode + ".") for w in line.split()):
+            if fn is not None:
+                counts[fn] = counts.get(fn, 0) + 1
     return counts
+
+
+def bound_3xtf32(k: dict) -> dict:
+    """``bound`` of f32 attention (``flops`` at the FFMA peak) beside the
+    least time of the same f32-exact work on the tensor cores as 3xTF32
+    (three TF32 products of every flop at the TF32 peak); ``bound_ms`` is
+    the lower of the two, and ``bound_note`` says which."""
+    bound(k)
+    k["bound_ffma_ms"] = k["bound_ms"]
+    t_ops = 3 * k["flops"] / PEAK_FLOPS_S["tf32"]
+    k["bound_3xtf32_ms"] = 1e3 * max(k["bytes"] / PEAK_BYTES_S, t_ops)
+    if k["bound_3xtf32_ms"] < k["bound_ffma_ms"]:
+        k["bound_ms"] = k["bound_3xtf32_ms"]
+        k["bound_by"] = ("bytes" if k["bytes"] / PEAK_BYTES_S >= t_ops
+                         else "operations")
+        k["bound_note"] = ("3xTF32: 3 x flops at the TF32 peak, below the "
+                           "FFMA bound")
+    else:
+        k["bound_note"] = "FFMA: flops at the fp32 peak"
+    return k
+
+
+def flash_mma_sweep(randn) -> list:
+    """The mma.sync flash kernel against its plain version in what it
+    takes: bf16 at head dims off the multiples of 16 (8, 40, 72; 36 with
+    rows of 72 bytes; 7, 127 with odd rows), at 2e-2, and f32 at any (1,
+    6, 37, 80, 100), at 2e-5; GQA groups 1 and 4, causal and not, Tq 1, 64
+    and 256 against Tk 256 (the causal offset), a short stream (Tk 64) and
+    a ragged one (Tk 100, less than a key tile); contiguous, as transposed
+    (B, T, H, D) views, and as views one element into wider rows (bases
+    off 16 bytes, so the staging copies narrow to 4 or 2 bytes; rows of 72
+    or 24 bytes take 8).  Every case must launch the mma.sync kernel.
+    Returns [dtype, D, Hq, Hkv, Tq, Tk, causal, layout, copy width, max
+    abs err]."""
+    import torch
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels.flash_attention import copy_width
+    rows = []
+    build.reset_launches()
+    for dtype, tol, dims in ((torch.bfloat16, 2e-2, (8, 40, 72, 36, 7, 127)),
+                             (torch.float32, 2e-5, (1, 6, 37, 80, 100))):
+        for d in dims:
+            for group in (1, 4):
+                hkv = 2
+                hq = hkv * group
+                for tq, tk in ((1, 256), (64, 256), (256, 256), (64, 64),
+                               (100, 100)):
+                    for causal in (True, False):
+                        for layout in ("contiguous", "transposed", "offset"):
+                            def make(h_, t_):
+                                if layout == "transposed":
+                                    return randn(1, t_, h_, d, dtype=dtype
+                                                 ).transpose(1, 2)
+                                if layout == "offset":
+                                    return randn(1, h_, t_, d + 1,
+                                                 dtype=dtype)[..., 1:]
+                                return randn(1, h_, t_, d, dtype=dtype)
+                            q, k, v = (make(h_, t_) for h_, t_ in
+                                       ((hq, tq), (hkv, tk), (hkv, tk)))
+                            e, ok = allclose_err(
+                                ops.flash_attention(q, k, v, causal),
+                                ref.flash_attention_ref(q, k, v, causal),
+                                tol)
+                            name = str(dtype).split(".")[-1]
+                            need(ok, f"flash_attention_mma {name} D {d} "
+                                 f"{hq}/{hkv} Tq {tq} Tk {tk} causal="
+                                 f"{causal} {layout}: beyond {tol} (max abs "
+                                 f"err {e})")
+                            rows.append([name, d, hq, hkv, tq, tk, causal,
+                                         layout, copy_width(q, k, v), e])
+    need(build.LAUNCHES["flash_attention_mma"] == len(rows)
+         and build.LAUNCHES["flash_attention_tc"] == 0,
+         f"the off-grid sweep did not run on the mma.sync kernel: "
+         f"{build.LAUNCHES}")
+    return rows
 
 
 def kernel_phase_lm():
@@ -802,7 +978,7 @@ def kernel_phase_lm():
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import build, ops, ref
-    from repro_torch.kernels.flash_attention import _launch_simt, route
+    from repro_torch.kernels.flash_attention import _launch_mma, route
     from repro_torch.kernels.segment_outer import block_tile_starts
     g = torch.Generator(device="cuda").manual_seed(SEED)
     out = {}
@@ -813,10 +989,10 @@ def kernel_phase_lm():
 
     # flash_attention at stablelm-3b's prefill shape: 32 query and 32 KV
     # heads of 80 dims, 4 requests of 2048 tokens, bf16, causal, seen as
-    # prefill passes them.  First the CUDA-core kernel, which ran bf16 at
-    # D 80 until the route sent it to the tensor cores, beside SDPA on the
-    # same tensors (the kernel table's row 5b in bf16); then the
-    # tensor-core kernel's D 80 instance.
+    # prefill passes them.  First the mma.sync kernel on it (the route
+    # sends D 80 to the wgmma kernel, and the kernel this one replaced ran
+    # it before that), beside SDPA on the same tensors; then the wgmma
+    # kernel's D 80 instance.
     b, hq, hkv, t, d = LM_BATCH, 32, 32, LM_PROMPT, 80
     q, k, v = (randn(b, t, h_, d, dtype=bf).transpose(1, 2)
                for h_ in (hq, hkv, hkv))
@@ -826,23 +1002,24 @@ def kernel_phase_lm():
                 bytes=q.nbytes + k.nbytes + v.nbytes + q.nbytes)
     lm_shape = (f"q ({b}, {hq}, {t}, {d}) bf16 as a transposed (B, T, H, "
                 f"D) view, k, v ({b}, {hkv}, {t}, {d}), causal")
-    simt_bf16 = bound(dict(
+    mma_bf16 = bound(dict(
         shape=lm_shape,
-        ms=device_ms(lambda: _launch_simt(q, k, v, True, d ** -0.5), 3,
-                     "flash_attention_kernel"),
+        ms=device_ms(lambda: _launch_mma(q, k, v, True, d ** -0.5), 10,
+                     "flash_attention_mma_kernel"),
+        previous_ms=PREVIOUS_SIMT_BF16_MS,
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
             qc, kc, vc, is_causal=True), 20),
         library_call="scaled_dot_product_attention(q, k, v, "
                      "is_causal=True), contiguous", **work))
     log(json.dumps({"flash stablelm-3b prefill shape, bf16":
-                    {"flash_attention_simt": simt_bf16}}))
+                    {"flash_attention_mma": mma_bf16}}))
     need(route(q.device, q.dtype, d) == "tc", "flash route of stablelm-3b's "
          "bf16 heads is not the tensor-core kernel")
     build.reset_launches()
     o = ops.flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
     need(build.LAUNCHES["flash_attention_tc"] == 1
-         and build.LAUNCHES["flash_attention_simt"] == 0,
+         and build.LAUNCHES["flash_attention_mma"] == 0,
          f"stablelm-3b's shape did not launch flash_attention_tc: "
          f"{build.LAUNCHES}")
     err, ok = allclose_err(o, ref.flash_attention_ref(q, k, v), 2e-2)
@@ -854,10 +1031,48 @@ def kernel_phase_lm():
         ms=device_ms(lambda: ops.flash_attention(q, k, v), 20,
                      "flash_attention_tc_kernel"),
         event_ms=cuda_ms(lambda: ops.flash_attention(q, k, v), 20),
-        simt_ms=simt_bf16["ms"], library_ms=simt_bf16["library_ms"],
+        mma_ms=mma_bf16["ms"], library_ms=mma_bf16["library_ms"],
         **work))
     tc_stablelm["achieved_tflop_s"] = work["flops"] / tc_stablelm["ms"] / 1e9
     del q, k, v, qc, kc, vc, o
+
+    # the mma.sync kernel in bf16 at head dims off the multiples of 16, at
+    # stablelm-3b's prefill shape otherwise: D 72 (an off-grid width near
+    # stablelm-3b's 80), 40 and 8
+    off_grid = {}
+    for d in (72, 40, 8):
+        q, k, v = (randn(b, t, h_, d, dtype=bf).transpose(1, 2)
+                   for h_ in (hq, hkv, hkv))
+        need(route(q.device, q.dtype, d) == "mma", f"flash route of bf16 D "
+             f"{d} is not the mma.sync kernel")
+        build.reset_launches()
+        o = ops.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        need(build.LAUNCHES["flash_attention_mma"] == 1,
+             f"bf16 D {d} did not launch flash_attention_mma: "
+             f"{build.LAUNCHES}")
+        err, ok = allclose_err(o, ref.flash_attention_ref(q, k, v), 2e-2)
+        need(ok, f"flash_attention_mma (bf16, D {d}) disagrees with its "
+             f"plain version beyond 2e-2 (max abs err {err})")
+        qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+        off_grid[f"D {d}"] = bound(dict(
+            shape=f"q ({b}, {hq}, {t}, {d}) bf16 as a transposed (B, T, H, "
+                  f"D) view, k, v ({b}, {hkv}, {t}, {d}), causal",
+            max_abs_err=err, tolerance=2e-2,
+            ms=device_ms(lambda: ops.flash_attention(q, k, v), 10,
+                         "flash_attention_mma_kernel"),
+            event_ms=cuda_ms(lambda: ops.flash_attention(q, k, v), 10),
+            plain_ms=cuda_ms(lambda: ref.flash_attention_ref(q, k, v), 2),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                qc, kc, vc, is_causal=True), 20),
+            library_call="scaled_dot_product_attention(q, k, v, "
+                         "is_causal=True), contiguous",
+            flops_model="4 B Hq T^2 D / 2 (QK^T and PV, causal half)",
+            flops=4 * b * hq * t * t * d / 2, flops_type="bf16",
+            bytes=4 * q.nbytes))
+        off_grid[f"D {d}"]["achieved_tflop_s"] = (
+            off_grid[f"D {d}"]["flops"] / off_grid[f"D {d}"]["ms"] / 1e9)
+        del q, k, v, qc, kc, vc, o
 
     # flash_attention at the LM path's shape: chatglm3-6b's 32 query and 2
     # KV heads of 128 dims, 4 requests of 2048 tokens, bf16, causal; q, k
@@ -884,7 +1099,7 @@ def kernel_phase_lm():
     tc_sweep = flash_bf16_sweep(randn)
     # the f32 sweep of the JAX package's tests (D 64), the decode shape
     # (Tq 1 against Tk 256), and chatglm3's group of 16 at D 128, through
-    # the CUDA-core kernel
+    # the mma.sync kernel
     sweep = []
     build.reset_launches()
     for hq_, hkv_, tq_, tk_, d_ in ((4, 4, 256, 256, 64), (8, 2, 256, 256, 64),
@@ -899,10 +1114,11 @@ def kernel_phase_lm():
             need(ok, f"flash_attention f32 {hq_}/{hkv_} Tq {tq_} Tk {tk_} "
                  f"D {d_} causal={causal}: beyond 2e-5 (max abs err {e})")
             sweep.append([hq_, hkv_, tq_, tk_, d_, causal, e])
-    need(build.LAUNCHES["flash_attention_simt"] == len(sweep)
+    need(build.LAUNCHES["flash_attention_mma"] == len(sweep)
          and build.LAUNCHES["flash_attention_tc"] == 0,
-         f"the f32 sweep did not run on the CUDA-core kernel: "
+         f"the f32 sweep did not run on the mma.sync kernel: "
          f"{build.LAUNCHES}")
+    mma_sweep = flash_mma_sweep(randn)
     qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
     flops = 4 * b * hq * t * t * d / 2
     tc = dict(
@@ -917,7 +1133,7 @@ def kernel_phase_lm():
                      "flash_attention_tc_kernel"),
         event_ms=cuda_ms(lambda: ops.flash_attention(q, k, v), 20),
         contiguous_ms=cuda_ms(lambda: ops.flash_attention(qc, kc, vc), 20),
-        simt_ms=cuda_ms(lambda: _launch_simt(q, k, v, True, d ** -0.5), 3),
+        mma_ms=cuda_ms(lambda: _launch_mma(q, k, v, True, d ** -0.5), 5),
         previous_ms=PREVIOUS_FLASH_MS,
         plain_ms=cuda_ms(lambda: ref.flash_attention_ref(q, k, v), 3),
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -927,34 +1143,43 @@ def kernel_phase_lm():
         flops_model="4 B Hq T^2 D / 2 (QK^T and PV, causal half)",
         flops=flops, flops_type="bf16",
         bytes=q.nbytes + k.nbytes + v.nbytes + o.nbytes,
-        stablelm_3b=tc_stablelm, hgmma=hgmma_counts())
+        stablelm_3b=tc_stablelm, hgmma=sass_counts("HGMMA"))
     tc["achieved_tflop_s"] = flops / tc["ms"] / 1e9
     out["flash_attention_tc"] = tc
     del q, k, v, qc, kc, vc, o
 
-    # the CUDA-core kernel where it runs now: float32, here at the path
-    # shape (the lm parity phase runs it at full width and 2 layers)
+    # the mma.sync kernel at the f32 path shape (the lm parity phase runs
+    # it at full width and 2 layers): 3xTF32
     q = randn(b, t, hq, d).transpose(1, 2)
     k = randn(b, t, hkv, d).transpose(1, 2)
     v = randn(b, t, hkv, d).transpose(1, 2)
-    need(route(q.device, q.dtype, d) == "simt", "flash route of f32 is not "
-         "the CUDA-core kernel")
+    need(route(q.device, q.dtype, d) == "mma", "flash route of f32 is not "
+         "the mma.sync kernel")
+    build.reset_launches()
     o = ops.flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
+    need(build.LAUNCHES["flash_attention_mma"] == 1,
+         f"the f32 path shape did not launch flash_attention_mma: "
+         f"{build.LAUNCHES}")
     err, ok = allclose_err(o, ref.flash_attention_ref(q, k, v), 2e-5)
-    need(ok, f"flash_attention_simt (f32, path shape) disagrees with its "
+    need(ok, f"flash_attention_mma (f32, path shape) disagrees with its "
          f"plain version beyond 2e-5 (max abs err {err})")
     qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
-    out["flash_attention_simt"] = dict(
+    out["flash_attention_mma"] = dict(
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:81",
         shape=f"q ({b}, {hq}, {t}, {d}) f32 as a transposed (B, T, H, D) "
               f"view, k, v ({b}, {hkv}, {t}, {d}), causal",
         max_abs_err=err, tolerance=2e-5, f32_sweep=sweep,
         f32_sweep_max_abs_err=max(x[-1] for x in sweep),
-        ms=device_ms(lambda: ops.flash_attention(q, k, v), 5,
-                     "flash_attention_kernel"),
-        event_ms=cuda_ms(lambda: ops.flash_attention(q, k, v), 3),
+        off_grid_sweep=mma_sweep,
+        off_grid_sweep_max_abs_err={
+            dt: max(x[-1] for x in mma_sweep if x[0] == dt)
+            for dt in ("bfloat16", "float32")},
+        ms=device_ms(lambda: ops.flash_attention(q, k, v), 10,
+                     "flash_attention_mma_kernel"),
+        event_ms=cuda_ms(lambda: ops.flash_attention(q, k, v), 5),
+        previous_ms=PREVIOUS_SIMT_F32_MS,
         plain_ms=cuda_ms(lambda: ref.flash_attention_ref(q, k, v), 2),
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
             qc, kc, vc, is_causal=True, enable_gqa=True), 3),
@@ -964,9 +1189,10 @@ def kernel_phase_lm():
         flops_model="4 B Hq T^2 D / 2 (QK^T and PV, causal half)",
         flops=flops, flops_type="fp32",
         bytes=q.nbytes + k.nbytes + v.nbytes + o.nbytes,
-        bf16_stablelm_3b=simt_bf16)
-    out["flash_attention_simt"]["achieved_tflop_s"] = (
-        flops / out["flash_attention_simt"]["ms"] / 1e9)
+        bf16_off_grid=off_grid, bf16_stablelm_3b=mma_bf16,
+        hmma=sass_counts("HMMA"))
+    out["flash_attention_mma"]["achieved_tflop_s"] = (
+        flops / out["flash_attention_mma"]["ms"] / 1e9)
     del q, k, v, qc, kc, vc, o
 
     # segment_outer at MACE's widths, dst uniform and powerlaw (n u^3)
@@ -1016,7 +1242,8 @@ def kernel_phase_lm():
         bytes=msg.nbytes + basis.nbytes + 4 * e + 4 * n * OUTER_C * OUTER_M)
     del msg, basis
     torch.cuda.empty_cache()
-    return {name: bound(k) for name, k in out.items()}
+    return {name: (bound_3xtf32(k) if name == "flash_attention_mma"
+                   else bound(k)) for name, k in out.items()}
 
 
 def gpu_profile(fn, what: str) -> dict:
@@ -1057,8 +1284,8 @@ def lm_serve(cfg):
     stablelm-3b), weights from a seeded generator on the card: a batch of
     4 requests of 2048 synthetic prompt tokens, prefill, then 32 greedy
     decode steps.  The kernels' launch counters are set to 0 just before
-    and read just after; every prefill layer must launch the tensor-core
-    flash kernel once and the CUDA-core one never.  Then one prefill is
+    and read just after; every prefill layer must launch the wgmma flash
+    kernel once and the mma.sync one never.  Then one prefill is
     profiled."""
     import torch
     from repro_torch.kernels import build
@@ -1104,9 +1331,9 @@ def lm_serve(cfg):
     need(cache["len"] == ml, f"lm serve: cache len {cache['len']} != {ml}")
     need(prefill_launches["flash_attention_tc"] == cfg.n_layers
          and launches["flash_attention_tc"] == cfg.n_layers
-         and launches["flash_attention_simt"] == 0,
-         f"lm serve: {launches['flash_attention_tc']} tensor-core and "
-         f"{launches['flash_attention_simt']} CUDA-core flash launches; "
+         and launches["flash_attention_mma"] == 0,
+         f"lm serve: {launches['flash_attention_tc']} wgmma and "
+         f"{launches['flash_attention_mma']} mma.sync flash launches; "
          f"{cfg.n_layers} and 0 expected (one per layer of the prefill)")
     log(json.dumps(dict(
         path="lm serve", model=cfg.name, n_layers=cfg.n_layers,
@@ -1196,9 +1423,9 @@ def lm_parity(model):
         wall_s=time.perf_counter() - t0, card_and_cpu_s=cpu_s,
         launches=dict(build.LAUNCHES))))
     launches = dict(build.LAUNCHES)
-    # f32 attention runs on the CUDA-core kernel: one launch per layer of
+    # f32 attention runs on the mma.sync kernel: one launch per layer of
     # each prefill and forward
-    need(launches["flash_attention_simt"] > 0
+    need(launches["flash_attention_mma"] > 0
          and launches["flash_attention_tc"] == 0,
          f"lm parity: f32 flash launches {launches}")
     del params, cpu_params, runs
@@ -1391,11 +1618,12 @@ def stream_path(T, db, counts):
     return launches
 
 
-def profile_count(T, db, shape: str, **kw) -> None:
+def profile_count(T, db, shape: str, db_name: str = "plain", **kw) -> None:
     """Where one count's time goes: device time by kernel (and copy) from
-    ``torch.profiler`` tracing the device only, and the device's busy and
-    idle share of the wall time, profiled and unprofiled.  ``kw`` goes to
-    ``count`` (the check mode)."""
+    ``torch.profiler`` tracing the device only, the port's check kernels'
+    device time and launches, and the device's busy and idle share of the
+    wall time, profiled and unprofiled.  ``kw`` goes to ``count`` (the
+    check mode)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     query = T.get_query(shape)
@@ -1420,7 +1648,7 @@ def profile_count(T, db, shape: str, **kw) -> None:
             mine[name] = [sum(device_us(e) for e in hits) / 1e3,
                           sum(e.count for e in hits)]
     log(json.dumps({
-        "profile": shape, "db": "plain", "count_kw": kw, "wall_s": wall,
+        "profile": shape, "db": db_name, "count_kw": kw, "wall_s": wall,
         "wall_profiled_s": wall_profiled, "device_busy_s": busy,
         "idle_share": 1 - busy / wall, "port_kernels_device_ms": mine,
         "top_device_ms": [
@@ -1653,6 +1881,8 @@ def main(argv=None) -> int:
         for name in ("searchsorted_segments", "bitset_member_mask"):
             need(launches[name] > 0, f"the main path never launched {name}")
         profile_count(T, db, "4-cycle")
+        # the hybrid db's 4-cycle: its all-hub rows take the bitset mask
+        profile_count(T, hdb, "4-cycle", db_name="hybrid")
 
         t0 = time.perf_counter()
         cross_checks(T, dbs, counts)
@@ -1701,8 +1931,8 @@ def main(argv=None) -> int:
     # bsearch main path for the first two, the auto path for the tile
     # kernel (the mask form of intersect_count_pallas; its count form is
     # the "kernel intersect_count" line above), the LM serving paths of
-    # both models for the tensor-core flash kernel, their f32 parity paths
-    # for the CUDA-core one (both replace flash_attention_pallas, split by
+    # both models for the wgmma flash kernel, their f32 parity paths for
+    # the mma.sync one (both replace flash_attention_pallas, split by
     # dtype and head dim); no path runs the bitset AND-popcount or the
     # segment outer product, which only the kernel router reaches
     entries = (("searchsorted_segments", "searchsorted_segments",
@@ -1715,8 +1945,8 @@ def main(argv=None) -> int:
                 auto_launches["bitset_intersect_count"]),
                ("flash_attention_tc", "flash_attention_tc",
                 lm_launches["flash_attention_tc"]),
-               ("flash_attention_simt", "flash_attention_simt",
-                parity_launches["flash_attention_simt"]),
+               ("flash_attention_mma", "flash_attention_mma",
+                parity_launches["flash_attention_mma"]),
                ("segment_outer", "segment_outer",
                 lm_launches["segment_outer"]))
     keys = ("source", "replaces", "max_abs_err", "ms", "plain_ms",

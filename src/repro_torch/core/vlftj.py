@@ -59,9 +59,10 @@ def _expand_level(indptr, indices, bitmaps, frontier, mult, row_valid, *,
     ``count_only`` else ``(cand, keep)``, both (C, width).
 
     ``check_mode='bitset'`` (hybrid layout): every bound edge source in
-    the chunk is a hub, so membership is one gather into its
-    ``bitset_words`` row plus a bit test; ``rep_tag`` maps vertex id to
-    bitset row (the caller's bucketing guarantees tags >= 0 here).
+    the chunk is a hub, so membership of a live lane (``j < deg_star``)
+    is one gather into its ``bitset_words`` row plus a bit test;
+    ``rep_tag`` maps vertex id to bitset row (the caller's bucketing
+    guarantees tags >= 0 here).
     ``'tile'``: the check segment is gathered once and every live lane
     (``j < deg_star``) is compared with its first ``check_width`` values
     (the caller buckets rows so that segments fit, or accepts the
@@ -88,10 +89,10 @@ def _expand_level(indptr, indices, bitmaps, frontier, mult, row_valid, *,
     cand = indices[cand_idx.clamp(0, max(0, m - 1))]          # (C, W)
     keep = (j[None, :] < deg_star[:, None]) & row_valid[:, None]
 
-    # the tile check searches only the live lanes (0 for invalid rows):
-    # keep already ANDs them, so no count changes
+    # the tile and bitset checks test only the live lanes (0 for invalid
+    # rows): keep already ANDs them, so no count changes
     lane_len = (torch.where(row_valid, deg_star, 0).to(torch.int32)
-                if check_mode == "tile" else None)
+                if check_mode in ("tile", "bitset") else None)
 
     # membership checks against every other bound edge-neighbor's segment.
     # rotate_checks synthesizes exactly the P-1 non-probe sources per row
@@ -105,7 +106,8 @@ def _expand_level(indptr, indices, bitmaps, frontier, mult, row_valid, *,
         check_sources = [(xs[:, ci], ci) for ci in range(n_probe)]
     for y, ci in check_sources:
         if check_mode == "bitset":
-            found = kops.bitset_member_mask(bitset_words, rep_tag[y], cand)
+            found = kops.bitset_member_mask(bitset_words, rep_tag[y], cand,
+                                            lane_len)
         else:
             lo = indptr[y][:, None]
             hi = indptr[y + 1][:, None]

@@ -1,13 +1,13 @@
-// Flash attention (causal, GQA, online softmax), written by hand for Hopper
-// (sm_90a).
+// Flash attention (causal, GQA, online softmax) on the tensor cores through
+// warp-level mma.sync, written by hand for Hopper (sm_90a).
 //
 // Replaces: src/repro/kernels/flash_attention.py, flash_attention_pallas
 // (the TPU kernel body _flash_kernel).  Plain PyTorch version:
-// src/repro_torch/kernels/ref.py, flash_attention_ref.  Since the
-// tensor-core kernel (flash_attention_tc.cu) took bf16 with head dim 64
-// and 128, this one serves float32 and every other head dim (1..128),
-// as kernels/flash_attention.py, route() chooses: the f32 forward and
-// prefill, and models whose heads are 80 or 16 wide.
+// src/repro_torch/kernels/ref.py, flash_attention_ref.  It serves what the
+// wgmma kernel (flash_attention_tc.cu, bf16 with D a multiple of 16) does
+// not take, as kernels/flash_attention.py, route() chooses: float32 at any
+// head dim from 1 to 128 (the f32 forward and prefill), and bf16 at head
+// dims that are not a multiple of 16.
 //
 // q (B, Hq, Tq, D), k and v (B, Hkv, Tk, D), f32 or bf16, read through
 // element strides for the first three dims (the last one is contiguous),
@@ -16,84 +16,244 @@
 // batch.  The queries are the last Tq positions of the Tk stream
 // (q_offset = Tk - Tq).  Output (B, Hq, Tq, D) contiguous, in q's dtype.
 //
-// Design: one block of 256 threads per (b * Hq + h, 64-query tile).  The
-// query tile is staged once in shared memory, transposed and in f32; the
-// block then walks 64-key tiles of K and V, staged in shared memory in
-// f32 (K transposed), and keeps for each query row the running max m, the
-// denominator l and an f32 accumulator, as the TPU kernel keeps them in
-// VMEM scratch across its sequential key-block grid steps.  Thread
-// (ty, tx) = (tid / 16, tid % 16) owns query rows 4ty..4ty+3: it computes
-// their scores against keys 4tx..4tx+3 of the tile (a 4 x 4 register
-// tile, float4 reads of the transposed tiles), the row max and row sum by
-// shuffles across the 16 threads of the row group, and output columns
-// DC*tx..DC*tx+DC-1 of the P.V product (P goes through shared memory).
-// All math is f32 on the CUDA cores; bf16 is converted when staged.
+// Design: one block of four warps per (b * Hq + h, 128-query tile); each
+// warp owns two 16-row m-tiles (the M of an mma), so that each K and V
+// fragment it loads (and, in f32, splits) feeds two products.
+// The query tile and a two-stage ring of K and V tiles (64 keys in bf16,
+// 32 in f32) are staged in shared memory by cp.async, with copies as wide
+// as the tensors' alignment allows (16, 8 or 4 bytes; 2-byte plain loads
+// for a bf16 row of odd length or odd stride: the wrapper's copy_width
+// picks), so the next key tile loads while this one is multiplied, with
+// one barrier a tile.  D is padded in shared memory to the width of the
+// smallest template instance that holds it (32, 64, 80 or 128), whose
+// loops over D then have compile-time bounds; the padded columns are zero,
+// so they add nothing to Q.K^T and their P.V columns are never stored.
+// Keys past Tk and queries past Tq are zero-filled by the copy.  Every
+// staged row ends in 16 bytes of padding (eight bf16 or four floats),
+// which keeps every fragment load free of bank conflicts.
 //
-// Causal: key tiles wholly above the diagonal are skipped (the TPU
-// kernel's `needed` predicate), and inside a tile the masked scores are
-// the finite NEG_INF = -1e30 of the TPU kernel, never -inf, so the rescale
-// exp(m_prev - m_new) cannot become exp(-inf - -inf) = NaN.  Key 0 lies in
-// the first tile and is visible to every query, so every row has a real
-// max after the first tile.  Keys past Tk (a ragged last tile when
-// Tk < 64 is not a multiple of 64) get p = 0; query rows past Tq are
-// computed on zeros and never stored.  The result is acc / max(l, 1e-30).
+//  * bf16: mma.sync.m16n8k16 with f32 accumulators; Q, K and V fragments
+//    by ldmatrix (V transposed on the way), Q's slice by slice.  The S
+//    accumulator of two key n-tiles is, element for element, the A
+//    fragment of P.V, so P stays in registers (rounded to bf16, as the tc
+//    kernel rounds it).
+//  * f32: 3xTF32.  Each operand is split on its way into the fragment as
+//    x = hi + lo, hi rounded to TF32 and lo the remainder rounded to TF32,
+//    and a product is lo.hi + hi.lo + hi.hi on mma.sync.m16n8k8.tf32: the
+//    dropped lo.lo and the roundings leave about 2^-22 of each product,
+//    f32 accuracy (1xTF32 would keep about 3 decimal digits).  The split
+//    happens in registers, so shared memory holds each operand once.  The
+//    m16n8k8 A fragment holds key columns t and t+4 where S holds 2t and
+//    2t+1; P.V runs over the keys in that permuted order (V's B fragment
+//    reads keys 2t and 2t+1 to match), so P stays in registers here too.
 //
-// What bounds it on the H100: at the main path's shape (B 4, Hq 32, Hkv 2,
-// T 2048, D 128, causal) the work is 137 GFLOP against 143 MB of q, k, v
-// and o, so the tensor cores' rate bounds it (0.139 ms at 989 TFLOP/s
-// bf16).  This kernel runs on the CUDA cores in f32 (67 TFLOP/s at most)
-// with one or two blocks per SM (117 KB of shared memory per block at
-// D = 128), so it is far from that bound by design; for bf16 at D 64 and
-// 128, flash_attention_tc.cu runs the same work on the tensor cores.
+// The online softmax is the TPU kernel's: per query row a running max m
+// and denominator l, the accumulator rescaled by exp(m_prev - m_new), in
+// the log2 domain (scores pre-multiplied by scale * log2 e, ex2.approx).
+// The four threads of a quad share a row: the row max is two shuffles; l is
+// kept per thread and summed over the quad once, at the end.  Causal: key
+// tiles wholly above the block's diagonal are skipped (the TPU kernel's
+// `needed` predicate), and after the first tile a warp skips a tile wholly
+// above its own rows; inside a tile the masked scores are the finite
+// NEG_INF = -1e30 of the TPU kernel, never -inf, so the rescale never
+// becomes exp(-inf - -inf) = NaN.  Key 0 lies in the first tile and every
+// query sees it, so every row has a real max after the first tile.  Keys
+// past Tk get p = 0.  The result is acc / max(l, 1e-30).
+//
+// What bounds it on the H100: at the f32 path shape (B 4, Hq 32, Hkv 2,
+// T 2048, D 128, causal) the work is 137 GFLOP against 285 MB of q, k, v
+// and o.  On the CUDA cores (67 TFLOP/s fp32) that is 2.05 ms; as 3xTF32 on
+// the tensor cores, three TF32 products of it at 495 TFLOP/s, 0.83 ms.
+// mma.sync reaches only part of the tensor cores' rate on Hopper (wgmma
+// is needed for all of it), and the splits cost ALU work beside each
+// product.  In bf16 at stablelm-3b's prefill shape (D 80 there, 72 for an
+// off-grid width) the bound is the bf16 rate: 0.0869 ms at D 80.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kBQ = 64;       // queries per block
-constexpr int kBK = 64;       // keys per staged tile
-constexpr int kThreads = 256;
-constexpr int kLd = 68;       // row stride of the transposed tiles (16 B aligned)
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kM = 2;                 // 16-row m-tiles a warp owns
+constexpr int kBQ = kWarps * 16 * kM;  // query rows per block
+constexpr int kStages = 2;        // K/V ring depth
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
+template <typename T>
+struct Traits;
+template <>
+struct Traits<__nv_bfloat16> {
+  static constexpr int kBK = 64;      // keys per staged tile
+  static constexpr int kDepth = 16;   // mma k: m16n8k16
+  static constexpr int kLdExtra = 8;  // row stride = padded D + 8 (16 bytes)
+};
+template <>
+struct Traits<float> {
+  static constexpr int kBK = 32;
+  static constexpr int kDepth = 8;    // m16n8k8 tf32
+  static constexpr int kLdExtra = 4;  // row stride = padded D + 4 (16 bytes)
+};
 
 struct Strides {
   int64_t b, h, t;  // element strides of the batch, head and position dims
 };
 
-__device__ __forceinline__ float group_max(float x) {
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ float group_sum(float x) {
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
 }
 
-// DC: output columns per thread; the tile holds 16 * DC >= D columns.
-template <typename T, int DC>
-__global__ void __launch_bounds__(kThreads) flash_attention_kernel(
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Rows [p0, p0 + kRows) of one (T, D) slab (row stride st elements, D
+// contiguous) into shared memory rows of kLd elements, columns [0, d):
+// per_row copies of vec bytes a row (16, 8 or 4 by cp.async, 2 by a plain
+// load).  Rows at or past `limit` are zero-filled (cp.async with src-size
+// 0).  kThreads / kRows threads share a row, so no thread divides.
+template <typename T, int kRows, int kLd>
+__device__ __forceinline__ void stage_rows(T* dst, const T* src, int64_t st,
+                                           int p0, int limit, int per_row,
+                                           int vec, int tid) {
+  constexpr int kPerRow = kThreads / kRows;
+  static_assert(kPerRow >= 1 && kThreads % kRows == 0, "rows per block");
+  const int r = tid / kPerRow;
+  const int pos = p0 + r;
+  const bool ok = pos < limit;
+  const int bytes = ok ? vec : 0;
+  // an invalid row reads nothing; its address stays inside the slab
+  const char* g = reinterpret_cast<const char*>(src) +
+                  (ok ? static_cast<int64_t>(pos) * st * sizeof(T) : 0);
+  char* s = reinterpret_cast<char*>(dst + r * kLd);
+  for (int c = tid % kPerRow; c < per_row; c += kPerRow) {
+    const char* gc = g + c * vec;
+    char* sc = s + c * vec;
+    if (vec == 16) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                       smem_addr(sc)), "l"(gc), "r"(bytes));
+    } else if (vec == 8) {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                       smem_addr(sc)), "l"(gc), "r"(bytes));
+    } else if (vec == 4) {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                       smem_addr(sc)), "l"(gc), "r"(bytes));
+    } else {
+      *reinterpret_cast<uint16_t*>(sc) =
+          ok ? *reinterpret_cast<const uint16_t*>(gc) : uint16_t{0};
+    }
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x = hi + lo: hi is x rounded (half away from zero) to TF32's 10 mantissa
+// bits, and lo = x - hi exactly (Sterbenz), |lo| <= 2^-11 |x|.  The tensor
+// cores read the top 10 mantissa bits of a .tf32 operand, so adding half of
+// TF32's ulp to lo's bits rounds it there: lo carries x to about 2^-22.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
+}
+
+template <int N>
+__device__ __forceinline__ void split_tf32(const float (&x)[N],
+                                           uint32_t (&hi)[N],
+                                           uint32_t (&lo)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) split_tf32(x[i], hi[i], lo[i]);
+}
+
+// c += a.b in 3xTF32 (lo.hi + hi.lo + hi.hi), both split by the caller
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           uint32_t bh0, uint32_t bl0,
+                                           uint32_t bh1, uint32_t bl1) {
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
+// 2^x by the SFU's ex2.approx (2 ulp; -1e30 gives 0): one instruction,
+// where exp2f adds range handling around it
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+// DP: the padded head dim of this instance (32, 64, 80 or 128), a
+// multiple of the mma depth; columns [d, DP) are zero in shared memory.
+// Every loop over D has compile-time bounds, so each key tile's fragment
+// loads and products form one straight block that ptxas can schedule.
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads) flash_attention_mma_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ o, int hq, int hkv, int tq, int tk, int d, int n_qb,
-    Strides qs, Strides ks, Strides vs, float scale, int causal) {
-  constexpr int kDv = 16 * DC;
-  extern __shared__ float4 smem4[];
-  float* q_t = reinterpret_cast<float*>(smem4);  // [d][kLd]   Q tile, transposed
-  float* k_t = q_t + d * kLd;                    // [d][kLd]   K tile, transposed
-  float* v_s = k_t + d * kLd;                    // [kBK][kDv] V tile
-  float* p_t = v_s + kBK * kDv;                  // [kBK][kLd] P, transposed
+    Strides qs, Strides ks, Strides vs, float scale_log2, int causal,
+    int vec) {
+  using Tr = Traits<T>;
+  constexpr bool kBf16 = sizeof(T) == 2;
+  constexpr int kBK = Tr::kBK;
+  constexpr int kLd = DP + Tr::kLdExtra;  // staged row stride, elements
+  constexpr int kNT = kBK / 8;            // key n-tiles of S per m-tile
+  constexpr int kKS = DP / Tr::kDepth;    // mma k-slices over D
+  constexpr int kDT = DP / 8;             // output n-tiles over D
+  static_assert(DP % Tr::kDepth == 0 && (!kBf16 || DP % 16 == 0),
+                "DP must be a multiple of the mma depth");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sq = reinterpret_cast<T*>(smem_raw);  // [kBQ][kLd]
+  T* skv = sq + kBQ * kLd;                 // stage s: K, then V, [kBK][kLd]
 
   const int bh = blockIdx.x / n_qb;
   const int qb = blockIdx.x % n_qb;
@@ -104,12 +264,22 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
   const T* vp = v + b * vs.b + kvh * vs.h;
   const int q0 = qb * kBQ;
   const int q_offset = tk - tq;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
 
-  for (int i = tid; i < kBQ * d; i += kThreads) {
-    const int r = i / d, c = i - r * d;
-    q_t[c * kLd + r] =
-        q0 + r < tq ? to_f32(qp[(int64_t)(q0 + r) * qs.t + c]) : 0.f;
+  // zero the padded columns [d, DP) of every staged row once: the copies
+  // write only [0, d)
+  if (d < DP) {
+    const int pad = DP - d;
+    constexpr int kRows = kBQ + 2 * kStages * kBK;
+    for (int i = tid; i < kRows * pad; i += kThreads) {
+      const int r = i / pad;
+      if constexpr (kBf16) {
+        reinterpret_cast<uint16_t*>(sq)[r * kLd + d + i - r * pad] = 0;
+      } else {
+        sq[r * kLd + d + i - r * pad] = 0.f;
+      }
+    }
   }
 
   int n_kb = (tk + kBK - 1) / kBK;
@@ -121,175 +291,296 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     n_kb = last < 0 ? 0 : min(n_kb, last / kBK + 1);
   }
 
-  float m_run[4], l_run[4], acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_run[i] = kNegInf;
-    l_run[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+  // one group: the query tile and key tile 0
+  const int per_row = d * static_cast<int>(sizeof(T)) / vec;
+  stage_rows<T, kBQ, kLd>(sq, qp, qs.t, q0, tq, per_row, vec, tid);
+  if (n_kb > 0) {
+    stage_rows<T, kBK, kLd>(skv, kp, ks.t, 0, tk, per_row, vec, tid);
+    stage_rows<T, kBK, kLd>(skv + kBK * kLd, vp, vs.t, 0, tk, per_row, vec,
+                            tid);
   }
+  cp_async_commit();
+
+  const int row0 = q0 + 16 * kM * warp;  // this warp's first query row
+  float m_run[kM][2], l_run[kM][2], acc[kM][kDT][4];
+#pragma unroll
+  for (int m = 0; m < kM; ++m) {
+    m_run[m][0] = m_run[m][1] = kNegInf;
+    l_run[m][0] = l_run[m][1] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kDT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
+  }
+  const T* sqw = sq + 16 * kM * warp * kLd;  // this warp's query rows
 
   for (int kb = 0; kb < n_kb; ++kb) {
+    // tile kb has landed and every warp is done with tile kb - 1, whose
+    // stage the next tile refills while this one is multiplied
+    cp_async_wait<0>();
+    __syncthreads();
+    if (kb + 1 < n_kb) {
+      T* nk = skv + ((kb + 1) % kStages) * 2 * kBK * kLd;
+      stage_rows<T, kBK, kLd>(nk, kp, ks.t, (kb + 1) * kBK, tk, per_row, vec,
+                              tid);
+      stage_rows<T, kBK, kLd>(nk + kBK * kLd, vp, vs.t, (kb + 1) * kBK, tk,
+                              per_row, vec, tid);
+    }
+    cp_async_commit();
+
     const int k0 = kb * kBK;
-    __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < kBK * d; i += kThreads) {
-      const int j = i / d, c = i - j * d;
-      const bool ok = k0 + j < tk;
-      k_t[c * kLd + j] = ok ? to_f32(kp[(int64_t)(k0 + j) * ks.t + c]) : 0.f;
-    }
-    for (int i = tid; i < kBK * kDv; i += kThreads) {
-      const int j = i / kDv, c = i - j * kDv;
-      v_s[i] = (k0 + j < tk && c < d)
-                   ? to_f32(vp[(int64_t)(k0 + j) * vs.t + c]) : 0.f;
-    }
-    __syncthreads();
+    const T* sk = skv + (kb % kStages) * 2 * kBK * kLd;
+    const T* sv = sk + kBK * kLd;
+    // a tile wholly above this warp's rows adds nothing once every row has
+    // a real max (after the first tile)
+    if (causal && kb > 0 && k0 > q_offset + row0 + 16 * kM - 1) continue;
 
-    float s[4][4];
+    float s_acc[kM][kNT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int m = 0; m < kM; ++m)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int c = 0; c < d; ++c) {
-      const float4 a = *reinterpret_cast<const float4*>(q_t + c * kLd + 4 * ty);
-      const float4 kk = *reinterpret_cast<const float4*>(k_t + c * kLd + 4 * tx);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float kv[4] = {kk.x, kk.y, kk.z, kk.w};
+      for (int j = 0; j < kNT; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], kv[j], s[i][j]);
-    }
+        for (int e = 0; e < 4; ++e) s_acc[m][j][e] = 0.f;
 
-    float p[4][4];
+    // S = Q K^T, Q's fragments read from shared memory slice by slice
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q_offset + q0 + 4 * ty + i;
-      float mx = kNegInf;
+    for (int s = 0; s < kKS; ++s) {
+      if constexpr (kBf16) {
+        uint32_t qf[kM][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + 4 * tx + j;
-        float x = s[i][j] * scale;
-        if (kpos >= tk || (causal && kpos > qpos)) x = kNegInf;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-      const float m_new = fmaxf(m_run[i], group_max(mx));
-      const float alpha = expf(m_run[i] - m_new);
-      float rs = 0.f;
+        for (int m = 0; m < kM; ++m)
+          ldmatrix_x4(qf[m], sqw + (16 * m + (lane & 15)) * kLd + 16 * s +
+                                 (lane >> 4) * 8);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool in = k0 + 4 * tx + j < tk;
-        p[i][j] = in ? expf(s[i][j] - m_new) : 0.f;
-        rs += p[i][j];
-      }
-      l_run[i] = alpha * l_run[i] + group_sum(rs);
-      m_run[i] = m_new;
+        for (int jp = 0; jp < kNT / 2; ++jp) {
+          uint32_t kf[4];
+          ldmatrix_x4(kf, sk + (16 * jp + (lane & 7) + ((lane >> 4) << 3)) *
+                                   kLd + 16 * s + ((lane >> 3) & 1) * 8);
 #pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(p_t + (4 * tx + j) * kLd + 4 * ty) =
-          make_float4(p[0][j], p[1][j], p[2][j], p[3][j]);
-    __syncthreads();
-
-    for (int j = 0; j < kBK; ++j) {
-      const float4 pp = *reinterpret_cast<const float4*>(p_t + j * kLd + 4 * ty);
-      const float pv[4] = {pp.x, pp.y, pp.z, pp.w};
-      float vv[DC];
-      const float* vrow = v_s + j * kDv + DC * tx;
-      if constexpr (DC % 4 == 0) {
-#pragma unroll
-        for (int c = 0; c < DC; c += 4) {
-          const float4 t4 = *reinterpret_cast<const float4*>(vrow + c);
-          vv[c] = t4.x; vv[c + 1] = t4.y; vv[c + 2] = t4.z; vv[c + 3] = t4.w;
+          for (int m = 0; m < kM; ++m) {
+            mma_bf16(s_acc[m][2 * jp], qf[m], kf[0], kf[1]);
+            mma_bf16(s_acc[m][2 * jp + 1], qf[m], kf[2], kf[3]);
+          }
         }
       } else {
+        uint32_t ah[kM][4], al[kM][4];
 #pragma unroll
-        for (int c = 0; c < DC; ++c) vv[c] = vrow[c];
+        for (int m = 0; m < kM; ++m) {
+          const float* r0 = sqw + (16 * m + g) * kLd + 8 * s + t;
+          const float qv[4] = {r0[0], r0[8 * kLd], r0[4], r0[8 * kLd + 4]};
+          split_tf32(qv, ah[m], al[m]);
+        }
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+          const float* kr = sk + (8 * j + g) * kLd + 8 * s + t;
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(kr[0], bh0, bl0);
+          split_tf32(kr[4], bh1, bl1);
+#pragma unroll
+          for (int m = 0; m < kM; ++m)
+            mma_3xtf32(s_acc[m][j], ah[m], al[m], bh0, bl0, bh1, bl1);
+        }
+      }
+    }
+
+    // scale, mask, and the online softmax of rows g and g + 8 of each
+    // m-tile
+    const bool edge = k0 + kBK > tk ||
+                      (causal && k0 + kBK - 1 > q_offset + row0);
+#pragma unroll
+    for (int m = 0; m < kM; ++m) {
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s_acc[m][j][e] * scale_log2;
+          const int key = k0 + 8 * j + 2 * t + (e & 1);
+          const int qpos = q_offset + row0 + 16 * m + g + (e >> 1) * 8;
+          if (edge && (key >= tk || (causal && key > qpos))) x = kNegInf;
+          s_acc[m][j][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m_run[m][i], mx[i]);
+        alpha[i] = fast_exp2(m_run[m][i] - m_new);
+        m_run[m][i] = m_new;
+        l_run[m][i] *= alpha[i];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < kNT; ++j)
 #pragma unroll
-        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * j + 2 * t + (e & 1);
+          const float p =
+              edge && key >= tk
+                  ? 0.f : fast_exp2(s_acc[m][j][e] - m_run[m][e >> 1]);
+          s_acc[m][j][e] = p;
+          l_run[m][e >> 1] += p;
+        }
+#pragma unroll
+      for (int j = 0; j < kDT; ++j) {
+        acc[m][j][0] *= alpha[0];
+        acc[m][j][1] *= alpha[0];
+        acc[m][j][2] *= alpha[1];
+        acc[m][j][3] *= alpha[1];
+      }
+    }
+
+    // O += P V, P from the S accumulators
+    if constexpr (kBf16) {
+#pragma unroll
+      for (int kk = 0; kk < kNT / 2; ++kk) {
+        uint32_t pa[kM][4];
+#pragma unroll
+        for (int m = 0; m < kM; ++m) {
+          pa[m][0] = pack_bf16(s_acc[m][2 * kk][0], s_acc[m][2 * kk][1]);
+          pa[m][1] = pack_bf16(s_acc[m][2 * kk][2], s_acc[m][2 * kk][3]);
+          pa[m][2] = pack_bf16(s_acc[m][2 * kk + 1][0],
+                               s_acc[m][2 * kk + 1][1]);
+          pa[m][3] = pack_bf16(s_acc[m][2 * kk + 1][2],
+                               s_acc[m][2 * kk + 1][3]);
+        }
+#pragma unroll
+        for (int dp = 0; dp < kDT / 2; ++dp) {
+          uint32_t vf[4];
+          ldmatrix_x4_trans(vf, sv + (16 * kk + (lane & 7) +
+                                      ((lane >> 3) & 1) * 8) * kLd +
+                                    16 * dp + (lane >> 4) * 8);
+#pragma unroll
+          for (int m = 0; m < kM; ++m) {
+            mma_bf16(acc[m][2 * dp], pa[m], vf[0], vf[1]);
+            mma_bf16(acc[m][2 * dp + 1], pa[m], vf[2], vf[3]);
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < kNT; ++kk) {
+        // A columns t and t + 4 are keys 2t and 2t + 1 of this n-tile
+        uint32_t ah[kM][4], al[kM][4];
+#pragma unroll
+        for (int m = 0; m < kM; ++m) {
+          const float pv[4] = {s_acc[m][kk][0], s_acc[m][kk][2],
+                               s_acc[m][kk][1], s_acc[m][kk][3]};
+          split_tf32(pv, ah[m], al[m]);
+        }
+        const float* vr = sv + (8 * kk + 2 * t) * kLd + g;
+#pragma unroll
+        for (int dn = 0; dn < kDT; ++dn) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(vr[8 * dn], bh0, bl0);
+          split_tf32(vr[kLd + 8 * dn], bh1, bl1);
+#pragma unroll
+          for (int m = 0; m < kM; ++m)
+            mma_3xtf32(acc[m][dn], ah[m], al[m], bh0, bl0, bh1, bl1);
+        }
+      }
     }
   }
+  cp_async_wait<0>();
 
   T* op = o + (int64_t)bh * tq * d;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + 4 * ty + i;
-    if (r >= tq) continue;
-    const float den = fmaxf(l_run[i], 1e-30f);
+  for (int m = 0; m < kM; ++m)
 #pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int col = DC * tx + c;
-      if (col < d) store(op + (int64_t)r * d + col, acc[i][c] / den);
+    for (int i = 0; i < 2; ++i) {
+      float l = l_run[m][i];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const float inv = 1.f / fmaxf(l, 1e-30f);
+      const int r = row0 + 16 * m + g + 8 * i;
+      if (r >= tq) continue;
+#pragma unroll
+      for (int dn = 0; dn < kDT; ++dn) {
+        const int col = 8 * dn + 2 * t;
+        if (col < d)
+          store(op + (int64_t)r * d + col, acc[m][dn][2 * i] * inv);
+        if (col + 1 < d)
+          store(op + (int64_t)r * d + col + 1, acc[m][dn][2 * i + 1] * inv);
+      }
     }
-  }
 }
 
-template <typename T, int DC>
+template <typename T, int DP>
 int launch(const void* q, const void* k, const void* v, void* o, int64_t b,
            int64_t hq, int64_t hkv, int64_t tq, int64_t tk, int64_t d,
            Strides qs, Strides ks, Strides vs, float scale, int causal,
-           cudaStream_t stream) {
+           int vec, cudaStream_t stream) {
+  using Tr = Traits<T>;
   const int64_t n_qb = (tq + kBQ - 1) / kBQ;
   const int64_t blocks = b * hq * n_qb;
   if (blocks == 0) return 0;
   if (blocks >= (int64_t{1} << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem =
-      sizeof(float) * (2 * d * kLd + kBK * 16 * DC + kBK * kLd);
+  const size_t smem = sizeof(T) * static_cast<size_t>(DP + Tr::kLdExtra) *
+                      (kBQ + 2 * kStages * Tr::kBK);
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, DC>,
+      flash_attention_mma_kernel<T, DP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_attention_kernel<T, DC><<<static_cast<unsigned>(blocks), kThreads,
-                                  smem, stream>>>(
+  flash_attention_mma_kernel<T, DP><<<static_cast<unsigned>(blocks),
+                                      kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<int>(hq),
       static_cast<int>(hkv), static_cast<int>(tq), static_cast<int>(tk),
-      static_cast<int>(d), static_cast<int>(n_qb), qs, ks, vs, scale, causal);
+      static_cast<int>(d), static_cast<int>(n_qb), qs, ks, vs,
+      scale * kLog2e, causal, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
+// the smallest instance that holds d: 32, 64, 80 (stablelm-3b's width,
+// and 72) or 128
 template <typename T>
 int launch_d(const void* q, const void* k, const void* v, void* o, int64_t b,
              int64_t hq, int64_t hkv, int64_t tq, int64_t tk, int64_t d,
              Strides qs, Strides ks, Strides vs, float scale, int causal,
-             cudaStream_t stream) {
+             int vec, cudaStream_t stream) {
   if (d <= 32)
-    return launch<T, 2>(q, k, v, o, b, hq, hkv, tq, tk, d, qs, ks, vs, scale,
-                        causal, stream);
+    return launch<T, 32>(q, k, v, o, b, hq, hkv, tq, tk, d, qs, ks, vs, scale,
+                         causal, vec, stream);
   if (d <= 64)
-    return launch<T, 4>(q, k, v, o, b, hq, hkv, tq, tk, d, qs, ks, vs, scale,
-                        causal, stream);
-  return launch<T, 8>(q, k, v, o, b, hq, hkv, tq, tk, d, qs, ks, vs, scale,
-                      causal, stream);
+    return launch<T, 64>(q, k, v, o, b, hq, hkv, tq, tk, d, qs, ks, vs, scale,
+                         causal, vec, stream);
+  if (d <= 80)
+    return launch<T, 80>(q, k, v, o, b, hq, hkv, tq, tk, d, qs, ks, vs, scale,
+                         causal, vec, stream);
+  return launch<T, 128>(q, k, v, o, b, hq, hkv, tq, tk, d, qs, ks, vs, scale,
+                        causal, vec, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements.  The
-// wrapper (kernels/flash_attention.py) checks shapes: Hq % Hkv == 0,
-// 1 <= D <= 128, the last dim contiguous, o (B, Hq, Tq, D) contiguous.
+// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements.  vec: the
+// bytes one staging copy moves (16, 8 or 4; 2 in bf16 only), which must
+// divide every tensor's base address, its strides in bytes and D times the
+// element size (kernels/flash_attention.py, copy_width).  The wrapper
+// checks shapes: Hq % Hkv == 0, 1 <= D <= 128, the last dim contiguous,
+// o (B, Hq, Tq, D) contiguous.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int64_t b,
     int64_t hq, int64_t hkv, int64_t tq, int64_t tk, int64_t d, int64_t q_sb,
     int64_t q_sh, int64_t q_st, int64_t k_sb, int64_t k_sh, int64_t k_st,
     int64_t v_sb, int64_t v_sh, int64_t v_st, float scale, int causal,
-    int dtype, void* stream) {
+    int dtype, int vec, void* stream) {
   if (d < 1 || d > 128 || hkv < 1 || hq % hkv != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int es = dtype == 0 ? 4 : 2;
+  if ((vec != 16 && vec != 8 && vec != 4 && vec != 2) || vec < es ||
+      (d * es) % vec != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{q_sb, q_sh, q_st}, ks{k_sb, k_sh, k_st},
       vs{v_sb, v_sh, v_st};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_d<float>(q, k, v, o, b, hq, hkv, tq, tk, d, qs, ks, vs,
-                           scale, causal, s);
+                           scale, causal, vec, s);
   if (dtype == 1)
     return launch_d<__nv_bfloat16>(q, k, v, o, b, hq, hkv, tq, tk, d, qs, ks,
-                                   vs, scale, causal, s);
+                                   vs, scale, causal, vec, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -43,7 +43,7 @@ SIGNATURES = {
         _P, _I64, _P, _I64, _I64, _P, _I64, _I64, _P, _I64, _I64,
         ctypes.c_int, _P, _P, _P),
     "bitset_member_mask_launch": (
-        _P, _I64, _I64, _P, _P, _I64, _I64, _P, _P),
+        _P, _I64, _I64, _P, _P, _P, _I64, _I64, _P, _P),
     "bitset_member_count_launch": (
         _P, _I64, _P, _I64, _I64, _P, _P, _P),
     "tile_member_mask_launch": (
@@ -52,7 +52,7 @@ SIGNATURES = {
         _P, _I64, _P, _P, _I64, _P, _I64, _P, _P),
     "bitset_intersect_count_launch": (_P, _P, _I64, _I64, _P, _P),
     "flash_attention_launch": (
-        _P, _P, _P, _P, *(_I64,) * 15, ctypes.c_float, _I32, _I32, _P),
+        _P, _P, _P, _P, *(_I64,) * 15, ctypes.c_float, _I32, _I32, _I32, _P),
     "flash_attention_tc_launch": (
         _P, _P, _P, _P, *(_I64,) * 15, ctypes.c_float, _I32, _P),
     "segment_outer_launch": (_P, _P, _P, _P, *(_I64,) * 7, _P, _P),
@@ -62,7 +62,7 @@ SIGNATURES = {
 LAUNCHES = {"searchsorted_segments": 0, "bitset_member_mask": 0,
             "bitset_member_count": 0, "tile_member_mask": 0,
             "intersect_count": 0, "bitset_intersect_count": 0,
-            "flash_attention_tc": 0, "flash_attention_simt": 0,
+            "flash_attention_tc": 0, "flash_attention_mma": 0,
             "segment_outer": 0}
 
 _lock = threading.Lock()

@@ -8,11 +8,12 @@ of the Tk stream), chosen by dtype and head dim (:func:`route`):
 * ``csrc/flash_attention_tc.cu``: bf16 with D a multiple of 16 up to 128
   (the models' prefill and forward: chatglm3-6b's 128, stablelm-3b's 80)
   on the tensor cores, wgmma with TMA loads;
-* ``csrc/flash_attention.cu``: everything else (float32, and bf16 at a
-  head dim that is not a multiple of 16) on the CUDA cores.
+* ``csrc/flash_attention.cu``: everything else (float32 at any head dim,
+  and bf16 at a head dim that is not a multiple of 16) on the tensor cores
+  through warp-level ``mma.sync``, float32 as 3xTF32.
 
 See the sources for the designs.  Each launch counts under its own name,
-``flash_attention_tc`` or ``flash_attention_simt``.  The plain PyTorch
+``flash_attention_tc`` or ``flash_attention_mma``.  The plain PyTorch
 version is ``kernels.ref.flash_attention_ref``, run for CPU tensors.
 """
 from __future__ import annotations
@@ -26,8 +27,10 @@ from . import build
 PALLAS_BLOCK = 128
 #: the widest head the kernels take (their output tile is 128 columns)
 MAX_HEAD_DIM = 128
-#: dtype -> the CUDA-core entry point's dtype code
+#: dtype -> the mma.sync entry point's dtype code
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the copies the mma.sync kernel stages tiles with, widest first (bytes)
+COPY_WIDTHS = (16, 8, 4, 2)
 
 
 def tc_head_dim(head_dim: int) -> bool:
@@ -42,7 +45,7 @@ def route(device, dtype: torch.dtype, head_dim: int) -> str:
     """Which flash path runs for queries of this device, dtype and head
     dim: ``"plain"`` on the CPU, ``"tc"`` (the tensor-core kernel) for
     bf16 on a CUDA device with a head dim that is a multiple of 16 up to
-    128 (:func:`tc_head_dim`), ``"simt"`` (the CUDA-core kernel) for any
+    128 (:func:`tc_head_dim`), ``"mma"`` (the mma.sync kernel) for any
     other CUDA input.  A route by shape, not a fallback: the chosen
     kernel raises if it cannot build or launch."""
     kind = torch.device(device).type
@@ -53,7 +56,7 @@ def route(device, dtype: torch.dtype, head_dim: int) -> str:
                          f"{device}")
     if dtype == torch.bfloat16 and tc_head_dim(head_dim):
         return "tc"
-    return "simt"
+    return "mma"
 
 
 def tma_geometry(t: torch.Tensor):
@@ -75,6 +78,23 @@ def tma_geometry(t: torch.Tensor):
     if t.data_ptr() % 16 or any(s % 16 or s >= 1 << 40 for s in strides):
         return None
     return (d, n, h, b), tuple(strides)
+
+
+def copy_width(*tensors: torch.Tensor) -> int:
+    """The bytes one staging copy of the mma.sync kernel moves for these
+    (B, H, T, D) tensors read in place: the widest of :data:`COPY_WIDTHS`,
+    and at least the element size, that divides each tensor's base
+    address, the byte strides of its B, H and T dims (those of size > 1)
+    and the row's D * element size.  16, 8 and 4 go through ``cp.async``;
+    2 (a bf16 row of odd length or stride) through plain loads."""
+    es = tensors[0].element_size()
+    need = []
+    for t in tensors:
+        need.append(t.data_ptr())
+        need.append(t.shape[3] * es)
+        need.extend(t.stride(i) * es for i in range(3) if t.shape[i] > 1)
+    return next(w for w in COPY_WIDTHS
+                if w == es or (w > es and all(x % w == 0 for x in need)))
 
 
 def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -123,7 +143,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale = 1.0 / (q.shape[3] ** 0.5)
     if route(q.device, q.dtype, q.shape[3]) == "tc":
         return _launch_tc(q, k, v, causal, float(scale))
-    return _launch_simt(q, k, v, causal, float(scale))
+    return _launch_mma(q, k, v, causal, float(scale))
 
 
 def _launch_tc(q, k, v, causal: bool, scale: float) -> torch.Tensor:
@@ -151,8 +171,9 @@ def _launch_tc(q, k, v, causal: bool, scale: float) -> torch.Tensor:
     return out
 
 
-def _launch_simt(q, k, v, causal: bool, scale: float) -> torch.Tensor:
-    """The CUDA-core kernel (f32 or bf16, any D <= 128)."""
+def _launch_mma(q, k, v, causal: bool, scale: float) -> torch.Tensor:
+    """The mma.sync kernel (f32 or bf16, any D <= 128), staging tiles with
+    copies of :func:`copy_width` bytes."""
     b, hq, tq, d = q.shape
     hkv, tk = k.shape[1], k.shape[2]
     q, k, v = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v))
@@ -162,7 +183,8 @@ def _launch_simt(q, k, v, causal: bool, scale: float) -> torch.Tensor:
     rc = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv,
         tq, tk, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        scale, int(bool(causal)), DTYPES[q.dtype], stream)
-    build.check(rc, "flash_attention_simt")
-    build.count_launch("flash_attention_simt")
+        scale, int(bool(causal)), DTYPES[q.dtype], copy_width(q, k, v),
+        stream)
+    build.check(rc, "flash_attention_mma")
+    build.count_launch("flash_attention_mma")
     return out

@@ -35,24 +35,34 @@ def _check_inputs(name: str, words: torch.Tensor,
 
 
 def bitset_member_mask_cuda(words: torch.Tensor, row: torch.Tensor,
-                            cand: torch.Tensor) -> torch.Tensor:
-    """found[r, c] = bit ``cand & 31`` of ``words[row[r], cand >> 5]``.
+                            cand: torch.Tensor,
+                            lane_len: torch.Tensor | None = None
+                            ) -> torch.Tensor:
+    """found[r, c]: ``c < lane_len[r]`` (every lane where ``lane_len`` is
+    None) and bit ``cand & 31`` of ``words[row[r], cand >> 5]``.
 
-    words: (H, NW) int32; row: (R,) int32; cand: (R, W) int32, all on
-    one CUDA device.  ``row`` is clamped to [0, H-1] and ``cand >> 5`` to
-    [0, NW-1].  Returns (R, W) bool."""
+    words: (H, NW) int32; row: (R,) int32; cand: (R, W) int32; lane_len:
+    (R,) int32 or None; all on one CUDA device.  ``row`` is clamped to
+    [0, H-1], ``cand >> 5`` to [0, NW-1] and ``lane_len`` to [0, W]; the
+    lanes at or past ``lane_len`` gather nothing.  Returns (R, W) bool."""
     name = "bitset_member_mask"
-    _check_inputs(name, words, {"row": row, "cand": cand})
+    tensors = {"row": row, "cand": cand}
+    if lane_len is not None:
+        tensors["lane_len"] = lane_len
+    _check_inputs(name, words, tensors)
     _require(cand.dim() == 2 and row.dim() == 1
              and row.shape[0] == cand.shape[0], name,
              "row must be (R,) and cand (R, W)")
     r, w = cand.shape
+    _require(lane_len is None or tuple(lane_len.shape) == (r,), name,
+             "lane_len must be (R,)")
     found = torch.empty((r, w), dtype=torch.bool, device=cand.device)
     lib = build.library()
     stream = torch.cuda.current_stream(cand.device).cuda_stream
     rc = lib.bitset_member_mask_launch(
         words.data_ptr(), words.shape[0], words.shape[1], row.data_ptr(),
-        cand.data_ptr(), r, w, found.data_ptr(), stream)
+        cand.data_ptr(), None if lane_len is None else lane_len.data_ptr(),
+        r, w, found.data_ptr(), stream)
     build.check(rc, name)
     build.count_launch(name)
     return found

@@ -79,12 +79,12 @@ def bitset_intersect_count(a_words, b_words):
     return bitset_intersect_count_cuda(a_words, b_words)
 
 
-def bitset_member_mask(words, row, cand):
-    """Per-lane bitset membership; see
-    :func:`kernels.ref.bitset_member_mask_ref`."""
+def bitset_member_mask(words, row, cand, lane_len=None):
+    """Per-lane bitset membership, false past ``lane_len`` where it is
+    given; see :func:`kernels.ref.bitset_member_mask_ref`."""
     if _on_cpu(words):
-        return _ref.bitset_member_mask_ref(words, row, cand)
-    return bitset_member_mask_cuda(words, row, cand)
+        return _ref.bitset_member_mask_ref(words, row, cand, lane_len)
+    return bitset_member_mask_cuda(words, row, cand, lane_len)
 
 
 def bitset_member_count(words, b, b_len):
@@ -99,7 +99,7 @@ def flash_attention(q, k, v, causal: bool = True, scale=None):
     Tk stream; see :func:`kernels.ref.flash_attention_ref`.  On the card
     the dtype and head dim pick the kernel
     (:func:`kernels.flash_attention.route`: bf16 with D a multiple of 16
-    up to 128 on the tensor cores, the rest on the CUDA cores).  As in the JAX package,
+    up to 128 on wgmma, the rest on mma.sync).  As in the JAX package,
     the plain path takes any shape and the kernel path raises where
     ``flash_attention_pallas`` asserts
     (:func:`kernels.flash_attention.check_shapes`: Tq and Tk multiples of

@@ -163,18 +163,27 @@ def bitset_intersect_count_ref(a_words: torch.Tensor,
 
 
 def bitset_member_mask_ref(words: torch.Tensor, row: torch.Tensor,
-                           cand: torch.Tensor) -> torch.Tensor:
+                           cand: torch.Tensor,
+                           lane_len: torch.Tensor | None = None
+                           ) -> torch.Tensor:
     """Bit ``cand & 31`` of ``words[row[r], cand >> 5]`` per lane.
 
     words: (H, NW) int32 bit patterns of uint32 bitset rows; row: (R,)
-    bitset row per frontier row; cand: (R, W) int32 vertex ids.  ``row``
-    is clamped to [0, H-1] and ``cand >> 5`` to [0, NW-1], as the JAX
-    gathers clamp.  Returns (R, W) bool.
+    bitset row per frontier row; cand: (R, W) int32 vertex ids; lane_len:
+    (R,) int32 valid lanes per row, or None for every lane.  ``row`` is
+    clamped to [0, H-1] and ``cand >> 5`` to [0, NW-1], as the JAX
+    gathers clamp; ``lane_len`` is clamped to [0, W], and lanes at or past
+    it are false.  Returns (R, W) bool.
     """
     h, nw = words.shape
     r = row.clamp(0, h - 1)[:, None]
     w = words[r, (cand >> 5).clamp(0, nw - 1)]
-    return ((w >> (cand & 31)) & 1) != 0
+    found = ((w >> (cand & 31)) & 1) != 0
+    if lane_len is not None:
+        width = cand.shape[1]
+        found &= (torch.arange(width, device=cand.device)[None, :]
+                  < lane_len.clamp(0, width)[:, None])
+    return found
 
 
 def bitset_member_ref(words: torch.Tensor,

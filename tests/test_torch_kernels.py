@@ -221,6 +221,47 @@ def test_bitset_member_mask_plain_matches_reference(seed):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("case", ["random", "zero", "negative", "above W",
+                                  "equal W"])
+def test_bitset_member_mask_lane_len_matches_reference(case):
+    """``lane_len`` clamped to [0, W]: lanes below it are the JAX
+    reference's member test, lanes at or past it false, including
+    ``lane_len`` of 0, negative and above W.  Rows and candidates out of
+    range (negative, past H, past NW x 32) take the mask's clamps, row to
+    [0, H-1] and ``cand >> 5`` to [0, NW-1], on live lanes only."""
+    rng = np.random.default_rng(5)
+    h, n_words, r, w = 12, 16, 24, 64
+    words = rng.integers(0, 1 << 32, (h, n_words),
+                         dtype=np.uint64).astype(np.uint32)
+    row = rng.integers(0, h, r).astype(np.int32)
+    cand = rng.integers(0, 32 * n_words, (r, w)).astype(np.int32)
+    lane_len = {"random": rng.integers(-5, w + 6, r),
+                "zero": np.zeros(r), "negative": np.full(r, -7),
+                "above W": np.full(r, w + 9),
+                "equal W": np.full(r, w)}[case].astype(np.int32)
+    live = np.arange(w)[None, :] < np.clip(lane_len, 0, w)[:, None]
+    got = ref.bitset_member_mask_ref(_i32(words), torch.from_numpy(row),
+                                     torch.from_numpy(cand),
+                                     torch.from_numpy(lane_len)).numpy()
+    want = np.asarray(j_member_ref(jnp.asarray(words[row]),
+                                   jnp.asarray(cand)))
+    np.testing.assert_array_equal(got, want & live)
+    # out of range: rows -2 and H + 1, candidates negative and past NW x 32
+    row[::3], row[1::3] = -2, h + 1
+    cand[:, ::3] = -cand[:, ::3] - 1
+    cand[:, 1::3] += 32 * n_words
+    got = ref.bitset_member_mask_ref(_i32(words), torch.from_numpy(row),
+                                     torch.from_numpy(cand),
+                                     torch.from_numpy(lane_len)).numpy()
+    wv = words[np.clip(row, 0, h - 1)[:, None],
+               np.clip(cand >> 5, 0, n_words - 1)]
+    want = ((wv >> (cand & 31).astype(np.uint32)) & 1) != 0
+    np.testing.assert_array_equal(got, want & live)
+    every = ref.bitset_member_mask_ref(_i32(words), torch.from_numpy(row),
+                                       torch.from_numpy(cand)).numpy()
+    np.testing.assert_array_equal(every, want)
+
+
 def test_ops_route_cpu_tensors_to_plain_versions():
     build.reset_launches()
     rng = np.random.default_rng(4)
@@ -237,6 +278,9 @@ def test_ops_route_cpu_tensors_to_plain_versions():
     cand = torch.from_numpy(rng.integers(0, 128, (8, 32)).astype(np.int32))
     assert torch.equal(ops.bitset_member_mask(words, row, cand),
                        ref.bitset_member_mask_ref(words, row, cand))
+    lanes = torch.arange(8, dtype=torch.int32) * 5 - 3
+    assert torch.equal(ops.bitset_member_mask(words, row, cand, lanes),
+                       ref.bitset_member_mask_ref(words, row, cand, lanes))
     blen = torch.full((8,), 20, dtype=torch.int32)
     assert torch.equal(ops.bitset_member_count(words, cand, blen),
                        ref.bitset_member_count_ref(words, cand, blen))
@@ -260,7 +304,7 @@ def test_ops_route_cpu_tensors_to_plain_versions():
     assert set(build.LAUNCHES) == {
         "searchsorted_segments", "bitset_member_mask", "bitset_member_count",
         "tile_member_mask", "intersect_count", "bitset_intersect_count",
-        "flash_attention_tc", "flash_attention_simt", "segment_outer"}
+        "flash_attention_tc", "flash_attention_mma", "segment_outer"}
     assert not any(build.LAUNCHES.values())
 
 
@@ -276,6 +320,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     words = torch.zeros((2, 4), **i32)
     with pytest.raises(ValueError, match="CUDA"):
         bitset_member_mask_cuda(words, torch.zeros(2, **i32), q)
+    with pytest.raises(ValueError, match="CUDA"):
+        bitset_member_mask_cuda(words, torch.zeros(2, **i32), q,
+                                torch.zeros(2, **i32))
     with pytest.raises(ValueError, match="CUDA"):
         bitset_member_count_cuda(words, q, torch.zeros(2, **i32))
     with pytest.raises(ValueError, match="CUDA"):
@@ -313,6 +360,27 @@ def test_ctypes_signatures_match_c_entry_points():
     names = [x.split()[-1].lstrip("*") for x in params]
     assert names[4:6] == ["cand", "lane_len"]
     assert build.SIGNATURES["tile_member_mask_launch"][5] is ctypes.c_void_p
+
+
+def _c_params(src: str, fn: str) -> list:
+    text = (build.CSRC / src).read_text()
+    params = re.search(rf'extern "C" int {fn}\(([^)]*)\)', text).group(1)
+    return [x.split()[-1].lstrip("*") for x in params.split(",")]
+
+
+def test_c_signatures_of_the_bitset_mask_and_the_mma_flash_kernel():
+    """The bitset mask takes ``lane_len`` (a pointer, null for every lane)
+    after the candidates, and the mma.sync flash kernel the staging copy
+    width (an int) after the dtype, each declared so in ctypes."""
+    names = _c_params("bitset_member.cu", "bitset_member_mask_launch")
+    assert names[4:6] == ["cand", "lane_len"]
+    sig = build.SIGNATURES["bitset_member_mask_launch"]
+    assert sig[5] is ctypes.c_void_p and len(sig) == len(names)
+    names = _c_params("flash_attention.cu", "flash_attention_launch")
+    assert names[-3:] == ["dtype", "vec", "stream"]
+    sig = build.SIGNATURES["flash_attention_launch"]
+    assert sig[-2] is ctypes.c_int and sig[-1] is ctypes.c_void_p
+    assert len(sig) == len(names)
 
 
 # --- tile intersection (intersect_count_pallas and the tile check) -------
@@ -468,6 +536,83 @@ def test_level_step_passes_probe_degrees_as_lane_len(monkeypatch):
         probe_cols=(0, 2), n_unary=0, lower_cols=(), upper_cols=(), width=64,
         n_iter=7, needs_degree=False, check_mode="tile", check_width=64,
         count_only=True)
+    deg = indptr[frontier + 1] - indptr[frontier]
+    want = np.where(row_valid, np.minimum(deg[:, 0], deg[:, 2]), 0)
+    assert len(seen) == 2
+    for lane_len in seen:
+        assert lane_len.dtype == torch.int32
+        np.testing.assert_array_equal(lane_len.numpy(), want)
+
+
+def _bitset_chunk(rng, n=40, rows=16):
+    """A level-step chunk on a graph whose every vertex has a bitset row
+    (its adjacency), except the last two (rep_tag -1), which only the
+    invalid rows (the last five) name."""
+    values, starts, ends = _segments(rng, n, 30, n, 6)
+    indptr = np.concatenate([starts, ends[-1:]]).astype(np.int32)
+    sets = [values[starts[i]:ends[i]] for i in range(n)]
+    words = _pack(sets, (n + 31) // 32)
+    rep_tag = np.arange(n, dtype=np.int32)
+    rep_tag[-2:] = -1
+    frontier = rng.integers(0, n - 2, (rows, 3)).astype(np.int32)
+    frontier[-5:] = rng.integers(n - 2, n, (5, 3))
+    row_valid = np.arange(rows) < rows - 5
+    return indptr, values, words, rep_tag, frontier, row_valid
+
+
+def test_level_step_bitset_matches_reference():
+    """One level step in ``bitset`` mode (the port passes the probe
+    degrees as ``lane_len``) against the JAX package's on the same chunk,
+    invalid rows included: candidates, masks and weighted counts."""
+    rng = np.random.default_rng(13)
+    indptr, values, words, rep_tag, frontier, row_valid = _bitset_chunk(rng)
+    mult = rng.integers(1, 5, frontier.shape[0]).astype(np.int64)
+    bitmap = rng.random(40) < 0.7
+    kw = dict(probe_cols=(0, 2), n_unary=1, lower_cols=(1,), upper_cols=(),
+              width=64, n_iter=7, needs_degree=True, check_mode="bitset")
+    j_args = tuple(map(jnp.asarray, (indptr, values))) + (
+        (jnp.asarray(bitmap),),) + tuple(map(jnp.asarray,
+                                             (frontier, mult, row_valid)))
+    t_args = tuple(map(torch.from_numpy, (indptr, values))) + (
+        (torch.from_numpy(bitmap),),) + tuple(map(torch.from_numpy,
+                                                  (frontier, mult, row_valid)))
+    for rotate in (False, True):
+        for count_only in (False, True):
+            want = j_expand_level(*j_args, count_only=count_only,
+                                  rotate_checks=rotate,
+                                  rep_tag=jnp.asarray(rep_tag),
+                                  bitset_words=jnp.asarray(words), **kw)
+            got = t_expand_level(*t_args, count_only=count_only,
+                                 rotate_checks=rotate,
+                                 rep_tag=torch.from_numpy(rep_tag),
+                                 bitset_words=_i32(words), **kw)
+            if count_only:
+                np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+            else:
+                for g, w in zip(got, want):
+                    np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_level_step_passes_probe_degrees_to_bitset_mask(monkeypatch):
+    """In ``bitset`` mode the level step gives the mask each row's probe
+    degree as ``lane_len``, 0 for invalid rows, as ``tile`` mode does."""
+    from repro_torch.core import vlftj as t_vlftj
+    seen = []
+
+    def spy(words, row, cand, lane_len=None):
+        seen.append(lane_len.clone())
+        return ref.bitset_member_mask_ref(words, row, cand, lane_len)
+
+    monkeypatch.setattr(t_vlftj.kops, "bitset_member_mask", spy)
+    rng = np.random.default_rng(14)
+    indptr, values, words, rep_tag, frontier, row_valid = _bitset_chunk(rng)
+    n = frontier.shape[0]
+    t_expand_level(
+        *map(torch.from_numpy, (indptr, values)), (),
+        *map(torch.from_numpy, (frontier, np.ones(n, np.int64), row_valid)),
+        probe_cols=(0, 2), n_unary=0, lower_cols=(), upper_cols=(), width=64,
+        n_iter=7, needs_degree=False, check_mode="bitset", count_only=True,
+        rep_tag=torch.from_numpy(rep_tag), bitset_words=_i32(words))
     deg = indptr[frontier + 1] - indptr[frontier]
     want = np.where(row_valid, np.minimum(deg[:, 0], deg[:, 2]), 0)
     assert len(seen) == 2

@@ -24,7 +24,8 @@ from repro.kernels.segment_outer import (segment_outer_pallas,
                                          segment_outer_ref as j_outer_ref)
 
 from repro_torch.kernels import build, ops, ref
-from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+from repro_torch.kernels.flash_attention import (copy_width,
+                                                 flash_attention_cuda,
                                                  route, tma_geometry)
 from repro_torch.kernels.segment_outer import (block_tile_starts,
                                                segment_outer_cuda)
@@ -149,21 +150,22 @@ def test_flash_attention_bf16_plain_matches_ref_on_tc_shapes(d, group, tq,
 @pytest.mark.parametrize("device,dtype,d,want", [
     ("cuda", torch.bfloat16, 64, "tc"),
     ("cuda", torch.bfloat16, 128, "tc"),
-    ("cuda", torch.float32, 128, "simt"),
-    ("cuda", torch.float32, 64, "simt"),
+    ("cuda", torch.float32, 128, "mma"),
+    ("cuda", torch.float32, 64, "mma"),
     ("cuda", torch.bfloat16, 80, "tc"),      # stablelm-3b's heads
     ("cuda", torch.bfloat16, 16, "tc"),      # the reduced configs' heads
-    ("cuda", torch.bfloat16, 40, "simt"),    # not a multiple of 16
-    ("cuda", torch.bfloat16, 8, "simt"),
-    ("cuda", torch.float32, 80, "simt"),
+    ("cuda", torch.bfloat16, 40, "mma"),     # not a multiple of 16
+    ("cuda", torch.bfloat16, 72, "mma"),
+    ("cuda", torch.bfloat16, 8, "mma"),
+    ("cuda", torch.float32, 80, "mma"),
     ("cuda:0", torch.bfloat16, 128, "tc"),
     ("cpu", torch.bfloat16, 128, "plain"),
     ("cpu", torch.float32, 80, "plain"),
 ])
 def test_flash_route(device, dtype, d, want):
-    """bf16 with D a multiple of 16 up to 128 takes the tensor-core
-    kernel, every other CUDA input the CUDA-core one, and CPU tensors the
-    plain version."""
+    """bf16 with D a multiple of 16 up to 128 takes the wgmma kernel,
+    every other CUDA input (f32 at any D, bf16 off the multiples of 16)
+    the mma.sync one, and CPU tensors the plain version."""
     assert route(device, dtype, d) == want
 
 
@@ -181,6 +183,58 @@ def test_flash_attention_bf16_plain_matches_ref_at_d80(hq, hkv, tq, tk):
         assert_allclose(_f32(ops.flash_attention(q, k, v, causal=causal)),
                         _f32(j_flash_ref(jq, jk, jv, causal=causal)),
                         atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [40, 72])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_plain_matches_pallas_at_off_grid_head_dims(
+        dtype, d, causal):
+    """Head dims off the multiples of 16, which the card sends to the
+    mma.sync kernel in both dtypes: the plain version the card holds that
+    kernel against agrees with ``flash_attention_pallas`` (interpret mode)
+    and the jnp reference, GQA group 2 and the causal offset (Tq 128, Tk
+    256), at the JAX package's tolerances."""
+    (jq, jk, jv), (q, k, v) = _both(_qkv(11, 1, 4, 2, 128, 256, d, dtype),
+                                    dtype)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert got.dtype == TORCH_DT[dtype] and got.shape == q.shape
+    tol = TOL[dtype]
+    for want in (flash_attention_pallas(jq, jk, jv, causal=causal),
+                 j_flash_ref(jq, jk, jv, causal=causal)):
+        assert_allclose(_f32(got), _f32(want), atol=tol, rtol=tol)
+
+
+def _layout(dtype, d, layout):
+    """A (1, 4, 8, d) tensor: contiguous, a transposed (B, T, H, D) view,
+    or a view one element into rows of d + 1."""
+    if layout == "transposed":
+        return torch.zeros((1, 8, 4, d), dtype=dtype).transpose(1, 2)
+    if layout == "offset":
+        return torch.zeros((1, 4, 8, d + 1), dtype=dtype)[..., 1:]
+    return torch.zeros((1, 4, 8, d), dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype,d,layout,want", [
+    (torch.bfloat16, 72, "contiguous", 16),   # rows of 144 bytes
+    (torch.bfloat16, 40, "transposed", 16),
+    (torch.bfloat16, 36, "contiguous", 8),    # rows of 72 bytes
+    (torch.bfloat16, 7, "contiguous", 2),     # odd rows: plain loads
+    (torch.bfloat16, 72, "offset", 2),        # base 2 bytes off
+    (torch.float32, 128, "transposed", 16),
+    (torch.float32, 6, "contiguous", 8),
+    (torch.float32, 37, "contiguous", 4),
+    (torch.float32, 128, "offset", 4),
+])
+def test_copy_width(dtype, d, layout, want):
+    """The mma.sync kernel's staging copies are the widest that every base
+    address, stride and row length allows, never below the element."""
+    t = _layout(dtype, d, layout)
+    assert copy_width(t) == want
+    assert copy_width(t, _layout(dtype, d, "contiguous")) == want
+    for w in (16, 8, 4, 2):
+        if w <= want and w >= t.element_size():
+            assert t.data_ptr() % w == 0 and (d * t.element_size()) % w == 0
 
 
 def test_flash_route_refuses_other_devices():
@@ -340,5 +394,5 @@ def test_new_kernels_route_cpu_tensors_to_plain_versions():
     with pytest.raises(ValueError, match="CUDA"):
         segment_outer_cuda(*args, bt, n, n_tiles, bn, te)
     assert build.LAUNCHES["flash_attention_tc"] == 0
-    assert build.LAUNCHES["flash_attention_simt"] == 0
+    assert build.LAUNCHES["flash_attention_mma"] == 0
     assert build.LAUNCHES["segment_outer"] == 0

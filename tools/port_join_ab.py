@@ -21,9 +21,15 @@ commit) on one CUDA device, with the measuring code of this checkout's
 * ``auto``: the plain db's 4-cycle count in ``check_mode="auto"``
   (tile width 512) ``--reps`` times and once profiled, with the check
   kernels' device times;
+* ``bitset``: ``bitset_member_mask`` at the chip_smoke kernel line's
+  hub chunk, every lane and with ``lane_len`` = the probe degrees where
+  the tree's mask takes it, and ``bitset_member_count`` there; then the
+  hybrid db's 4-cycle count (``bsearch`` mode, its all-hub rows on the
+  bitset mask) ``--reps`` times and once profiled;
 * ``flash``: ``ops.flash_attention`` at stablelm-3b's and chatglm3-6b's
-  prefill shapes in bf16, the device time of the kernel the tree routes
-  each to;
+  prefill shapes in bf16, at stablelm-3b's with an off-grid head dim of
+  72 in bf16, and at the f32 path shape (chatglm3-6b's heads in f32), the
+  device time of the kernel the tree routes each to;
 * ``lm``: stablelm-3b at full width and depth in bf16, seeded weights,
   one 4 x 2048 prefill timed after a warm-up, and one profiled.
 
@@ -49,7 +55,12 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent.parent
-PARTS = ("search", "main", "cycle4", "tile", "auto", "flash", "lm")
+PARTS = ("search", "main", "cycle4", "tile", "auto", "bitset", "flash",
+         "lm")
+#: the kernel function each flash route launches, by route name
+FLASH_KERNELS = {"tc": "flash_attention_tc_kernel",
+                 "mma": "flash_attention_mma_kernel",
+                 "simt": "flash_attention_kernel"}
 
 
 def walls(fn, reps: int) -> list:
@@ -100,7 +111,7 @@ def main() -> int:
     build.library()
     out["nvcc_s"] = time.perf_counter() - t0
 
-    if set(parts) & {"search", "main", "cycle4", "tile", "auto"}:
+    if set(parts) & {"search", "main", "cycle4", "tile", "auto", "bitset"}:
         _, db, hdb = cs.bench_gdb(T, 1.0, "cuda")
         indptr = db.csr.indptr
         dev = db.device
@@ -161,6 +172,9 @@ def main() -> int:
             lambda: T.count(query, db, **kw), args.reps)
         cs.profile_count(T, db, "4-cycle", **kw)
 
+    if "bitset" in parts:
+        out.update(bitset_parts(cs, T, db, hdb, args.reps))
+
     if "flash" in parts:
         out.update(flash_shapes(cs))
 
@@ -171,30 +185,64 @@ def main() -> int:
     return 0
 
 
+def bitset_parts(cs, T, db, hdb, reps: int) -> dict:
+    """The bitset kernels at the chip_smoke.py kernel line's hub chunk
+    (the same rows: the searchsorted chunk is drawn first from the same
+    seed), then the hybrid db's 4-cycle count walls and profile."""
+    import torch
+    from repro_torch.kernels import ops
+    dev = hdb.device
+    rng = np.random.default_rng(cs.SEED)
+    cs.level_inputs(db, rng, 2048, hubs_only=False)
+    cand, check, deg = cs.level_inputs(hdb, rng, 2048, hubs_only=True)
+    words = hdb.dev("bitset_words")
+    row = hdb.dev("rep_tag")[torch.from_numpy(check).to(dev)]
+    q = torch.from_numpy(cand).to(dev)
+    lanes = torch.from_numpy(deg).to(dev)
+    out = {"bitset_mask_all_lanes_ms": cs.device_ms(
+        lambda: ops.bitset_member_mask(words, row, q), 50,
+        "bitset_member_mask_kernel")}
+    if "lane_len" in inspect.signature(ops.bitset_member_mask).parameters:
+        out["bitset_mask_lane_len_ms"] = cs.device_ms(
+            lambda: ops.bitset_member_mask(words, row, q, lanes), 50,
+            "bitset_member_mask_kernel")
+    wrows = words[row.long()].contiguous()
+    out["bitset_count_ms"] = cs.device_ms(
+        lambda: ops.bitset_member_count(wrows, q, lanes), 50,
+        "bitset_member_count_kernel")
+    query = T.get_query("4-cycle")
+    out["count_4cycle_hybrid_walls_s"] = walls(lambda: T.count(query, hdb),
+                                               reps)
+    cs.profile_count(T, hdb, "4-cycle", db_name="hybrid")
+    return out
+
+
 def flash_shapes(cs) -> dict:
-    """Device time of the tree's flash route at the two models' prefill
-    shapes in bf16, causal, on (B, T, H, D) tensors seen as (B, H, T, D),
-    as prefill passes them: chatglm3-6b's (B 4, 32 query and 2 KV heads
-    of 128, T 2048) first, then stablelm-3b's (32 query and 32 KV heads
-    of 80)."""
+    """Device time of the tree's flash route, causal, on (B, T, H, D)
+    tensors seen as (B, H, T, D), as prefill passes them: in bf16 at
+    chatglm3-6b's prefill shape (B 4, 32 query and 2 KV heads of 128,
+    T 2048), at stablelm-3b's (32 query and 32 KV heads of 80) and at
+    stablelm-3b's with heads of 72; then in f32 at chatglm3-6b's."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import route
     g = torch.Generator(device="cuda").manual_seed(cs.SEED)
     out = {}
-    for name, hq, hkv, d in (("chatglm", 32, 2, 128),
-                             ("stablelm", 32, 32, 80)):
+    for name, hq, hkv, d, dtype in (
+            ("chatglm", 32, 2, 128, torch.bfloat16),
+            ("stablelm", 32, 32, 80, torch.bfloat16),
+            ("stablelm_d72", 32, 32, 72, torch.bfloat16),
+            ("chatglm_f32", 32, 2, 128, torch.float32)):
         q, k, v = (torch.randn((cs.LM_BATCH, cs.LM_PROMPT, h, d),
                                generator=g, device="cuda"
-                               ).to(torch.bfloat16).transpose(1, 2)
+                               ).to(dtype).transpose(1, 2)
                    for h in (hq, hkv, hkv))
         path = route(q.device, q.dtype, d)
-        kernel = ("flash_attention_tc_kernel" if path == "tc"
-                  else "flash_attention_kernel")
         out[f"flash_{name}_route"] = path
         out[f"flash_{name}_ms"] = cs.device_ms(
             lambda: ops.flash_attention(q, k, v), 20 if path == "tc" else 5,
-            kernel)
+            FLASH_KERNELS[path])
+        del q, k, v
     return out
 
 
