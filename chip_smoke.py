@@ -25,7 +25,16 @@ streams and strided views) and the rest on mma.sync
 sweep, bf16 at D 72, 40 and 8 at stablelm-3b's shape, and a sweep of
 off-grid head dims in both dtypes, strided and offset views among
 them).  The two lines count the ``HGMMA`` and ``HMMA`` instructions in
-the built library's SASS where ``cuobjdump`` exists.
+the built library's SASS where ``cuobjdump`` exists.  The segment outer
+product runs at MACE's widths (131,072 nodes, 6,621,401 edges, C 128,
+M 9) on uniform and powerlaw destinations, in float32 and bf16 (each
+held at 2e-4 on the same tensors: bf16 products round alike), two calls
+bit-identical, its time the sum of its three kernels (the pass over
+edge ranges, the merge of partial rows, the zero rows of edgeless
+nodes), beside its pre-redesign time; then on its edge cases (one node,
+one edge per node, empty nodes, hubs on range boundaries, E = te, all
+padding, wide and narrow C and M in f32, bf16 and f16, mixed types, and
+130,048 edgeless nodes among 131,072, timed beside its bound).
 Then it drives the port's paths on the
 ``soc-Slashdot0811``-like graph (77,360 nodes, 1,778,854 directed edges)
 as a plain ``GraphDB`` and as a ``HybridGraphDB``, each path with the
@@ -140,6 +149,15 @@ PREVIOUS_BITSET_MASK_MS = 0.0194
 PREVIOUS_BITSET_COUNT_MS = 0.0053
 PREVIOUS_SIMT_F32_MS = 8.832
 PREVIOUS_SIMT_BF16_MS = 5.330
+#: the segment outer product's device time before its redesign (f32 at
+#: MACE's widths, uniform and powerlaw dst), by this script on an NVIDIA
+#: H100 80GB HBM3 at 700 W (the PERF.md kernel table), printed as
+#: ``previous_ms``
+PREVIOUS_OUTER_MS = {"uniform": 8.265, "powerlaw": 128.2}
+#: the segment outer product's kernel functions: the pass over the edge
+#: ranges, the merge of partial rows and the zero rows of edgeless nodes
+OUTER_KERNELS = ("segment_outer_kernel", "segment_outer_merge_kernel",
+                 "segment_outer_gap_kernel")
 
 
 #: what a run drives, in order: the kernels against their plain versions,
@@ -194,15 +212,21 @@ def device_us(e) -> float:
                    getattr(e, "self_cuda_time_total", 0))
 
 
-def device_ms(fn, reps: int, kernel: str) -> float:
+def device_ms(fn, reps: int, kernel: str, *more: str) -> float:
     """Device time of one launch of the CUDA kernel named ``kernel`` (its
     function name in ``csrc/``), from ``torch.profiler`` over ``reps``
     calls of ``fn``: the kernel's own time, averaged over the launches
     the profiler recorded, without the host's dispatch between launches
     that ``cuda_ms`` includes when a call's host work outlasts its kernel.
-    Fails if the profiler records no launch of it, twice."""
+    The kernels named in ``more`` (launched with it, as a second pass)
+    add their time to it.  Fails if the profiler records no launch of
+    ``kernel``, twice."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    def named(e, names):
+        return any(f"::{k}(" in e.key or f"::{k}<" in e.key for k in names)
+
     fn()
     torch.cuda.synchronize()
     for _ in range(2):
@@ -210,11 +234,11 @@ def device_ms(fn, reps: int, kernel: str) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        hits = [e for e in prof.key_averages()
-                if f"::{kernel}(" in e.key or f"::{kernel}<" in e.key]
-        n = sum(e.count for e in hits)
+        events = prof.key_averages()
+        n = sum(e.count for e in events if named(e, (kernel,)))
         if n:
-            return sum(device_us(e) for e in hits) / 1e3 / n
+            return sum(device_us(e) for e in events
+                       if named(e, (kernel, *more))) / 1e3 / n
     raise SmokeFailure(f"the profiler recorded no launch of {kernel}")
 
 
@@ -972,14 +996,13 @@ def flash_mma_sweep(randn) -> list:
 
 
 def kernel_phase_lm():
-    """The flash-attention and segment-outer kernels against their plain
-    versions on the same CUDA tensors, at the shapes their paths give
-    them; then timed, with the library call where PyTorch has one."""
+    """The flash-attention kernels against their plain versions on the
+    same CUDA tensors, at the shapes their paths give them; then timed,
+    with the library call where PyTorch has one."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels.flash_attention import _launch_mma, route
-    from repro_torch.kernels.segment_outer import block_tile_starts
     g = torch.Generator(device="cuda").manual_seed(SEED)
     out = {}
     bf = torch.bfloat16
@@ -1195,55 +1218,230 @@ def kernel_phase_lm():
         flops / out["flash_attention_mma"]["ms"] / 1e9)
     del q, k, v, qc, kc, vc, o
 
-    # segment_outer at MACE's widths, dst uniform and powerlaw (n u^3)
+    return {name: (bound_3xtf32(k) if name == "flash_attention_mma"
+                   else bound(k)) for name, k in out.items()}
+
+
+def outer_dst(g, dist: str, n: int, e_real: int, e: int):
+    """dst of the segment-outer line: ``e_real`` edges on ``n`` nodes,
+    uniform (n u) or powerlaw (n u^3), sorted and padded with ``n`` to
+    ``e``; and the real edges' nodes."""
+    import torch
+    u = torch.rand(e_real, generator=g, device="cuda", dtype=torch.float64)
+    real = (n * (u if dist == "uniform" else u ** 3)).long().clamp(max=n - 1)
+    dst = torch.full((e,), n, dtype=torch.int32, device="cuda")
+    dst[:e_real] = torch.sort(real).values.int()
+    return dst, real
+
+
+def outer_case(msg, basis, dst, n: int, what: str) -> float:
+    """``ops.segment_outer`` (bn 8, te 128) against its plain version at
+    2e-4 on the same tensors; returns the max abs error."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.segment_outer import block_tile_starts
+    bt, n_tiles = block_tile_starts(dst.cpu().numpy(), n, OUTER_BN, OUTER_TE)
+    a = ops.segment_outer(msg, basis, dst, bt, n, n_tiles, OUTER_BN, OUTER_TE)
+    torch.cuda.synchronize()
+    need(a.shape == (n, msg.shape[1], basis.shape[1])
+         and a.dtype == torch.float32,
+         f"segment_outer ({what}): shape {tuple(a.shape)} {a.dtype}")
+    err, ok = allclose_err(a, ref.segment_outer_ref(msg, basis, dst, n), 2e-4)
+    need(ok, f"segment_outer ({what}) disagrees with its plain version "
+         f"beyond 2e-4 (max abs err {err})")
+    return err
+
+
+def outer_edges(g, randn) -> dict:
+    """The segment outer product against its plain version at 2e-4 off
+    the main shape: every edge on one node (E = 2^17), one edge per node,
+    runs between empty nodes, a hub that starts on a range boundary and
+    one that ends on one (at the ranges the kernel picks for that E), E =
+    te, all padding, dst above n_nodes, C*M = 128 x 64 (above the old
+    shared-memory cap; eight column passes), C 300 (three channel
+    passes), M 80 (ten column passes), C 3 and M 5 (off the vector width)
+    in f32 and bf16, M 4 and M 2 (a pass of 8 columns, those past M
+    masked) in f32, bf16 and f16, M 16 in f16 (two passes), f16 and
+    mixed bf16 x f32; then the edges of 1,024 nodes written among 131,072
+    (130,048 zero rows), checked and timed beside its bound.  Returns
+    the max abs error per case, and the timed case's line."""
+    import torch
+    from repro_torch.kernels.segment_outer import plan
+    c, m, bf = OUTER_C, OUTER_M, torch.bfloat16
+
+    def sorted_dst(n, e, lo=0, hi=None):
+        hi = n if hi is None else hi
+        return torch.sort(torch.randint(lo, hi, (e,), generator=g,
+                                        device="cuda")).values.int()
+
+    def case(what, e, n, dst, cc=c, mm=m, dtype=torch.float32,
+             basis_dtype=None):
+        msg = randn(e, cc, dtype=dtype)
+        basis = randn(e, mm, dtype=basis_dtype or dtype)
+        errs[what] = outer_case(msg, basis, dst, n, what)
+
+    errs = {}
+    e = 1 << 17
+    full = torch.full
+    case("every edge on one node", e, 64, full((e,), 37, dtype=torch.int32,
+                                               device="cuda"))
+    case("one edge per node", e, e, torch.arange(e, dtype=torch.int32,
+                                                 device="cuda"))
+    case("runs between empty nodes", 1 << 16, 4096,
+         2 * sorted_dst(2048, 1 << 16))
+    r = plan(e, c, m, torch.float32, "cuda")[0]
+    n = 1024
+    hub = full((5 * r + 7,), 500, dtype=torch.int32, device="cuda")
+    case("hub from a range boundary", e, n, torch.cat(
+        [sorted_dst(n, 3 * r, hi=500), hub,
+         sorted_dst(n, e - 8 * r - 7, lo=501)]))
+    hub = full((5 * r - 5,), 500, dtype=torch.int32, device="cuda")
+    case("hub to a range boundary", e, n, torch.cat(
+        [sorted_dst(n, r + 5, hi=500), hub, sorted_dst(n, e - 6 * r,
+                                                       lo=501)]))
+    errs["range_edges"] = r
+    case("E = te", OUTER_TE, 16, sorted_dst(16, OUTER_TE))
+    case("all padding", 256, 64, full((256,), 64, dtype=torch.int32,
+                                      device="cuda"))
+    case("dst above n_nodes", 1 << 14, 512, torch.cat(
+        [sorted_dst(512, (1 << 14) - 300), full((300,), 700,
+                                                dtype=torch.int32,
+                                                device="cuda")]))
+    case("C*M 128 x 64", 1 << 14, 512, sorted_dst(512, 1 << 14), mm=64)
+    case("C 300", 1 << 14, 512, sorted_dst(512, 1 << 14), cc=300)
+    case("M 80", 1 << 14, 512, sorted_dst(512, 1 << 14), cc=16, mm=80)
+    case("C 3, M 5", 1 << 14, 512, sorted_dst(512, 1 << 14), cc=3, mm=5)
+    case("C 3, M 5, bf16", 1 << 14, 512, sorted_dst(512, 1 << 14), cc=3,
+         mm=5, dtype=bf)
+    for mm in (4, 2):
+        for name, dtype in (("f32", torch.float32), ("bf16", bf),
+                            ("f16", torch.float16)):
+            case(f"M {mm}, {name}", 1 << 14, 512, sorted_dst(512, 1 << 14),
+                 mm=mm, dtype=dtype)
+    case("M 16, f16", 1 << 14, 512, sorted_dst(512, 1 << 14), mm=16,
+         dtype=torch.float16)
+    dst, _ = outer_dst(g, "powerlaw", 4096, 1 << 16, 1 << 16)
+    case("f16", 1 << 16, 4096, dst, dtype=torch.float16)
+    case("mixed bf16 x f32", 1 << 16, 4096, dst, dtype=bf,
+         basis_dtype=torch.float32)
+    errs["large gap"] = outer_gap_case(g, randn)
+    return errs
+
+
+def outer_gap_case(g, randn) -> dict:
+    """At MACE's widths, 2^17 edges on the first 1,024 of 131,072 nodes:
+    the other 130,048 output rows are zero rows of edgeless nodes (0.6 GB
+    of the 0.67 GB written), which the gap kernel spreads over the card.
+    Against the plain version at 2e-4, then timed (all the call's
+    kernels) beside its bytes bound."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.segment_outer import block_tile_starts
+    e, n, hot = 1 << 17, OUTER_NODES, 1024
+    dst = torch.sort(torch.randint(0, hot, (e,), generator=g,
+                                   device="cuda")).values.int()
+    msg, basis = randn(e, OUTER_C), randn(e, OUTER_M)
+    err = outer_case(msg, basis, dst, n, "large gap")
+    bt, n_tiles = block_tile_starts(dst.cpu().numpy(), n, OUTER_BN, OUTER_TE)
+    nbytes = (msg.nbytes + basis.nbytes + dst.nbytes
+              + 4 * n * OUTER_C * OUTER_M)
+    ms = device_ms(lambda: ops.segment_outer(msg, basis, dst, bt, n, n_tiles,
+                                             OUTER_BN, OUTER_TE), 5,
+                   *OUTER_KERNELS)
+    gap_ms = device_ms(lambda: ops.segment_outer(msg, basis, dst, bt, n,
+                                                 n_tiles, OUTER_BN,
+                                                 OUTER_TE), 5,
+                       OUTER_KERNELS[2])
+    bound_ms = 1e3 * nbytes / PEAK_BYTES_S
+    return dict(max_abs_err=err, ms=ms, gap_ms=gap_ms, bytes=nbytes,
+                bound_ms=bound_ms, bound_share=bound_ms / ms)
+
+
+def kernel_phase_outer():
+    """The segment outer product at MACE's widths (131,072 nodes at
+    ogb_products' mean degree, C 128, M 9) on uniform and powerlaw dst, in
+    float32 and bf16: against its plain version at 2e-4, two calls
+    bit-identical, then timed (the three kernels of a call: the pass
+    over the edge ranges, the merge of partial rows and the zero rows of
+    edgeless nodes); then its edge cases."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.segment_outer import block_tile_starts, plan
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
     n = OUTER_NODES
     e_real = round(n * OUTER_DEGREE)
     e = -(-e_real // OUTER_TE) * OUTER_TE
+    out_bytes = 4 * n * OUTER_C * OUTER_M
     msg = randn(e, OUTER_C)
     basis = randn(e, OUTER_M)
     msg[e_real:] = 0
     basis[e_real:] = 0
+    inputs = {"f32": (msg, basis),
+              "bf16": (msg.to(torch.bfloat16), basis.to(torch.bfloat16))}
     lines = {}
     for dist in ("uniform", "powerlaw"):
-        u = torch.rand(e_real, generator=g, device="cuda", dtype=torch.float64)
-        real = (n * (u if dist == "uniform" else u ** 3)).long().clamp(max=n - 1)
-        dst = torch.full((e,), n, dtype=torch.int32, device="cuda")
-        dst[:e_real] = torch.sort(real).values.int()
+        dst, real = outer_dst(g, dist, n, e_real, e)
         bt, n_tiles = block_tile_starts(dst.cpu().numpy(), n, OUTER_BN,
                                         OUTER_TE)
-        args = (msg, basis, dst, bt, n, n_tiles, OUTER_BN, OUTER_TE)
-        a = ops.segment_outer(*args)
-        torch.cuda.synchronize()
-        err, ok = allclose_err(a, ref.segment_outer_ref(msg, basis, dst, n),
-                               2e-4)
-        need(ok, f"segment_outer ({dist}) disagrees with its plain version "
-             f"beyond 2e-4 (max abs err {err})")
-        lines[dist] = dict(
-            n_tiles=n_tiles, max_abs_err=err,
-            max_block_edges=int(torch.bincount(real // OUTER_BN).max()),
-            ms=device_ms(lambda: ops.segment_outer(*args), 5,
-                         "segment_outer_kernel"),
-            event_ms=cuda_ms(lambda: ops.segment_outer(*args), 5),
-            plain_ms=cuda_ms(lambda: ref.segment_outer_ref(msg, basis, dst,
-                                                           n), 2))
-        del a
-    uni = lines["uniform"]
-    out["segment_outer"] = dict(
+        line = lines[dist] = dict(
+            n_tiles=n_tiles,
+            max_node_edges=int(torch.bincount(real).max()),
+            max_block_edges=int(torch.bincount(real // OUTER_BN).max()))
+        for dtype, (mm, bb) in inputs.items():
+            args = (mm, bb, dst, bt, n, n_tiles, OUTER_BN, OUTER_TE)
+            a = ops.segment_outer(*args)
+            a2 = ops.segment_outer(*args)
+            torch.cuda.synchronize()
+            need(torch.equal(a, a2), f"segment_outer ({dist}, {dtype}): two "
+                 "calls differ")
+            err, ok = allclose_err(a, ref.segment_outer_ref(mm, bb, dst, n),
+                                   2e-4)
+            need(ok, f"segment_outer ({dist}, {dtype}) disagrees with its "
+                 f"plain version beyond 2e-4 (max abs err {err})")
+            del a, a2
+            nbytes = mm.nbytes + bb.nbytes + dst.nbytes + out_bytes
+            line[dtype] = dict(
+                max_abs_err=err, bit_identical=True,
+                ranges=plan(e, OUTER_C, OUTER_M, mm.dtype, "cuda"),
+                ms=device_ms(lambda: ops.segment_outer(*args), 5,
+                             *OUTER_KERNELS),
+                merge_ms=device_ms(lambda: ops.segment_outer(*args), 5,
+                                   OUTER_KERNELS[1]),
+                gap_ms=device_ms(lambda: ops.segment_outer(*args), 5,
+                                 OUTER_KERNELS[2]),
+                event_ms=cuda_ms(lambda: ops.segment_outer(*args), 5),
+                plain_ms=cuda_ms(lambda: ref.segment_outer_ref(mm, bb, dst,
+                                                               n), 2),
+                bytes=nbytes, bound_ms=1e3 * nbytes / PEAK_BYTES_S)
+            line[dtype]["bound_share"] = (line[dtype]["bound_ms"]
+                                          / line[dtype]["ms"])
+        line["f32"]["previous_ms"] = PREVIOUS_OUTER_MS[dist]
+        del dst, real
+    del inputs
+    edges = outer_edges(g, randn)
+    uni = lines["uniform"]["f32"]
+    k = dict(
         source="src/repro_torch/csrc/segment_outer.cu",
         replaces="src/repro/kernels/segment_outer.py:72",
-        shape=f"msg ({e}, {OUTER_C}) f32, basis ({e}, {OUTER_M}), "
+        shape=f"msg ({e}, {OUTER_C}), basis ({e}, {OUTER_M}), "
               f"{e_real} real edges on {n} nodes, bn {OUTER_BN}, "
-              f"te {OUTER_TE}; figures of the uniform dst, both in by_dst",
-        max_abs_err=max(x["max_abs_err"] for x in lines.values()),
-        tolerance=2e-4, by_dst=lines, ms=uni["ms"], plain_ms=uni["plain_ms"],
+              f"te {OUTER_TE}; figures of f32 on the uniform dst, all in "
+              "by_dst",
+        max_abs_err=max(x[d]["max_abs_err"] for x in lines.values()
+                        for d in ("f32", "bf16")),
+        tolerance=2e-4, by_dst=lines, edge_cases=edges, ms=uni["ms"],
+        event_ms=uni["event_ms"], plain_ms=uni["plain_ms"],
+        previous_ms=uni["previous_ms"],
         library_ms=None, library_call="none: no single PyTorch call",
         flops_model="2 C M per real edge", flops=2 * e_real * OUTER_C * OUTER_M,
-        flops_type="fp32",
-        bytes=msg.nbytes + basis.nbytes + 4 * e + 4 * n * OUTER_C * OUTER_M)
+        flops_type="fp32", bytes=uni["bytes"])
     del msg, basis
     torch.cuda.empty_cache()
-    return {name: (bound_3xtf32(k) if name == "flash_attention_mma"
-                   else bound(k)) for name, k in out.items()}
+    return {"segment_outer": bound(k)}
 
 
 def gpu_profile(fn, what: str) -> dict:
@@ -1867,7 +2065,7 @@ def main(argv=None) -> int:
     if "kernels" in phases:
         for phase in (lambda: kernel_phase(T, db, hdb),
                       lambda: kernel_phase_intersect(T, db, hdb),
-                      kernel_phase_lm):
+                      kernel_phase_lm, kernel_phase_outer):
             lines = phase()
             for name, k in lines.items():
                 log(f"kernel {name}: {json.dumps(k)}")

@@ -55,7 +55,9 @@ SIGNATURES = {
         _P, _P, _P, _P, *(_I64,) * 15, ctypes.c_float, _I32, _I32, _I32, _P),
     "flash_attention_tc_launch": (
         _P, _P, _P, _P, *(_I64,) * 15, ctypes.c_float, _I32, _P),
-    "segment_outer_launch": (_P, _P, _P, _P, *(_I64,) * 7, _P, _P),
+    "segment_outer_plan": (_I64, _I64, _I64, _I32, _P),
+    "segment_outer_launch": (_P, _P, _P, *(_I64,) * 7, _I32, _P, _P, _P,
+                             _P),
 }
 
 #: kernel name -> launches since the last reset_launches()

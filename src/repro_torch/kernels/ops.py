@@ -19,6 +19,7 @@ from .intersect_bitset import (bitset_intersect_count_cuda,
 from .searchsorted import searchsorted_segments_cuda
 from .segment_outer import DEF_BN, DEF_TE, segment_outer_cuda
 from .segment_outer import check_shapes as _segment_outer_shapes
+from .segment_outer import promote as _segment_outer_promote
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -113,9 +114,16 @@ def segment_outer(msg, basis, dst, block_tile0, n_nodes: int, n_tiles: int,
                   bn: int = DEF_BN, te: int = DEF_TE):
     """Segment-sum of per-edge outer products over dst-sorted edges, the
     arguments of ``segment_outer_pallas``; see
-    :func:`kernels.ref.segment_outer_ref`.  Both paths raise where the
-    JAX function asserts (E % te == 0, n_nodes % bn == 0)."""
+    :func:`kernels.ref.segment_outer_ref`.  Both paths take what the JAX
+    function takes (any real msg and basis types; any C and M;
+    ``block_tile0`` and ``n_tiles`` unused) and raise where it asserts
+    (E % te == 0, n_nodes % bn == 0).  Both form the products in the type
+    the kernel runs (:func:`kernels.segment_outer.promote`: the pair's
+    promotion where it is float32, bf16 or f16, else float32), so the two
+    paths agree on integer and float64 inputs too, and sum in float32 or
+    wider."""
     _segment_outer_shapes(msg, basis, dst, n_nodes, bn, te)
+    msg, basis = _segment_outer_promote(msg, basis)
     if _on_cpu(msg):
         return _ref.segment_outer_ref(msg, basis, dst, n_nodes)
     return segment_outer_cuda(msg, basis, dst, block_tile0, n_nodes, n_tiles,

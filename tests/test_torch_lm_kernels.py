@@ -9,6 +9,9 @@ output), 2e-4 for the segment outer product (its sums run in another
 order than ``segment_sum``'s).  The CUDA kernels run only on the card;
 ``chip_smoke.py`` holds them against these same plain versions there.
 """
+import ctypes
+import re
+
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -28,7 +31,8 @@ from repro_torch.kernels.flash_attention import (copy_width,
                                                  flash_attention_cuda,
                                                  route, tma_geometry)
 from repro_torch.kernels.segment_outer import (block_tile_starts,
-                                               segment_outer_cuda)
+                                               padded_channels, pass_basis,
+                                               promote, segment_outer_cuda)
 
 # the port's CPU tensors here are small: one intra-op thread per test
 # process keeps parallel test workers from oversubscribing the cores
@@ -319,22 +323,183 @@ def _outer_inputs(dist, c, m, seed):
     return msg, basis, dstp, n, bn, te
 
 
+#: segment-outer input types: one type for both, or msg*basis
+OUTER_NP = {"float32": np.float32, "bfloat16": ml_dtypes.bfloat16,
+            "float16": np.float16, "float64": np.float64, "int32": np.int32}
+OUTER_TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+               "float16": torch.float16, "float64": torch.float64,
+               "int32": torch.int32}
+
+
+def _outer_typed(msg, basis, types):
+    """msg and basis rounded to the pair ``types`` ("bfloat16" or
+    "bfloat16*float32") once, as numpy arrays for JAX and as tensors."""
+    tm, tb = (types.split("*") * 2)[:2]
+    arrs = (msg.astype(OUTER_NP[tm]), basis.astype(OUTER_NP[tb]))
+    tens = tuple(torch.from_numpy(a.astype(np.float64)).to(OUTER_TORCH[t])
+                 for a, t in zip(arrs, (tm, tb)))
+    return arrs, tens
+
+
+@pytest.mark.parametrize("types", ["float32", "bfloat16", "float16",
+                                   "bfloat16*float32"])
 @pytest.mark.parametrize("dist", ["uniform", "powerlaw", "one_block",
                                   "empty"])
 @pytest.mark.parametrize("c,m", [(32, 16), (64, 8)])
-def test_segment_outer_plain_matches_pallas_and_ref(dist, c, m):
+def test_segment_outer_plain_matches_pallas_and_ref(dist, c, m, types):
+    """In every input type the JAX function takes for MACE (bf16 and f16
+    products rounded to the type, then summed in float32; mixed bf16 x
+    f32 promoted to f32), at the JAX package's 2e-4."""
     msg, basis, dstp, n, bn, te = _outer_inputs(dist, c, m, seed=1)
+    (nm, nb), (tm, tb) = _outer_typed(msg, basis, types)
     bt, n_tiles = block_tile_starts(dstp, n, bn, te)
-    got = ops.segment_outer(torch.from_numpy(msg), torch.from_numpy(basis),
-                            torch.from_numpy(dstp), bt, n, n_tiles, bn, te)
+    got = ops.segment_outer(tm, tb, torch.from_numpy(dstp), bt, n, n_tiles,
+                            bn, te)
     assert got.shape == (n, c, m) and got.dtype == torch.float32
-    jm, jb, jd = jnp.asarray(msg), jnp.asarray(basis), jnp.asarray(dstp)
-    for want in (segment_outer_pallas(jm, jb, jd, bt, n_nodes=n,
-                                      n_tiles=n_tiles, bn=bn, te=te),
-                 j_outer_ref(jm, jb, jd, n)):
+    jm, jb, jd = jnp.asarray(nm), jnp.asarray(nb), jnp.asarray(dstp)
+    wants = [segment_outer_pallas(jm, jb, jd, bt, n_nodes=n, n_tiles=n_tiles,
+                                  bn=bn, te=te)]
+    if jnp.result_type(jm, jb) == jnp.float32:  # the jnp oracle sums in it
+        wants.append(j_outer_ref(jm, jb, jd, n))
+    for want in wants:
         assert_allclose(got.numpy(), np.asarray(want), atol=2e-4, rtol=2e-4)
     if dist == "empty":
         assert not got.any()
+
+
+@pytest.mark.parametrize("types", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dist", ["uniform", "powerlaw"])
+def test_segment_outer_plain_matches_pallas_at_c128_m64(dist, types):
+    """C*M = 128 x 64, which the card's kernel refused before its
+    redesign (a node block's (bn, C*M) sums did not fit in shared
+    memory), against the Pallas kernel at 2e-4."""
+    msg, basis, dstp, n, bn, te = _outer_inputs(dist, 128, 64, seed=5)
+    (nm, nb), (tm, tb) = _outer_typed(msg, basis, types)
+    bt, n_tiles = block_tile_starts(dstp, n, bn, te)
+    got = ops.segment_outer(tm, tb, torch.from_numpy(dstp), bt, n, n_tiles,
+                            bn, te)
+    want = segment_outer_pallas(jnp.asarray(nm), jnp.asarray(nb),
+                                jnp.asarray(dstp), bt, n_nodes=n,
+                                n_tiles=n_tiles, bn=bn, te=te)
+    assert got.shape == (n, 128, 64)
+    assert_allclose(got.numpy(), np.asarray(want), atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("types,want", [
+    ("float32", "float32"), ("bfloat16", "bfloat16"), ("float16", "float16"),
+    ("bfloat16*float32", "float32"), ("float32*bfloat16", "float32"),
+    ("float16*float32", "float32"), ("bfloat16*float16", "float32"),
+    ("float64*float32", "float32"), ("int32", "float32")])
+def test_segment_outer_promotes_as_jax(types, want):
+    """The wrapper runs the pair in JAX's promotion of it where that is a
+    type the kernel takes (f32, bf16, f16), else in float32."""
+    (nm, nb), (tm, tb) = _outer_typed(np.ones((8, 3), np.float32),
+                                      np.ones((8, 2), np.float32), types)
+    pm, pb = promote(tm, tb)
+    assert pm.dtype == pb.dtype == OUTER_TORCH[want]
+    jax_type = str(jnp.result_type(jnp.asarray(nm), jnp.asarray(nb)))
+    if jax_type in ("float32", "bfloat16", "float16"):
+        assert jax_type == want
+
+
+@pytest.mark.parametrize("types", ["int32", "float64", "int32*float32"])
+def test_segment_outer_plain_path_runs_the_kernels_types(types):
+    """The router promotes before it routes, so the plain path forms the
+    products in the type the card's kernel runs (float32 for integers
+    and float64), and the two paths agree: here integer products above
+    2^24, which int32 and float32 products round differently."""
+    e, n, bn, te = 128, 16, 8, 64
+    rng = np.random.default_rng(7)
+    dstp = np.sort(rng.integers(0, n, e)).astype(np.int32)
+    msg = rng.integers(4000, 9000, (e, 3)).astype(np.float64)
+    basis = rng.integers(4000, 9000, (e, 5)).astype(np.float64)
+    _, (tm, tb) = _outer_typed(msg, basis, types)
+    bt, n_tiles = block_tile_starts(dstp, n, bn, te)
+    dst = torch.from_numpy(dstp)
+    got = ops.segment_outer(tm, tb, dst, bt, n, n_tiles, bn, te)
+    pm, pb = promote(tm, tb)
+    assert pm.dtype == pb.dtype == torch.float32
+    assert torch.equal(got, ref.segment_outer_ref(pm, pb, dst, n))
+
+
+@pytest.mark.parametrize("m,width,passes", [(9, 9, 1), (5, 5, 1),
+                                            (16, 8, 2), (20, 8, 3)])
+def test_pass_basis_lays_out_a_column_pass_at_a_time(m, width, passes):
+    """Where M takes more than one column pass, the kernel reads basis
+    as (passes, E, width), the columns past M zero; else as it is."""
+    basis = torch.arange(6 * m, dtype=torch.float32).reshape(6, m)
+    got = pass_basis(basis, width)
+    if passes == 1:
+        assert got is basis
+        return
+    assert got.shape == (passes, 6, width) and got.is_contiguous()
+    for p in range(passes):
+        cols = basis[:, p * width:(p + 1) * width]
+        assert torch.equal(got[p, :, :cols.shape[1]], cols)
+        assert not got[p, :, cols.shape[1]:].any()
+
+
+@pytest.mark.parametrize("types", ["float32", "bfloat16", "float16",
+                                   "bfloat16*float32", "float16*bfloat16",
+                                   "float64*float32", "int32"])
+@pytest.mark.parametrize("e,n", [(128, 16), (130, 16), (128, 12)])
+def test_segment_outer_cuda_raises_only_where_jax_asserts(types, e, n):
+    """At C 3 and M 5 (off the kernel's vector width) in every input
+    type: the JAX function asserts E % te == 0 and n_nodes % bn == 0 and
+    nothing else; the card's wrapper raises on exactly those, and
+    otherwise gets as far as asking for a CUDA tensor (it takes any
+    block_tile0: the kernel does not read it)."""
+    bn, te = 8, 64
+    rng = np.random.default_rng(6)
+    dstp = np.sort(rng.integers(0, n, e)).astype(np.int32)
+    (nm, nb), (tm, tb) = _outer_typed(
+        rng.standard_normal((e, 3)).astype(np.float32),
+        rng.standard_normal((e, 5)).astype(np.float32), types)
+    ok = e % te == 0 and n % bn == 0
+    bt = np.zeros(-(-n // bn), np.int32)
+    args = (jnp.asarray(nm), jnp.asarray(nb), jnp.asarray(dstp), bt)
+    if ok:
+        bt, n_tiles = block_tile_starts(dstp, n, bn, te)
+        out = segment_outer_pallas(*args[:3], bt, n_nodes=n, n_tiles=n_tiles,
+                                   bn=bn, te=te)
+        assert out.shape == (n, 3, 5) and out.dtype == jnp.float32
+    else:
+        with pytest.raises(AssertionError, match="pad"):
+            segment_outer_pallas(*args, n_nodes=n, n_tiles=1, bn=bn, te=te)
+    with pytest.raises(ValueError, match="CUDA device" if ok else "pad"):
+        segment_outer_cuda(tm, tb, torch.from_numpy(dstp), bt[:1], n, 1, bn,
+                           te)
+
+
+@pytest.mark.parametrize("dtype,c,want", [
+    (torch.float32, 128, 128), (torch.float32, 3, 4), (torch.float32, 300,
+                                                       300),
+    (torch.bfloat16, 128, 128), (torch.bfloat16, 3, 8),
+    (torch.float16, 9, 16)])
+def test_segment_outer_pads_channels_to_16_bytes(dtype, c, want):
+    assert padded_channels(c, dtype) == want
+
+
+def test_c_signatures_of_the_segment_outer_product():
+    """The launch takes the dtype code (an int) and the output's, the
+    partial rows', the node marks' and the stream's pointers last; the
+    plan takes the dtype code and writes through a pointer; each declared
+    so in ctypes."""
+    text = (build.CSRC / "segment_outer.cu").read_text()
+
+    def params(fn):
+        found = re.search(rf'extern "C" int {fn}\(([^)]*)\)', text).group(1)
+        return [x.split()[-1].lstrip("*") for x in found.split(",")]
+
+    names = params("segment_outer_launch")
+    assert names[10:] == ["dtype", "out", "partial", "seen", "stream"]
+    sig = build.SIGNATURES["segment_outer_launch"]
+    assert len(sig) == len(names) and sig[10] is ctypes.c_int
+    assert all(t is ctypes.c_void_p for t in sig[:3] + sig[11:])
+    names = params("segment_outer_plan")
+    assert names == ["e", "cp", "m", "dtype", "out"]
+    sig = build.SIGNATURES["segment_outer_plan"]
+    assert sig[3] is ctypes.c_int and sig[4] is ctypes.c_void_p
 
 
 def test_segment_outer_plain_in_chunks():

@@ -31,7 +31,13 @@ commit) on one CUDA device, with the measuring code of this checkout's
   72 in bf16, and at the f32 path shape (chatglm3-6b's heads in f32), the
   device time of the kernel the tree routes each to;
 * ``lm``: stablelm-3b at full width and depth in bf16, seeded weights,
-  one 4 x 2048 prefill timed after a warm-up, and one profiled.
+  one 4 x 2048 prefill timed after a warm-up, and one profiled;
+* ``outer``: ``ops.segment_outer`` at the chip_smoke.py segment-outer
+  line's shape (MACE's widths: 131,072 nodes, 6,621,401 edges, C 128,
+  M 9), uniform and powerlaw dst, in float32 and bf16, the device time of
+  the tree's kernels for one call (a tree whose wrapper refuses bf16
+  reports the refusal); then chip_smoke.py's large-gap case (2^17 edges
+  on 1,024 of 131,072 nodes, so 130,048 zero rows) in float32.
 
 The graph parts use the ``soc-Slashdot0811``-like graph at full scale as
 a plain and a hybrid db.  Prints one JSON line per measurement and a
@@ -56,7 +62,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent.parent
 PARTS = ("search", "main", "cycle4", "tile", "auto", "bitset", "flash",
-         "lm")
+         "lm", "outer")
 #: the kernel function each flash route launches, by route name
 FLASH_KERNELS = {"tc": "flash_attention_tc_kernel",
                  "mma": "flash_attention_mma_kernel",
@@ -181,6 +187,9 @@ def main() -> int:
     if "lm" in parts:
         out.update(stablelm_prefill(cs))
 
+    if "outer" in parts:
+        out.update(outer_shapes(cs))
+
     print(json.dumps(out), flush=True)
     return 0
 
@@ -243,6 +252,57 @@ def flash_shapes(cs) -> dict:
             lambda: ops.flash_attention(q, k, v), 20 if path == "tc" else 5,
             FLASH_KERNELS[path])
         del q, k, v
+    return out
+
+
+def outer_shapes(cs) -> dict:
+    """Device time of the tree's segment-outer kernels for one call of
+    ``ops.segment_outer`` at the chip_smoke.py line's shape, on uniform
+    and powerlaw dst (the same draws as that line), in float32 and bf16."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.segment_outer import block_tile_starts
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    n = cs.OUTER_NODES
+    e_real = round(n * cs.OUTER_DEGREE)
+    e = -(-e_real // cs.OUTER_TE) * cs.OUTER_TE
+    msg = torch.randn((e, cs.OUTER_C), generator=g, device="cuda")
+    basis = torch.randn((e, cs.OUTER_M), generator=g, device="cuda")
+    msg[e_real:] = 0
+    basis[e_real:] = 0
+    out = {}
+    for dist in ("uniform", "powerlaw"):
+        dst, _ = cs.outer_dst(g, dist, n, e_real, e)
+        bt, n_tiles = block_tile_starts(dst.cpu().numpy(), n, cs.OUTER_BN,
+                                        cs.OUTER_TE)
+        for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            mm, bb = msg.to(dtype), basis.to(dtype)
+
+            def call():
+                return ops.segment_outer(mm, bb, dst, bt, n, n_tiles,
+                                         cs.OUTER_BN, cs.OUTER_TE)
+
+            key = f"outer_{dist}_{name}_ms"
+            try:
+                call()
+            except ValueError as err:  # a tree that takes float32 only
+                out[key] = f"refused: {err}"
+                continue
+            out[key] = cs.device_ms(call, 5, *cs.OUTER_KERNELS)
+            del mm, bb
+    del msg, basis
+    e, hot = 1 << 17, 1024
+    dst = torch.sort(torch.randint(0, hot, (e,), generator=g,
+                                   device="cuda")).values.int()
+    mm = torch.randn((e, cs.OUTER_C), generator=g, device="cuda")
+    bb = torch.randn((e, cs.OUTER_M), generator=g, device="cuda")
+    bt, n_tiles = block_tile_starts(dst.cpu().numpy(), n, cs.OUTER_BN,
+                                    cs.OUTER_TE)
+    out["outer_gap_f32_ms"] = cs.device_ms(
+        lambda: ops.segment_outer(mm, bb, dst, bt, n, n_tiles, cs.OUTER_BN,
+                                  cs.OUTER_TE), 5, *cs.OUTER_KERNELS)
+    del mm, bb, dst
+    torch.cuda.empty_cache()
     return out
 
 
