@@ -52,6 +52,22 @@ kernels' launch counters set to 0 just before it and read just after:
   2048, above the max degree) and ``"bsearch2"`` on the plain db;
 * ``stream`` of those three in ``tile`` mode, every row checked on the
   host with numpy alone, and the factorized 3-clique;
+* ``oracles``: Tables 6 and 7 of the JAX package's benchmarks rebuilt
+  with the port (``make_snap_like`` graphs at scale 0.25 and 0.15, unary
+  samples at selectivity 8 and 80), every count made with the default
+  ``verify=True`` and held to its record in ``BENCH_baseline.json``: the
+  cyclic shapes with ``vlftj`` and ``hybrid`` on the card and ``binary``
+  on the host (cap 20,000,000), the acyclic ones with ``yannakakis`` and
+  ``vlftj`` on the card and ``binary`` (whose two 4-path blowups must
+  give the recorded rows), the 2-tree with ``yannakakis`` alone; the
+  scalar oracles ``lftj_ref`` and ``minesweeper_ref`` count the cyclic
+  shapes on ca-GrQc to the records (in a child process that runs beside
+  the card paths, on the host CSR), and the 3-clique's rows from
+  ``lftj_ref``, ``minesweeper_ref``, ``binary`` and ``vlftj`` on the
+  card are identical arrays; then the plan verifier on the six shapes'
+  ``auto`` plans on both full-scale dbs (no error, no launch, its cold
+  and memoized times) and a plan whose GAO repeats a variable, which
+  ``count`` must reject with V101 before any launch;
 * chatglm3-6b and stablelm-3b served at full width and depth in bf16
   (``lm serve``): 4 requests of 2048 prompt tokens, prefill (one launch
   of the wgmma flash kernel a layer, 28 and 32, none of the mma.sync
@@ -74,8 +90,9 @@ Needs one CUDA device and the rest of the repository; it imports nothing
 of JAX.  Prints one JSON line per shape and path, a ``kernels`` JSON
 line, the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset (the
-kernels against their plain versions, the join paths, the LM paths) and
-then prints neither the ``kernels`` line nor the last line.
+kernels against their plain versions, the join paths, the LM paths, or
+``oracles``, the last part of the join paths alone) and then prints
+neither the ``kernels`` line nor the last line.
 """
 from __future__ import annotations
 
@@ -166,6 +183,23 @@ PHASES = ("kernels", "join", "lm")
 #: the join path's kernel functions, reported by name in count profiles
 PORT_JOIN_KERNELS = ("searchsorted_segments_kernel", "tile_member_mask_kernel",
                      "bitset_member_mask_kernel")
+
+
+#: the ``oracles`` phase: Tables 6 and 7 of the JAX package's benchmarks
+#: (``benchmarks/bench_cyclic.py`` and ``bench_acyclic.py``, quick mode)
+#: rebuilt with the port, their counts held against the records of
+#: ``BENCH_baseline.json``; ``binary`` gives up past ``BINARY_CAP`` rows
+BASELINE = "BENCH_baseline.json"
+T6_DATASETS = ("ca-GrQc", "wiki-Vote", "ego-Facebook", "p2p-Gnutella04")
+T6_SCALE = 0.25
+T7_DATASETS = ("ca-GrQc", "wiki-Vote")
+T7_SHAPES = ("3-path", "4-path", "1-tree", "2-comb")
+T7_SCALE, T7_SELECTIVITIES = 0.15, (8, 80)
+BINARY_CAP = 20_000_000
+#: the scalar oracles' graph (Table 6's ca-GrQc) and the engines whose
+#: 3-clique enumerations must be identical
+ORACLE_DATASET = "ca-GrQc"
+ENUM_ENGINES = ("lftj_ref", "minesweeper_ref", "binary", "vlftj")
 
 
 class SmokeFailure(RuntimeError):
@@ -2014,18 +2048,272 @@ def small_scale(T):
         {f"{db}/{s}": n for (dv, db, s), n in got.items() if dv == "cuda"}))
 
 
+def baseline_records() -> dict:
+    """``name -> ("count", n)`` or ``("blowup", rows)`` for the Table 6
+    and 7 records of ``BENCH_baseline.json`` (the JAX package's counts)."""
+    import re
+    path = Path(__file__).resolve().parent / BASELINE
+    out = {}
+    for r in json.loads(path.read_text())["records"]:
+        if not r["name"].startswith(("t6/", "t7/")):
+            continue
+        m = re.search(r"blowup_rows=(\d+)", r["derived"])
+        if m:
+            out[r["name"]] = ("blowup", int(m.group(1)))
+        elif r["count"] is not None:  # not the 2-tree's vlftj "-"
+            out[r["name"]] = ("count", r["count"])
+    return out
+
+
+def oracle_gdb(T, dataset: str, scale: float, selectivity: float,
+               device: str):
+    """A benchmark db as ``benchmarks/common.py`` ``bench_gdb`` makes it."""
+    from repro_torch.graphs import make_snap_like, node_sample
+    g = make_snap_like(dataset, seed=SEED, scale=scale)
+    unary = {f"v{i}": node_sample(g.n_nodes, selectivity, seed=17 * i + 1)
+             for i in range(1, 5)}
+    return T.GraphDB(g, unary, device=device)
+
+
+def held_count(T, query, db, engine: str, want: tuple, name: str):
+    """Plan with ``engine`` (outside the timer, as the benchmarks do),
+    count with the default ``verify=True`` and hold the count, or the
+    ``JoinBlowup`` rows at ``BINARY_CAP``, to the record ``want``.
+    Returns ``(count or blowup rows, wall seconds)``; a count is a
+    Python int, so the card has finished when it returns."""
+    plan = T.plan_query(query, T.GraphStats.of(db), engine=engine)
+    kw = dict(cap=BINARY_CAP) if engine == "binary" else {}
+    t0 = time.perf_counter()
+    try:
+        got = ("count", T.count(query, db, plan=plan, **kw))
+    except T.JoinBlowup as e:
+        need(e.cap == BINARY_CAP, f"{name}: blowup at cap {e.cap}")
+        got = ("blowup", e.rows)
+    wall = time.perf_counter() - t0
+    need(got == want, f"{name}: {got} != record {want}")
+    return got[1], wall
+
+
+def oracle_tables(T, device: str = "cuda") -> dict:
+    """Tables 6 and 7 rebuilt with the port, each count held to the JAX
+    package's record: the card engines (``vlftj``, ``hybrid`` and
+    ``yannakakis``) on ``device``, ``binary`` on the host at
+    ``BINARY_CAP``.  One JSON line per table and db with the counts, the
+    walls and the launches by kernel; returns the launches summed."""
+    from repro_torch.kernels import build
+    recs = baseline_records()
+    build.reset_launches()
+    total = dict.fromkeys(build.LAUNCHES, 0)
+    cells = [("t6", ds, None, T6_SCALE, 8.0, CYCLIC,
+              ("vlftj", "hybrid", "binary")) for ds in T6_DATASETS]
+    cells += [("t7", ds, sel, T7_SCALE, float(sel), T7_SHAPES + ("2-tree",),
+               ("ms-analogue", "vlftj", "binary"))
+              for ds in T7_DATASETS for sel in T7_SELECTIVITIES]
+    engine_of = {"ms-analogue": "yannakakis"}
+    for table, ds, sel, scale, selectivity, shapes, engines in cells:
+        t0 = time.perf_counter()
+        db = oracle_gdb(T, ds, scale, selectivity, device)
+        build_s = time.perf_counter() - t0
+        before = dict(build.LAUNCHES)
+        counts, walls = {}, {}
+        for shape in shapes:
+            q = T.get_query(shape)
+            for tag in engines:
+                name = "/".join([table, shape, ds]
+                                + ([f"sel{sel}"] if sel else []) + [tag])
+                if name not in recs:      # the 2-tree: ms-analogue only
+                    continue
+                n, wall = held_count(T, q, db, engine_of.get(tag, tag),
+                                     recs[name], name)
+                key = f"{shape}/{tag}"
+                counts[key] = n if recs[name][0] == "count" else \
+                    {"blowup_rows": n}
+                walls[key] = wall
+        launches = {k: v - before[k] for k, v in build.LAUNCHES.items()}
+        for k, v in launches.items():
+            total[k] += v
+        log(json.dumps(dict(
+            oracles=table, dataset=ds, selectivity=sel or 8, scale=scale,
+            nodes=db.n_nodes, directed_edges=int(db.csr.n_edges),
+            build_s=build_s, counts=counts, wall_s=walls,
+            launches={k: v for k, v in launches.items() if v})))
+    return total
+
+
+def scalar_counts(T, device: str) -> dict:
+    """``lftj_ref`` and ``minesweeper_ref`` counts of the cyclic shapes on
+    Table 6's ca-GrQc, each held to the record: ``{shape/engine: [count,
+    wall seconds]}``."""
+    recs = baseline_records()
+    db = oracle_gdb(T, ORACLE_DATASET, T6_SCALE, 8.0, device)
+    out = {}
+    for shape in CYCLIC:
+        want = recs[f"t6/{shape}/{ORACLE_DATASET}/vlftj"]
+        for engine in ("lftj_ref", "minesweeper_ref"):
+            out[f"{shape}/{engine}"] = list(held_count(
+                T, T.get_query(shape), db, engine, want,
+                f"{shape}/{engine}"))
+    return out
+
+
+def _scalar_worker(conn, src: str) -> None:
+    """Child process: :func:`scalar_counts` on the host, sent back as
+    ``("ok", counts)`` or ``("error", traceback)``.  The scalar oracles
+    read only the db's host CSR, so the child never touches the card."""
+    import traceback
+    try:
+        sys.path.insert(0, src)
+        import torch
+        torch.set_num_threads(1)
+        import repro_torch.core as T
+        conn.send(("ok", scalar_counts(T, "cpu")))
+    except Exception:
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+def start_scalar_counts(src: Path):
+    """Start :func:`scalar_counts` in a child process (the scalar
+    oracles are host-bound Python for minutes, so they run beside the
+    card paths); returns ``(process, receiving end)``."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=_scalar_worker, args=(send, str(src)),
+                       daemon=True)
+    proc.start()
+    send.close()
+    return proc, recv
+
+
+def scalar_oracles(T, worker, device: str = "cuda") -> None:
+    """The scalar oracles on Table 6's ca-GrQc: the worker's
+    ``lftj_ref`` and ``minesweeper_ref`` counts of the cyclic shapes (held
+    to the records there), and the 3-clique's rows from ``lftj_ref``,
+    ``minesweeper_ref``, ``binary`` and ``vlftj`` on ``device`` as
+    identical arrays."""
+    from repro_torch.core import engine as E
+    from repro_torch.kernels import build
+    proc, recv = worker
+    t0 = time.perf_counter()
+    try:
+        status, counts = recv.recv()
+    except EOFError:
+        proc.join()
+        raise SmokeFailure("the scalar oracle worker died with exit code "
+                           f"{proc.exitcode}") from None
+    waited = time.perf_counter() - t0
+    proc.join()
+    need(status == "ok", f"scalar oracle counts failed:\n{counts}")
+    db = oracle_gdb(T, ORACLE_DATASET, T6_SCALE, 8.0, device)
+    before = dict(build.LAUNCHES)
+    rows, walls = {}, {}
+    for engine in ENUM_ENGINES:
+        t0 = time.perf_counter()
+        rows[engine] = E.enumerate(T.get_query("3-clique"), db,
+                                   engine=engine, mode="flat").rows
+        walls[engine] = time.perf_counter() - t0
+    for engine in ENUM_ENGINES[1:]:
+        need(np.array_equal(rows[engine], rows[ENUM_ENGINES[0]]),
+             f"3-clique rows: {engine} != {ENUM_ENGINES[0]}")
+    need(rows["vlftj"].shape[0] == counts["3-clique/lftj_ref"][0],
+         "3-clique rows != count")
+    log(json.dumps(dict(
+        oracles="scalar", dataset=ORACLE_DATASET, scale=T6_SCALE,
+        counts={k: n for k, (n, _) in counts.items()},
+        wall_s={k: w for k, (_, w) in counts.items()}, waited_s=waited,
+        enumerated_rows=int(rows["vlftj"].shape[0]), enumerate_wall_s=walls,
+        launches={k: v - before[k] for k, v in build.LAUNCHES.items()
+                  if v - before[k]})))
+
+
+def verifier_lines(T, dbs) -> None:
+    """``verify_for_execution`` of the six tier-1 ``auto`` plans on the
+    full-scale dbs: no error, findings logged by rule and severity, no
+    kernel launched; the first (cold) and a memoized call timed.  Then a
+    plan whose GAO repeats a variable (V101) must raise
+    ``PlanVerificationError`` from ``count`` before any launch."""
+    import collections
+    import dataclasses
+    from repro_torch.analysis import (PlanVerificationError,
+                                      verify_for_execution, verifier)
+    from repro_torch.kernels import build
+    verifier._VERIFY_CACHE.clear()      # so the first call is cold
+    for db_name, db in dbs.items():
+        before = dict(build.LAUNCHES)
+        plans, findings, cold, warm = {}, {}, {}, {}
+        for shape in SHAPES:
+            plan = T.plan_query(T.get_query(shape), T.GraphStats.of(db),
+                                engine="auto")
+            t0 = time.perf_counter()
+            found = verify_for_execution(plan, db)
+            cold[shape] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            need(verify_for_execution(plan, db) == found,
+                 f"{db_name} {shape}: memoized findings differ")
+            warm[shape] = time.perf_counter() - t0
+            need(not [f for f in found if f.severity == "error"],
+                 f"{db_name} {shape}: {found}")
+            plans[shape] = plan.describe()
+            findings[shape] = dict(collections.Counter(
+                f"{f.rule}/{f.severity}" for f in found))
+        need(build.LAUNCHES == before,
+             f"{db_name}: verification launched kernels")
+        log(json.dumps(dict(
+            verifier=db_name, plans=plans, findings=findings,
+            cold_s=cold, memoized_s=warm)))
+    db = dbs["plain"]
+    q = T.get_query("4-cycle")
+    plan = T.plan_query(q, T.GraphStats.of(db), engine="vlftj")
+    bad = dataclasses.replace(plan, gao=(plan.gao[0],) * len(plan.gao),
+                              levels=plan.levels)
+    before = dict(build.LAUNCHES)
+    try:
+        T.count(q, db, plan=bad)
+    except PlanVerificationError as e:
+        rules = sorted({f.rule for f in e.findings})
+    else:
+        raise SmokeFailure("a GAO repeating a variable was not rejected")
+    need("V101" in rules, f"bad plan rejected by {rules}, not V101")
+    need(build.LAUNCHES == before, "the rejected plan launched kernels")
+    log(json.dumps(dict(verifier="rejected", gao=list(bad.gao),
+                        rules=rules)))
+
+
+def oracles_phase(T, dbs, worker) -> dict:
+    """The ``oracles`` phase: Tables 6 and 7, the scalar oracles (their
+    counts from ``worker``, :func:`start_scalar_counts`) and the verifier
+    lines; returns the launches of the tables' card counts."""
+    t0 = time.perf_counter()
+    launches = oracle_tables(T)
+    log(f"oracle tables: {time.perf_counter() - t0:.2f} s, launches "
+        f"{launches}")
+    need(launches["searchsorted_segments"] > 0,
+         "the oracle tables never launched searchsorted_segments")
+    t0 = time.perf_counter()
+    scalar_oracles(T, worker)
+    log(f"scalar oracles: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    verifier_lines(T, dbs)
+    log(f"verifier: {time.perf_counter() - t0:.2f} s")
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma list of phases to run, of "
-                         f"{', '.join(PHASES)} (default: all; the kernels "
+                         f"{', '.join(PHASES)}, or oracles, the last part "
+                         "of join alone (default: all; the kernels "
                          "line and the last line come only from a run of "
                          "all)")
     phases = ap.parse_args(argv).phases.split(",")
-    if not set(phases) <= set(PHASES):
-        ap.error(f"--phases takes {', '.join(PHASES)}")
+    if not set(phases) <= set(PHASES + ("oracles",)):
+        ap.error(f"--phases takes {', '.join(PHASES)} or oracles (the "
+                 "last part of join alone)")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2036,14 +2324,30 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(src))
     import repro_torch.core as T
-    from repro_torch.configs import CHATGLM3_6B, STABLELM_3B
-    from repro_torch.kernels import build
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    worker = None
+    if "join" in phases or "oracles" in phases:
+        worker = start_scalar_counts(src)
+    try:
+        return run_phases(T, phases, smi, worker)
+    finally:
+        if worker is not None and worker[0].is_alive():
+            worker[0].terminate()
+        if worker is not None:
+            worker[0].join()
+
+
+def run_phases(T, phases, smi: str, worker) -> int:
+    """The phases of ``main``, in order; ``worker`` computes the scalar
+    oracles' counts beside them."""
+    import torch
+    from repro_torch.configs import CHATGLM3_6B, STABLELM_3B
+    from repro_torch.kernels import build
     t0 = time.perf_counter()
     build.library()
     log(f"nvcc build: {time.perf_counter() - t0:.2f} s "
@@ -2052,7 +2356,7 @@ def main(argv=None) -> int:
         if "Used" in line or "spill" in line:
             log("  ptxas:", line.strip())
 
-    if "kernels" in phases or "join" in phases:
+    if {"kernels", "join", "oracles"} & set(phases):
         t0 = time.perf_counter()
         g, db, hdb = bench_gdb(T, 1.0, "cuda")
         dbs = {"plain": db, "hybrid": hdb}
@@ -2102,6 +2406,10 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         small_scale(T)
         log(f"small scale: {time.perf_counter() - t0:.2f} s")
+    if "join" in phases or "oracles" in phases:
+        t0 = time.perf_counter()
+        oracles_phase(T, dbs, worker)
+        log(f"oracles: {time.perf_counter() - t0:.2f} s")
 
     if "lm" in phases:
         # each model's serving path with its own counters, summed

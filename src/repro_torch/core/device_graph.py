@@ -30,6 +30,7 @@ from ..device import resolve_device
 from ..graphs.csr import CSRGraph
 from ..graphs.layout import (HybridLayout, degree_sort_permutation,
                              map_rows_back, renumber_csr)
+from .relation import Database, Relation
 
 
 @dataclass
@@ -95,6 +96,25 @@ class GraphDB:
         """Bytes of the device tensors built so far."""
         return sum(t.numel() * t.element_size() for t in self._dev.values())
 
+    def to_database(self) -> Database:
+        """Bridge to the host reference engines.  Reads the host CSR and
+        unary sets only, so a db on the card copies nothing back."""
+        rels = {"edge": self.csr.to_relation()}
+        for name, ids in self.unary.items():
+            rels[name] = Relation.from_set(ids, name)
+        return Database(rels)
+
+    @classmethod
+    def from_database(cls, db: Database,
+                      device: torch.device | str = "cuda") -> "GraphDB":
+        edge = db.relations["edge"]
+        csr = CSRGraph.from_edges(edge.data[:, 0], edge.data[:, 1],
+                                  symmetrize=True)
+        unary = {name: r.data[:, 0]
+                 for name, r in db.relations.items()
+                 if r.arity == 1}
+        return cls(csr, unary, device=device)
+
 
 @dataclass
 class HybridGraphDB(GraphDB):
@@ -136,6 +156,13 @@ class HybridGraphDB(GraphDB):
         layout = HybridLayout.build(csr, **layout_kw)
         return cls(csr=csr, unary=unary, device=device, layout=layout,
                    order=order, new_of_old=inv)
+
+    @classmethod
+    def from_gdb(cls, gdb: GraphDB, renumber: bool = True,
+                 **layout_kw) -> "HybridGraphDB":
+        """The hybrid layout of ``gdb``'s graph, on ``gdb.device``."""
+        return cls.build(gdb.csr, gdb.unary, renumber=renumber,
+                         device=gdb.device, **layout_kw)
 
     @property
     def n_hubs(self) -> int:

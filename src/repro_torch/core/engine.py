@@ -2,34 +2,42 @@
 
 ``count(query, gdb, engine=...)`` plans the query with the cost-based
 planner (``core/planner.py``, the reference's, copied) and dispatches the
-plan to a device engine:
+plan to its physical operator:
 
-  * ``vlftj``      — vectorized worst-case-optimal join
-  * ``yannakakis`` — vectorized counting Yannakakis (β-acyclic)
-  * ``hybrid``     — tree message passing + seeded core LFTJ
-  * ``auto``       — the cheapest estimated plan among those three
+  * ``lftj_ref``        — faithful scalar LeapFrog TrieJoin (host oracle)
+  * ``minesweeper_ref`` — faithful Minesweeper with its CDS (host oracle)
+  * ``binary``          — Selinger-style pairwise baseline (host numpy)
+  * ``vlftj``           — vectorized worst-case-optimal join
+  * ``yannakakis``      — vectorized counting Yannakakis (β-acyclic)
+  * ``hybrid``          — tree message passing + seeded core LFTJ
+  * ``auto``            — the cheapest estimated plan among the candidates
 
 Beyond counting, :func:`enumerate` materializes the output tuples (a
 flat :class:`~repro_torch.results.ResultSet` or a trie-compressed
 :class:`~repro_torch.results.FactorizedResult`) and :func:`stream`
 returns a bounded-memory page cursor; both plan with ``output='rows'``.
 
-The host oracles ``lftj_ref``, ``minesweeper_ref`` and ``binary`` are
-planned like the reference plans them but not executed yet.  Every
-engine runs on ``gdb.device``.
+The three device engines run on ``gdb.device``; the host oracles run on
+``gdb.to_database()``, built from the host CSR, so a db on the card
+copies nothing back for them.
 
-``verify=`` (static plan verification, on by default in the JAX
-package) waits for the port of ``analysis/``: ``count``, ``enumerate``
-and ``stream`` take ``verify=False`` by default and raise
-``NotImplementedError`` for ``verify=True``.
+Every ``count``, ``enumerate`` and ``stream`` verifies its resolved plan
+first (``verify=True``, as in the JAX package): static verification
+(:func:`repro_torch.analysis.verify_for_execution`) reads the plan and
+host-side statistics only, launches no kernel, and raises
+:class:`repro_torch.analysis.PlanVerificationError` on an error-severity
+finding.  ``verify=False`` skips it.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from .binary_join import BinaryJoin
 from .device_graph import GraphDB
 from .hybrid import HybridJoin
 from .hypergraph import Hypergraph, is_beta_acyclic
+from .lftj_ref import LFTJ
+from .minesweeper_ref import Minesweeper
 from .plan import GraphStats, JoinPlan
 from .planner import PlanCache, decompose_hybrid, plan_query
 from .query import Query
@@ -38,7 +46,6 @@ from .yannakakis import CountingYannakakis
 
 ENGINES = ("lftj_ref", "minesweeper_ref", "binary", "vlftj", "yannakakis",
            "hybrid", "auto")
-_HOST_ORACLES = ("lftj_ref", "minesweeper_ref", "binary")
 
 
 def pick_engine(query: Query, stats: GraphStats | None = None) -> str:
@@ -64,10 +71,12 @@ def make_engine(plan: JoinPlan, gdb: GraphDB, **kw):
         return CountingYannakakis(query, gdb, plan=plan)
     if engine == "hybrid":
         return HybridJoin(query, gdb, plan=plan, **kw)
-    if engine in _HOST_ORACLES:
-        raise NotImplementedError(
-            f"engine {engine!r} waits for ROADMAP.md open item 'host "
-            "oracles and relation.py'")
+    if engine == "lftj_ref":
+        return LFTJ(query, gdb.to_database(), plan=plan)
+    if engine == "minesweeper_ref":
+        return Minesweeper(query, gdb.to_database(), plan=plan, **kw)
+    if engine == "binary":
+        return BinaryJoin(query, gdb.to_database(), plan=plan, **kw)
     raise ValueError(f"unknown engine {engine!r}; options: {ENGINES}")
 
 
@@ -86,11 +95,17 @@ def execute_stats(plan: JoinPlan, gdb: GraphDB, **kw) -> tuple[int, dict]:
 def _resolve_plan(query: Query, gdb: GraphDB, engine: str,
                   plan: JoinPlan | None, cache: PlanCache | None,
                   gao: tuple[str, ...] | None, output: str = "count",
-                  verify: bool = False) -> JoinPlan:
-    """Shared plan resolution for ``count``/``enumerate``/``stream``."""
-    if verify:
-        raise NotImplementedError(
-            "verify=True waits for ROADMAP.md open item 'verify=/analysis/'")
+                  verify: bool = True) -> JoinPlan:
+    """Shared plan resolution for ``count``/``enumerate``/``stream``.
+
+    With ``verify`` (the default) the resolved plan — planner-produced
+    or caller-supplied — passes static verification
+    (:func:`repro_torch.analysis.verify_for_execution`) before any
+    device dispatch; error-severity findings raise
+    :class:`repro_torch.analysis.PlanVerificationError`.  Verification is
+    memoized on ``(plan, stats fingerprint)``, so a repeated plan costs a
+    dict lookup.
+    """
     if plan is None:
         if engine not in ENGINES:
             raise ValueError(
@@ -98,33 +113,40 @@ def _resolve_plan(query: Query, gdb: GraphDB, engine: str,
         stats = GraphStats.of(gdb)
         if gao is not None:
             # a pinned GAO bypasses the cache (keys don't carry the GAO)
-            return plan_query(query, stats, engine=engine, gao=gao,
+            plan = plan_query(query, stats, engine=engine, gao=gao,
                               output=output)
-        if cache is not None:
-            return cache.get_or_plan(query, stats, engine, output=output)
-        return plan_query(query, stats, engine=engine, output=output)
-    if (plan.query.atoms, plan.query.filters) != (query.atoms,
-                                                  query.filters):
-        raise ValueError(f"plan was built for {plan.query.name!r}, "
-                         f"not {query.name!r}")
-    if engine != "auto" and plan.engine != engine:
-        raise ValueError(f"plan uses engine {plan.engine!r} but "
-                         f"engine={engine!r} was requested")
-    if gao is not None and tuple(gao) != plan.gao:
-        raise ValueError("both plan= and a conflicting gao= given")
+        elif cache is not None:
+            plan = cache.get_or_plan(query, stats, engine, output=output)
+        else:
+            plan = plan_query(query, stats, engine=engine, output=output)
+    else:
+        if (plan.query.atoms, plan.query.filters) != (query.atoms,
+                                                      query.filters):
+            raise ValueError(
+                f"plan was built for {plan.query.name!r}, "
+                f"not {query.name!r}")
+        if engine != "auto" and plan.engine != engine:
+            raise ValueError(f"plan uses engine {plan.engine!r} but "
+                             f"engine={engine!r} was requested")
+        if gao is not None and tuple(gao) != plan.gao:
+            raise ValueError("both plan= and a conflicting gao= given")
+    if verify:
+        from ..analysis import verify_for_execution
+        verify_for_execution(plan, gdb)
     return plan
 
 
 def count(query: Query, gdb: GraphDB, engine: str = "auto",
           plan: JoinPlan | None = None, cache: PlanCache | None = None,
-          gao: tuple[str, ...] | None = None, verify: bool = False,
+          gao: tuple[str, ...] | None = None, verify: bool = True,
           **kw) -> int:
     """Count the query's matches in ``gdb`` (exact, int64 arithmetic).
 
     Plans with ``engine`` (``plan=`` skips planning, ``cache=`` memoizes
-    plans) and runs the plan on ``gdb.device``; ``kw`` goes to the VLFTJ
-    executor (``chunk_rows``, ``elem_budget``, ``width``,
-    ``check_mode``, ``tile_width``, ...)."""
+    plans), verifies the plan unless ``verify=False``, and runs it;
+    ``kw`` goes to the executor (for VLFTJ ``chunk_rows``,
+    ``elem_budget``, ``width``, ``check_mode``, ``tile_width``, ...; for
+    ``binary`` ``cap``; for ``minesweeper_ref`` its idea flags)."""
     plan = _resolve_plan(query, gdb, engine, plan, cache, gao,
                          verify=verify)
     return execute(plan, gdb, **kw)
@@ -145,7 +167,7 @@ def enumerate(query: Query, gdb: GraphDB, engine: str = "auto",
               order: tuple[str, ...] | None = None,
               plan: JoinPlan | None = None, cache: PlanCache | None = None,
               gao: tuple[str, ...] | None = None,
-              mode: str | None = None, verify: bool = False, **kw):
+              mode: str | None = None, verify: bool = True, **kw):
     """Enumerate output tuples through the same planner path as ``count``.
 
     Returns a :class:`~repro_torch.results.ResultSet` (flat, the default)
@@ -190,7 +212,7 @@ def enumerate(query: Query, gdb: GraphDB, engine: str = "auto",
 
 def stream(query: Query, gdb: GraphDB, engine: str = "auto",
            page_rows: int = 1024, plan: JoinPlan | None = None,
-           cache: PlanCache | None = None, verify: bool = False, **kw):
+           cache: PlanCache | None = None, verify: bool = True, **kw):
     """A :class:`~repro_torch.results.ResultCursor` over the query's
     output.  Vectorized-LFTJ plans stream with bounded memory (the final
     level is re-entered per frontier chunk, with the executor's check

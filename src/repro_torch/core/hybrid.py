@@ -102,3 +102,7 @@ class HybridJoin:
                     else tuple(self.query.variables))
         return d.core_gao + tuple(v for v in d.tree_query.variables
                                   if v != d.attachment)
+
+
+def hybrid_count(query: Query, gdb: GraphDB, **kw) -> int:
+    return HybridJoin(query, gdb, **kw).count()

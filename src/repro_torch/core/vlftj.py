@@ -573,3 +573,8 @@ class VLFTJ:
             count_only=True,
             frontier=np.asarray(seed_values, dtype=np.int32)[:, None],
             mult=np.asarray(seed_mult, dtype=np.int64)))
+
+
+def vlftj_count(query: Query, gdb: GraphDB,
+                gao: tuple[str, ...] | None = None, **kw) -> int:
+    return VLFTJ(query, gdb, gao, **kw).count()

@@ -222,3 +222,7 @@ class CountingYannakakis:
     def output_vars(self) -> tuple[str, ...]:
         """Column order of :meth:`enumerate`."""
         return self.gao
+
+
+def yannakakis_count(query: Query, gdb: GraphDB) -> int:
+    return CountingYannakakis(query, gdb).count()

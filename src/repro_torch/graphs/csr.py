@@ -79,9 +79,30 @@ class CSRGraph:
                         self.degrees)
         return np.stack([src, self.indices], axis=1)
 
+    def to_relation(self, name: str = "edge"):
+        from ..core.relation import Relation
+        r = Relation.__new__(Relation)
+        r.data = self.edge_array()
+        r.name = name
+        return r
+
 
 def degrees_from_indptr(indptr: np.ndarray) -> np.ndarray:
     """Degrees of a CSR row-pointer array — the one place the
     ``np.diff(indptr)`` idiom lives (``CSRGraph.degrees`` caches it;
     raw-indptr holders like the sharded CSR call it directly)."""
     return np.diff(indptr)
+
+
+def triangle_count_csr(g: CSRGraph) -> int:
+    """Host oracle: number of triangles via sorted-neighbor intersection."""
+    total = 0
+    ind, ptr = g.indices, g.indptr
+    for u in range(g.n_nodes):
+        nu = ind[ptr[u]:ptr[u + 1]]
+        nu = nu[nu > u]
+        for v in nu:
+            nv = ind[ptr[v]:ptr[v + 1]]
+            nv = nv[nv > v]
+            total += np.intersect1d(nu, nv, assume_unique=True).shape[0]
+    return int(total)

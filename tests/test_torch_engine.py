@@ -221,17 +221,25 @@ def test_seeded_count_matches(dbs):
     assert got == want
 
 
-def test_unported_modes_raise(dbs):
-    """What still waits: the host oracles, and plan verification
-    (``verify=True``) for every entry point."""
+@pytest.mark.parametrize("kind", ["plain", "hybrid"])
+def test_oracles_count_and_enumerate_through_the_entry_points(kind, dbs):
+    """The host oracles count through ``T.count`` and rows through
+    ``engine.enumerate``, each equal to the reference and to the port's
+    ``vlftj``; ``count``, ``enumerate`` and ``stream`` verify by
+    default."""
+    import inspect
     from repro_torch.core import engine as t_engine
-    _, t_db = dbs["plain"]
-    q = T.get_query("3-clique")
-    for engine in ("lftj_ref", "minesweeper_ref", "binary"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            T.count(q, t_db, engine=engine)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_engine.enumerate(q, t_db, engine=engine)
+    j_db, t_db = dbs[kind]
+    for shape in ("3-clique", "4-cycle"):
+        q = T.get_query(shape)
+        want = T.count(q, t_db, engine="vlftj", **EXEC_KW)
+        rows = t_engine.enumerate(q, t_db, engine="vlftj", mode="flat",
+                                  **EXEC_KW).rows
+        for engine in ("lftj_ref", "minesweeper_ref", "binary"):
+            assert T.count(q, t_db, engine=engine) == want == \
+                j_engine.count(j_get_query(shape), j_db, engine=engine)
+            np.testing.assert_array_equal(
+                t_engine.enumerate(q, t_db, engine=engine, mode="flat").rows,
+                rows)
     for entry in (T.count, t_engine.enumerate, t_engine.stream):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*verify"):
-            entry(q, t_db, verify=True)
+        assert inspect.signature(entry).parameters["verify"].default is True
