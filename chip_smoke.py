@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases kernels,join,lm]
+    python3 chip_smoke.py [--phases kernels,join,serve,lm]
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
 kernel against its plain PyTorch version at the main path's shapes
@@ -68,6 +68,23 @@ kernels' launch counters set to 0 just before it and read just after:
   ``auto`` plans on both full-scale dbs (no error, no launch, its cold
   and memoized times) and a plan whose GAO repeats a variable, which
   ``count`` must reject with V101 before any launch;
+* ``serve``: the port's ``QueryServer`` on the same CSR (``device=
+  "cuda"``) answers the six shapes at selectivity 8 and 80 through
+  ``execute_many`` twice (the second pass all plan-cache hits), each count
+  equal to a direct ``count`` on the server's db; the 4-cycle through
+  ``execute_concurrent`` beside four small 3-cliques, unpreempted
+  (``fifo``) and in 50-500 quanta, the same counts and rows expanded, and
+  a snapshot taken halfway, sent through ``PlanSnapshot.to_bytes`` /
+  ``from_bytes`` and resumed by a fresh scheduler to the same count;
+  ``limit=`` pages of the 3-path and their ``next_cursor``
+  continuations, equal to ``enumerate(limit=)`` row for row;
+  ``benchmarks/bench_serve.py``'s quick workload (both policies) with
+  every deterministic field of ``BENCH_serve.json`` held exactly; one
+  request traced and profiled (every level's estimate and observation,
+  an event-timed kernel wall within the request's wall, the device's
+  peak bytes, ``check_runtime`` clean), with the same count, engine
+  meters and launches as with neither, EXPLAIN ANALYZE, the metrics
+  snapshot, and two threads profiling at once;
 * chatglm3-6b and stablelm-3b served at full width and depth in bf16
   (``lm serve``): 4 requests of 2048 prompt tokens, prefill (one launch
   of the wgmma flash kernel a layer, 28 and 32, none of the mma.sync
@@ -80,9 +97,9 @@ kernels' launch counters set to 0 just before it and read just after:
 The counts are checked against counts made on the host with scipy and
 numpy alone (the cliques, 3-path and lollipops), across the two dbs
 where the filters are renumbering invariant, and 3-path and the
-2-lollipop against ``engine="vlftj"``.  At 5% scale every shape but the
+2-lollipop against ``engine="vlftj"``.  At 2% scale every shape but the
 3-lollipop is enumerated on the card and on the port's plain CPU path,
-and the arrays must be identical (the 3-lollipop's 725,940,260 rows are
+and the arrays must be identical (the 3-lollipop's 332,926,959 rows are
 too many to materialize; its counts are compared instead).  Any failure
 raises and exits non-zero.
 
@@ -92,7 +109,8 @@ line, the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset (the
 kernels against their plain versions, the join paths, the LM paths, or
 ``oracles``, the last part of the join paths alone) and then prints
-neither the ``kernels`` line nor the last line.
+neither the ``kernels`` line nor the last line (``--phases serve`` runs
+the query server's phase alone).
 """
 from __future__ import annotations
 
@@ -113,7 +131,9 @@ PATTERNS = {"3-clique": ("ab ac bc", "ab bc"),
             "4-clique": ("ab ac ad bc bd cd", "ab bc cd"),
             "4-cycle": ("ab bc cd da", "ab bc cd")}
 DATASET, SEED, SELECTIVITY = "soc-Slashdot0811", 0, 8.0
-SMALL_SCALE = 0.05
+#: the enumeration check's scale: 2% keeps the 2-lollipop at 13.8 M rows
+#: (33 M at 5%, whose four enumerations took ~195 s of a run)
+SMALL_SCALE = 0.02
 #: shapes enumerated at SMALL_SCALE (the 3-lollipop's output is too big)
 ENUM_SHAPES = SHAPES[:-1]
 #: check_mode="auto"'s tile width on the main path, and the tile width of
@@ -178,8 +198,8 @@ OUTER_KERNELS = ("segment_outer_kernel", "segment_outer_merge_kernel",
 
 
 #: what a run drives, in order: the kernels against their plain versions,
-#: the join paths, the LM paths
-PHASES = ("kernels", "join", "lm")
+#: the join paths, the query server and its scheduler, the LM paths
+PHASES = ("kernels", "join", "serve", "lm")
 #: the join path's kernel functions, reported by name in count profiles
 PORT_JOIN_KERNELS = ("searchsorted_segments_kernel", "tile_member_mask_kernel",
                      "bitset_member_mask_kernel")
@@ -1680,6 +1700,7 @@ def main_path(T, dbs):
             plan = T.plan_query(T.get_query(shape), T.GraphStats.of(db),
                                 engine="auto")
             n, stats = T.execute_stats(plan, db)
+            stats = stats["raw"]
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts[db_name, shape] = n
@@ -1711,6 +1732,7 @@ def auto_path(T, dbs, counts):
                                 engine="auto")
             n, stats = T.execute_stats(plan, db, check_mode="auto",
                                        tile_width=TILE_WIDTH)
+            stats = stats["raw"]
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             need(n == counts[db_name, shape],
@@ -1999,7 +2021,7 @@ def cross_checks(T, dbs, counts):
 
 
 def small_scale(T):
-    """At 5% scale, every shape but the 3-lollipop enumerated on the card
+    """At 2% scale, every shape but the 3-lollipop enumerated on the card
     and on the plain CPU path (identical arrays), the 3-lollipop counted
     on both; on the card, each enumeration's length against its count and
     three counts against ``engine="vlftj"``."""
@@ -2300,6 +2322,348 @@ def oracles_phase(T, dbs, worker) -> dict:
     return launches
 
 
+#: the ``serve`` phase: the query server on the soc-Slashdot CSR at these
+#: selectivities (seed 0), the 4-cycle scheduled in 50-500 quanta of
+#: ``SERVE_QUANTA`` target beside four small 3-cliques, and ``limit=``
+#: pages of the 3-path at the second selectivity
+SERVE_SELECTIVITIES = (8.0, 80.0)
+SERVE_QUANTA = 200
+#: the parked-state quota of the scheduled 4-cycle: its penultimate
+#: frontier at this scale is far above the default 64 MiB quota, which
+#: would fail the job with a 429-style result at its first parking
+SERVE_PARK_BYTES = 4 << 30
+SERVE_PAGE_ROWS, SERVE_PAGES = 20_000, 5
+#: the rows check enumerates the whole 3-path to compare pages with
+#: ``enumerate(limit=)``: it takes the first selectivity (of the second
+#: and sparser ones) whose 3-path count is at most this
+SERVE_ROWS_MAX = 20_000_000
+#: ``benchmarks/bench_serve.py``'s quick workload (the JAX package's
+#: ``BENCH_serve.json``): one heavy full-graph 3-path enumeration and 16
+#: small 3-path counts on ``powerlaw_cluster(800, 5, seed=0)``
+BENCH_SERVE = "BENCH_serve.json"
+SERVE_BENCH_GRAPH = (800, 5, 0)
+SERVE_BENCH_QUANTUM, SERVE_BENCH_SMALL, SERVE_BENCH_PAGE = 4096, 16, 2048
+#: the record's fields that depend only on the host (row meters and the
+#: rows-expanded virtual clock); its walls are a TPU run's, never compared
+SERVE_BENCH_EXACT = ("heavy_rows_expanded", "heavy_quanta",
+                     "heavy_preemptions", "total_rows_expanded",
+                     "small_p50_vclock", "small_p99_vclock")
+
+
+def serve_at_scale(T, g, device: str = "cuda"):
+    """``execute_many`` of the six shapes at both selectivities, twice
+    (the second pass all plan-cache hits), each count held to a direct
+    ``count`` with the result's engine on the server's warmed db.  Returns
+    the server and the counts."""
+    import torch
+    from repro_torch.serve import QueryRequest, QueryServer
+    server = QueryServer(g, device=device)
+    reqs = [QueryRequest(shape, selectivity=sel, seed=0)
+            for sel in SERVE_SELECTIVITIES for shape in SHAPES]
+    counts = {}
+    for rnd in (1, 2):
+        t0 = time.perf_counter()
+        results = server.execute_many(reqs)
+        wall = time.perf_counter() - t0
+        for r in results:
+            key = (r.request.query_name, r.request.selectivity)
+            need(r.plan_cached == (rnd == 2),
+                 f"serve round {rnd} {key}: plan_cached {r.plan_cached}")
+            if rnd == 1:
+                counts[key] = (r.count, r.engine)
+            else:
+                need((r.count, r.engine) == counts[key],
+                     f"serve {key}: round 2 {r.count} != {counts[key]}")
+            log(json.dumps(dict(
+                serve=rnd, shape=key[0], selectivity=key[1],
+                engine=r.engine, count=r.count, latency_s=r.latency_s,
+                plan_cached=r.plan_cached,
+                kernel_dispatches=r.stats["engine"]["kernel_dispatches"])))
+        log(json.dumps(dict(serve_round=rnd, wall_s=wall,
+                            plan_cache=server.plan_cache_info())))
+    t0 = time.perf_counter()
+    for (shape, sel), (n, engine) in counts.items():
+        direct = T.count(T.get_query(shape), server._gdb_for(sel, 0),
+                         engine=engine)
+        need(direct == n, f"serve {shape} sel {sel}: {n} != direct "
+             f"{engine} count {direct}")
+    if device == "cuda":
+        torch.cuda.synchronize()
+    log(f"serve direct counts: {time.perf_counter() - t0:.2f} s, all equal")
+    return server, counts
+
+
+def serve_preemption(T, g, server, counts, device: str = "cuda") -> dict:
+    """The 4-cycle through ``execute_concurrent`` beside four small
+    3-cliques: first in ``fifo`` (unpreempted, the wall to compare), then
+    with a quantum that cuts it into ~``SERVE_QUANTA`` quanta; then a
+    snapshot taken halfway, round-tripped through bytes and resumed on a
+    fresh scheduler of a fresh server."""
+    from repro_torch.serve import (PlanSnapshot, QuantumScheduler,
+                                   QueryRequest, QueryServer, TenantQuota)
+    sel = SERVE_SELECTIVITIES[0]
+    quota = TenantQuota(max_frontier_bytes=SERVE_PARK_BYTES)
+    want = counts["4-cycle", sel][0]
+    smalls = [QueryRequest("3-clique", engine="vlftj",
+                           selectivity=SERVE_SELECTIVITIES[1], seed=s)
+              for s in range(4)]
+    small_want = [T.count(T.get_query("3-clique"), server._gdb_for(
+        SERVE_SELECTIVITIES[1], s), engine="vlftj") for s in range(4)]
+    heavy = QueryRequest("4-cycle", engine="vlftj", selectivity=sel)
+    out = {}
+    quantum = None
+    for policy in ("fifo", "quantum"):
+        if policy == "quantum":
+            quantum = max(64, out["fifo"]["rows_expanded"] // SERVE_QUANTA)
+        t0 = time.perf_counter()
+        res = server.execute_concurrent(
+            [heavy] + smalls, policy=policy,
+            quantum_rows=quantum or SERVE_BENCH_QUANTUM,
+            quotas={heavy.tenant: quota})
+        wall = time.perf_counter() - t0
+        need(all(r.engine != "rejected" for r in res),
+             f"scheduled ({policy}): {[r.stats.get('error') for r in res]}")
+        need(res[0].count == want, f"scheduled 4-cycle ({policy}): "
+             f"{res[0].count} != {want}")
+        need([r.count for r in res[1:]] == small_want,
+             f"scheduled 3-cliques ({policy}): {[r.count for r in res[1:]]}"
+             f" != {small_want}")
+        st = res[0].stats
+        out[policy] = dict(wall_s=wall, quanta=st["quanta"],
+                           preemptions=st["preemptions"],
+                           rows_expanded=st["rows_expanded"],
+                           small_vclock_done=[r.stats["vclock_done"]
+                                              for r in res[1:]],
+                           heavy_vclock_done=st["vclock_done"])
+    need(50 <= out["quantum"]["quanta"] <= 500,
+         f"the 4-cycle ran in {out['quantum']['quanta']} quanta, not 50-500")
+    need(out["quantum"]["rows_expanded"] == out["fifo"]["rows_expanded"],
+         "preemption changed the rows expanded")
+    # a snapshot taken halfway, through bytes, resumed elsewhere
+    sched = QuantumScheduler(server, quantum_rows=quantum,
+                             default_quota=quota)
+    token = sched.submit(heavy)
+    while sched.stats["quanta"] < out["quantum"]["quanta"] // 2:
+        need(sched.step(), "the 4-cycle finished before its halfway point")
+    snap = server._cursors[token][0]
+    need(isinstance(snap, PlanSnapshot), f"parked {type(snap).__name__}")
+    wire = snap.to_bytes()
+    back = PlanSnapshot.from_bytes(wire)
+    # the resumed run advances the snapshot in place: describe it first
+    out["snapshot"] = dict(phase=back.phase, level=back.start_level,
+                           frontier_rows=int(back.frontier.shape[0]),
+                           offset=back.offset, bytes=len(wire))
+    fresh = QueryServer(g, device=device)
+    resumed = QuantumScheduler(fresh, quantum_rows=quantum,
+                               default_quota=quota)
+    tok = resumed.submit(heavy)
+    job = resumed._jobs[0]
+    fresh._register_cursor(back, job.label, job.plan, token=tok)
+    t0 = time.perf_counter()
+    (res,) = resumed.run()
+    need(res.count == want,
+         f"snapshot resume: {res.count} != {want}")
+    out["snapshot"].update(resume_quanta=res.stats["quanta"],
+                           resume_wall_s=time.perf_counter() - t0)
+    out["quantum_rows"] = quantum
+    out["overhead"] = out["quantum"]["wall_s"] / out["fifo"]["wall_s"]
+    log(json.dumps({"serve_preemption": out}))
+    return out
+
+
+def serve_rows(T, server) -> None:
+    """A ``limit=`` 3-path request and its ``next_cursor`` continuations:
+    the pages, concatenated, equal ``enumerate(..., limit=)`` row for
+    row."""
+    from repro_torch.core import engine as E
+    from repro_torch.serve import QueryRequest
+    q = T.get_query("3-path")
+    for sel in (SERVE_SELECTIVITIES[1], 10 * SERVE_SELECTIVITIES[1],
+                100 * SERVE_SELECTIVITIES[1]):
+        total = T.count(q, server._gdb_for(sel, 0))
+        if total <= SERVE_ROWS_MAX:
+            break
+    need(total <= SERVE_ROWS_MAX, f"3-path count {total} at sel {sel}")
+    t0 = time.perf_counter()
+    first = server.execute(QueryRequest("3-path", engine="vlftj",
+                                        selectivity=sel,
+                                        limit=SERVE_PAGE_ROWS))
+    pages, tok, lat = [first.rows], first.next_cursor, [first.latency_s]
+    while tok is not None and len(pages) < SERVE_PAGES:
+        nxt = server.execute(QueryRequest("3-path", cursor=tok,
+                                          limit=SERVE_PAGE_ROWS))
+        pages.append(nxt.rows)
+        lat.append(nxt.latency_s)
+        tok = nxt.next_cursor
+    rows = np.concatenate(pages)
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = E.enumerate(q, server._gdb_for(sel, 0), plan=first.plan,
+                       order=first.row_vars, limit=rows.shape[0]).rows
+    need(np.array_equal(rows, want), "served 3-path pages != enumerate")
+    log(json.dumps(dict(serve_rows="3-path", selectivity=sel, count=total,
+                        pages=[int(p.shape[0]) for p in pages],
+                        page_latency_s=lat, wall_s=wall,
+                        enumerate_s=time.perf_counter() - t0,
+                        open_cursors=server.cursor_info())))
+
+
+def serve_bench_record(T, device: str = "cuda") -> dict:
+    """``benchmarks/bench_serve.py``'s quick workload with the port, both
+    policies, every deterministic field held to ``BENCH_serve.json``
+    exactly; the walls are printed beside the record's, not compared."""
+    from repro_torch.graphs import powerlaw_cluster
+    from repro_torch.serve import (QuantumScheduler, QueryRequest,
+                                   QueryServer, TenantQuota)
+    record = json.loads((Path(__file__).resolve().parent
+                         / BENCH_SERVE).read_text())["policies"]
+    n, m, seed = SERVE_BENCH_GRAPH
+    csr = powerlaw_cluster(n, m, seed=seed)
+    got = {}
+    for policy in ("fifo", "quantum"):
+        server = QueryServer(csr, page_rows=SERVE_BENCH_PAGE, device=device)
+        sched = QuantumScheduler(
+            server, quantum_rows=SERVE_BENCH_QUANTUM, policy=policy,
+            default_quota=TenantQuota(max_in_flight=SERVE_BENCH_SMALL + 1))
+        reqs = [QueryRequest("3-path", engine="vlftj", limit=10**9,
+                             selectivity=1.0)]
+        reqs += [QueryRequest("3-path", engine="vlftj", seed=i % 4)
+                 for i in range(SERVE_BENCH_SMALL)]
+        t0 = time.time()
+        for req in reqs:
+            sched.submit(req, collect_rows=req.limit is None)
+        results = sched.run()
+        wall_s = time.time() - t0
+        heavy, smalls = results[0], results[1:]
+        vlat = np.array([r.stats["vclock_done"] - r.stats["vclock_submit"]
+                         for r in smalls], dtype=np.int64)
+        wlat = np.array([r.latency_s for r in smalls])
+        total = sum(r.stats["rows_expanded"] for r in results)
+        g = {"small_p50_vclock": int(np.percentile(vlat, 50)),
+             "small_p99_vclock": int(np.percentile(vlat, 99)),
+             "heavy_rows_expanded": heavy.stats["rows_expanded"],
+             "heavy_quanta": heavy.stats["quanta"],
+             "heavy_preemptions": heavy.stats["preemptions"],
+             "total_rows_expanded": total}
+        for k in SERVE_BENCH_EXACT:
+            need(g[k] == record[policy][k], f"BENCH_serve {policy} {k}: "
+                 f"{g[k]} != recorded {record[policy][k]}")
+        got[policy] = dict(
+            g, wall_s=wall_s,
+            small_p99_wall_us=float(np.percentile(wlat, 99) * 1e6),
+            recorded_wall_s=record[policy]["wall_s"],
+            recorded_small_p99_wall_us=record[policy]["small_p99_wall_us"])
+    log(json.dumps({"serve_bench": got}))
+    return got
+
+
+def serve_observability(T, server, device: str = "cuda") -> None:
+    """One traced and profiled request; profile on against off; the
+    profile against the static census; EXPLAIN ANALYZE; the metrics
+    snapshot; profiles in two threads at once."""
+    import threading
+    from repro_torch.analysis import audit_recompilation, check_runtime
+    from repro_torch.kernels import build
+    from repro_torch.obs import DeviceProfile, explain_analyze
+    from repro_torch.serve import QueryRequest
+    sel = SERVE_SELECTIVITIES[0]
+    req = dict(query_name="3-clique", engine="vlftj", selectivity=sel)
+    runs = {}
+    for on in (False, True, False):
+        build.reset_launches()
+        res = server.execute(QueryRequest(**req, trace=on, profile=on))
+        runs.setdefault(on, []).append(
+            (res, dict(build.LAUNCHES)))
+    off, on = runs[False][0], runs[True][0]
+    meters = ("chunks", "ll_calls", "candidates", "rows_expanded")
+    for res, launches in runs[False] + runs[True]:
+        need(res.count == off[0].count, "profile changed the count")
+        need(launches == off[1], f"profile changed the launches: "
+             f"{launches} != {off[1]}")
+        need({k: res.stats["engine"]["raw"][k] for k in meters}
+             == {k: off[0].stats["engine"]["raw"][k] for k in meters},
+             "profile changed the engine meters")
+    res = on[0]
+    tr, prof = res.trace, res.profile
+    for lv in range(len(res.plan.gao)):
+        rec = tr.levels.get(lv, {})
+        need(rec.get("est_rows") is not None
+             and rec.get("obs_rows") is not None,
+             f"trace level {lv}: {rec}")
+    span = [s for s in tr.spans if s["name"] == "profile/kernel/intersect"]
+    need(len(span) == 1, f"profile spans {[s['name'] for s in tr.spans]}")
+    kernel_s = prof.kernel_wall_s("intersect")
+    need(0 < kernel_s <= res.latency_s,
+         f"event-timed kernel wall {kernel_s} s not in (0, "
+         f"{res.latency_s}]")
+    need(device != "cuda" or prof.memory["device_peak_bytes"] is not None,
+         "no device peak bytes on the card")
+    gdb = server._gdb_for(sel, 0)
+    audit = audit_recompilation(res.plan, T.GraphStats.of(gdb))
+    finding = check_runtime(audit, prof)
+    need(finding is None, f"check_runtime: {finding}")
+    ex = explain_analyze(T.get_query("3-clique"), gdb, engine="vlftj")
+    need(ex.count == res.count, "explain_analyze count")
+    log(ex.render())
+    snap = server.metrics()
+    json.dumps(snap)
+    # two threads profiling at once: each profile sees its own calls
+    plan = res.plan
+    solo = prof.jit["calls"]
+    got, barrier = {}, threading.Barrier(2)
+
+    def work(i):
+        p = DeviceProfile(f"thread-{i}")
+        barrier.wait(timeout=60)
+        with p.activate():
+            n, _ = T.execute_stats(plan, gdb)
+        got[i] = (n, p.jit["calls"], p.kernel_wall_s("intersect"))
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    need(not any(th.is_alive() for th in threads), "a thread hung")
+    for i in range(2):
+        need(got.get(i, (None,))[:2] == (res.count, solo),
+             f"thread {i}: {got.get(i)} != ({res.count}, {solo})")
+        need(got[i][2] > 0, f"thread {i}: no kernel wall")
+    log(json.dumps(dict(
+        serve_observability="3-clique", selectivity=sel, count=res.count,
+        latency_s=res.latency_s, profile=prof.to_dict(),
+        trace_levels=[tr.levels[lv] for lv in sorted(tr.levels)],
+        max_q_error=tr.max_q_error, census_total=audit.total,
+        metrics_series=len(snap), threads=got,
+        profile_off_latency_s=[r.latency_s for r, _ in runs[False]])))
+
+
+def serve_phase(T, g, device: str = "cuda") -> dict:
+    """The ``serve`` phase: the query server and its scheduler at
+    ``soc-Slashdot0811`` scale, the JAX package's serve record, and the
+    observability they report through.  The launch counters are set to 0
+    just before and read just after; returns them."""
+    from repro_torch.kernels import build
+    build.reset_launches()
+    t0 = time.perf_counter()
+    server, counts = serve_at_scale(T, g, device)
+    log(f"serve at scale: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    serve_preemption(T, g, server, counts, device)
+    log(f"serve preemption: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    serve_rows(T, server)
+    log(f"serve rows: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    serve_bench_record(T, device)
+    log(f"serve record: {time.perf_counter() - t0:.2f} s")
+    launches = dict(build.LAUNCHES)
+    t0 = time.perf_counter()
+    serve_observability(T, server, device)
+    log(f"serve observability: {time.perf_counter() - t0:.2f} s")
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
     import torch
@@ -2356,7 +2720,7 @@ def run_phases(T, phases, smi: str, worker) -> int:
         if "Used" in line or "spill" in line:
             log("  ptxas:", line.strip())
 
-    if {"kernels", "join", "oracles"} & set(phases):
+    if {"kernels", "join", "oracles", "serve"} & set(phases):
         t0 = time.perf_counter()
         g, db, hdb = bench_gdb(T, 1.0, "cuda")
         dbs = {"plain": db, "hybrid": hdb}
@@ -2410,6 +2774,14 @@ def run_phases(T, phases, smi: str, worker) -> int:
         t0 = time.perf_counter()
         oracles_phase(T, dbs, worker)
         log(f"oracles: {time.perf_counter() - t0:.2f} s")
+
+    if "serve" in phases:
+        t0 = time.perf_counter()
+        serve_launches = serve_phase(T, g)
+        log(f"serve: {time.perf_counter() - t0:.2f} s, launches "
+            f"{serve_launches}")
+        need(serve_launches["searchsorted_segments"] > 0,
+             "the serve path never launched searchsorted_segments")
 
     if "lm" in phases:
         # each model's serving path with its own counters, summed

@@ -27,9 +27,10 @@ device work: :func:`audit_recompilation` enumerates the distinct
 specializations a plan can generate and fails it (finding ``V107``)
 when the count is unbounded or exceeds ``budget``.  The numbers are the
 JAX package's, key for key, so ``V107`` fires on the same plans in both
-packages.  The cross-check of the static total against an observed run
-(``check_runtime`` in the JAX package) waits for the port's device
-profile (``obs/``).
+packages.  :func:`check_runtime` cross-checks the static total against
+an executed :class:`repro_torch.obs.DeviceProfile`; the port's profile
+counts builds or loads of the kernel library as its compiles (at most
+one per process), so the runtime side of that check is at most 1.
 """
 from __future__ import annotations
 
@@ -194,3 +195,26 @@ def audit_recompilation(plan: JoinPlan, stats: GraphStats | None = None,
     return RecompileAudit(plan.engine, tuple(per_level), final, spmd,
                           total, budget, shapes, tuple(unbounded))
 
+
+def check_runtime(audit: RecompileAudit, profile,
+                  path: str = "plan") -> Finding | None:
+    """Cross-check the static bound against an executed profile.
+
+    ``profile`` is a :class:`repro_torch.obs.DeviceProfile` (or anything
+    with a ``jit['compiles']`` counter).  Returns a finding when the
+    runtime observed **more** compiles than the static enumeration
+    admits — i.e. the auditor's model of the executors has drifted —
+    else ``None``.
+    """
+    observed = int(getattr(profile, "jit", {}).get("compiles", 0))
+    if audit.unbounded:
+        return None             # no static bound to compare against
+    if observed > audit.total:
+        return Finding(
+            rule="V107", severity="error", path=path, line=0,
+            message=f"runtime observed {observed} compiles > static "
+                    f"bound {audit.total} — the audit model has drifted "
+                    f"from the executors",
+            hint="update analysis/recompile.py to match the executor's "
+                 "shape geometry")
+    return None

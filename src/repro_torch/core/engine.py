@@ -86,10 +86,28 @@ def execute(plan: JoinPlan, gdb: GraphDB, **kw) -> int:
 
 
 def execute_stats(plan: JoinPlan, gdb: GraphDB, **kw) -> tuple[int, dict]:
-    """Run a plan and return ``(count, engine stats)``; the stats dict is
-    the engine's own (``level_rows``, ``bitset_rows``, ...)."""
+    """Run a plan and return ``(count, engine_stats)`` with the stats
+    normalized onto the unified schema (``repro_torch.obs.schema``; the
+    engine's own dict is ``engine_stats["raw"]``).  When a
+    :class:`repro_torch.obs.QueryTrace` is active in the context, the
+    per-level observations are harvested into it against the plan's
+    ``level_est_rows`` annotation — host-side dict reads, no device
+    work."""
+    # lazy: repro_torch.obs imports this module through obs.explain
+    from ..obs import current_trace, normalize_engine_stats
     eng = make_engine(plan, gdb, **kw)
-    return eng.count(), eng.stats
+    out = eng.count()
+    stats = normalize_engine_stats(plan.engine, getattr(eng, "stats", None))
+    tr = current_trace()
+    if tr is not None:
+        tr.set_meta(query=plan.query.name, gao=list(plan.gao),
+                    engine=plan.engine)
+        tr.record_engine(stats["raw"], gao=plan.gao,
+                         est_rows=plan.level_est_rows)
+        tr.finish(count=out,
+                  rows_expanded=stats["rows_expanded"],
+                  kernel_dispatches=stats["kernel_dispatches"])
+    return out, stats
 
 
 def _resolve_plan(query: Query, gdb: GraphDB, engine: str,

@@ -309,6 +309,11 @@ class VLFTJ:
         gdb = self.gdb
         dev = gdb.device
         indptr, indices = gdb.dev("indptr"), gdb.dev("indices")
+        # device profiling (repro_torch.obs.profile): resolved once per
+        # run; None (the default) keeps every hook below a dead branch
+        # (lazy import: repro_torch.obs imports core at package level)
+        from ..obs.profile import current_profile
+        prof = current_profile()
         n_levels = len(self.plan) if max_levels is None else max_levels
         lv_rows = self.stats["level_rows"]
         lv_wall = self.stats["level_wall_s"]
@@ -353,6 +358,8 @@ class VLFTJ:
                 lv_rows[level] = int(frontier.shape[0])
                 lv_wall[level] = (lv_wall.get(level, 0.0)
                                   + round(time.perf_counter() - t_lv, 6))
+                if prof is not None:
+                    prof.sample_memory(dev)
                 frontier, mult = boundary(level, frontier, mult)
                 continue
             C = frontier.shape[0]
@@ -383,6 +390,10 @@ class VLFTJ:
                     self.stats["chunks"] += 1
                     self.stats["candidates"] += crows * self.width
                     args = (indptr, indices, bitmaps, fchunk, mchunk, rv)
+                    # kernel-wall bracket: CUDA events on the card (read
+                    # at the level boundary, where the loop waits for
+                    # the device anyway), the host clock on the CPU
+                    mark = None if prof is None else prof.kernel_mark(dev)
                     if last_count:
                         level_total += _expand_level(
                             *args, count_only=True, **kw).sum()
@@ -393,11 +404,19 @@ class VLFTJ:
                         new_rows.append(fchunk[rows])
                         new_vals.append(cand[rows, cols])
                         new_mult.append(mchunk[rows])
+                    if prof is not None:
+                        prof.record_jit_call()
+                        prof.record_kernel_since(
+                            "intersect_bitset" if mode == "bitset"
+                            else "intersect", mark, dev)
             if last_count:
                 total += int(level_total)
                 lv_rows[level] = int(total)
                 lv_wall[level] = (lv_wall.get(level, 0.0)
                                   + round(time.perf_counter() - t_lv, 6))
+                if prof is not None:
+                    prof.settle()
+                    prof.sample_memory(dev)
                 return total
             k = frontier.shape[1]
             frontier = torch.cat(
@@ -413,6 +432,10 @@ class VLFTJ:
             lv_rows[level] = int(frontier.shape[0])
             lv_wall[level] = (lv_wall.get(level, 0.0)
                               + round(time.perf_counter() - t_lv, 6))
+            if prof is not None:
+                # the frontier is on the host: every bracket has ended
+                prof.settle()
+                prof.sample_memory(dev)
             frontier, mult = boundary(level, frontier, mult)
             self.stats["frontier_peak"] = max(self.stats["frontier_peak"],
                                               frontier.shape[0])
@@ -511,11 +534,22 @@ class VLFTJ:
                 torch.from_numpy(np.ascontiguousarray(row_valid)).to(dev))
         self.stats["ll_calls"] += 1
         kw = self._level_kw(lp, len(bitmaps), mode)
+        from ..obs.profile import current_profile
+        prof = current_profile()
+        mark = None if prof is None else prof.kernel_mark(dev)
         if count_only:
-            return _expand_level(*args, count_only=True, **kw).cpu().numpy()
-        cand, keep = _expand_level(*args, count_only=False, **kw)
-        counts = keep.sum(dim=1, dtype=torch.int64)
-        return counts.cpu().numpy(), cand[keep].to(torch.int64).cpu().numpy()
+            out = (_expand_level(*args, count_only=True, **kw),)
+        else:
+            cand, keep = _expand_level(*args, count_only=False, **kw)
+            out = (keep.sum(dim=1, dtype=torch.int64),
+                   cand[keep].to(torch.int64))
+        if prof is not None:
+            prof.record_jit_call()
+            prof.record_kernel_since("intersect", mark, dev)
+        out = tuple(t.cpu().numpy() for t in out)
+        if prof is not None:
+            prof.settle()
+        return out[0] if count_only else out
 
     # -- public API ----------------------------------------------------------
     def count(self) -> int:

@@ -142,16 +142,25 @@ def build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use)."""
+    """The loaded kernel library (built on first use).  A build or load
+    inside an active :class:`repro_torch.obs.DeviceProfile` is one of its
+    compile events."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+            t0 = time.perf_counter()
+            path = build()
+            lib = ctypes.CDLL(str(path))
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
             _lib = lib
+            # lazy: repro_torch.obs imports the engines, which import this
+            from ..obs.profile import current_profile
+            prof = current_profile()
+            if prof is not None:
+                prof.record_compile(path.name, time.perf_counter() - t0)
     return _lib
 
 

@@ -28,8 +28,9 @@ Concatenating every page reproduces ``VLFTJ.enumerate`` exactly: the
 frontier is lex-sorted, per-row extensions ascend, so pages arrive in
 global lexicographic order.
 
-The reference's device-profile hook around the expansion
-(``repro.obs.profile``) is left out until the port has ``obs/``.
+With a :class:`repro_torch.obs.DeviceProfile` active, each expansion
+is one call of the ``segment_outer`` family, timed on the host clock
+(the expansion is host numpy), as the JAX package names the same hook.
 
 ``from_rows`` / ``from_blocks`` wrap already-materialized output (the
 non-VLFTJ engines) in the same page interface, so every engine pages
@@ -37,12 +38,28 @@ the same way.
 """
 from __future__ import annotations
 
+import time
 from typing import Iterable, Iterator
 
 import numpy as np
 
 from ..core.vlftj import VLFTJ
 from .expand import segment_expand
+
+
+def _segment_expand(prefix, counts, vals):
+    """``segment_expand`` with the device-profile wall hook — two clock
+    reads when a profile is active, nothing otherwise."""
+    # lazy: repro_torch.obs imports core at package level
+    from ..obs.profile import current_profile
+    prof = current_profile()
+    if prof is None:
+        return segment_expand(prefix, counts, vals)
+    t0 = time.perf_counter()
+    out = segment_expand(prefix, counts, vals)
+    prof.record_jit_call()
+    prof.record_kernel("segment_outer", time.perf_counter() - t0)
+    return out
 
 
 class ResultCursor:
@@ -197,7 +214,7 @@ class ResultCursor:
                 self.stats["chunks"] += 1
                 for s in range(0, vals.shape[0], self.page_rows):
                     part = vals[s:s + self.page_rows]
-                    yield segment_expand(
+                    yield _segment_expand(
                         frontier[i:i + 1],
                         np.array([part.shape[0]], dtype=np.int64), part)
             return
@@ -244,8 +261,8 @@ class ResultCursor:
                     chunk.astype(np.int32), valid)
                 self.stats["chunks"] += 1
                 if vals.shape[0]:
-                    yield segment_expand(chunk[:real], ccounts[:real],
-                                          vals)
+                    yield _segment_expand(chunk[:real], ccounts[:real],
+                                           vals)
                 i = j
 
     # -- paging --------------------------------------------------------------

@@ -41,7 +41,14 @@ def test_importing_every_port_module_imports_no_jax():
             "repro_torch.core.binary_join", "repro_torch.graphs.io",
             "repro_torch.analysis", "repro_torch.analysis.findings",
             "repro_torch.analysis.recompile",
-            "repro_torch.analysis.verifier"} <= set(mods)
+            "repro_torch.analysis.verifier",
+            "repro_torch.analysis.__main__",
+            "repro_torch.obs", "repro_torch.obs.schema",
+            "repro_torch.obs.metrics", "repro_torch.obs.trace",
+            "repro_torch.obs.profile", "repro_torch.obs.explain",
+            "repro_torch.obs.export_trace",
+            "repro_torch.serve", "repro_torch.serve.query_server",
+            "repro_torch.serve.scheduler"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -86,6 +93,24 @@ def test_default_device_is_the_card(monkeypatch):
     assert db.dev("indices").device.type == "cpu"
     hdb = HybridGraphDB.build(g, device="cpu")
     assert hdb.dev("bitset_words").device.type == "cpu"
+
+
+def test_default_device_is_the_card_for_the_server(monkeypatch):
+    """``QueryServer(csr)`` with no device puts its graphs on the card:
+    without one it raises at construction; with one (stubbed here, the
+    graphs build their tensors lazily) every warmed ``GraphDB`` is on
+    ``cuda``.  ``device='cpu'`` is the explicit way to the CPU."""
+    import torch
+    from repro_torch.serve import QueryServer
+    g = erdos_renyi(20, 40, seed=0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        QueryServer(g)
+    assert QueryServer(g, device="cpu")._gdb_for(4, 0).device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    srv = QueryServer(g)
+    assert srv.device == torch.device("cuda")
+    assert srv._gdb_for(4, 0).device.type == "cuda"
 
 
 def test_default_device_is_the_card_for_the_transformer(monkeypatch):
