@@ -97,10 +97,12 @@ kernels' launch counters set to 0 just before it and read just after:
 The counts are checked against counts made on the host with scipy and
 numpy alone (the cliques, 3-path and lollipops), across the two dbs
 where the filters are renumbering invariant, and 3-path and the
-2-lollipop against ``engine="vlftj"``.  At 2% scale every shape but the
+2-lollipop against ``engine="vlftj"``.  At 5% scale every shape but the
 3-lollipop is enumerated on the card and on the port's plain CPU path,
-and the arrays must be identical (the 3-lollipop's 332,926,959 rows are
-too many to materialize; its counts are compared instead).  Any failure
+and the arrays must be identical (the CPU half runs in a child process
+beside the card paths and sends back each array's SHA-256 digest; the
+3-lollipop's 725,940,260 rows are too many to materialize; its counts
+are compared instead).  Any failure
 raises and exits non-zero.
 
 Needs one CUDA device and the rest of the repository; it imports nothing
@@ -114,6 +116,7 @@ the query server's phase alone).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -131,9 +134,7 @@ PATTERNS = {"3-clique": ("ab ac bc", "ab bc"),
             "4-clique": ("ab ac ad bc bd cd", "ab bc cd"),
             "4-cycle": ("ab bc cd da", "ab bc cd")}
 DATASET, SEED, SELECTIVITY = "soc-Slashdot0811", 0, 8.0
-#: the enumeration check's scale: 2% keeps the 2-lollipop at 13.8 M rows
-#: (33 M at 5%, whose four enumerations took ~195 s of a run)
-SMALL_SCALE = 0.02
+SMALL_SCALE = 0.05
 #: shapes enumerated at SMALL_SCALE (the 3-lollipop's output is too big)
 ENUM_SHAPES = SHAPES[:-1]
 #: check_mode="auto"'s tile width on the main path, and the tile width of
@@ -274,7 +275,7 @@ def device_ms(fn, reps: int, kernel: str, *more: str) -> float:
     that ``cuda_ms`` includes when a call's host work outlasts its kernel.
     The kernels named in ``more`` (launched with it, as a second pass)
     add their time to it.  Fails if the profiler records no launch of
-    ``kernel``, twice."""
+    ``kernel``, twice, naming what it recorded on the device instead."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -283,6 +284,7 @@ def device_ms(fn, reps: int, kernel: str, *more: str) -> float:
 
     fn()
     torch.cuda.synchronize()
+    seen = []
     for _ in range(2):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -293,7 +295,9 @@ def device_ms(fn, reps: int, kernel: str, *more: str) -> float:
         if n:
             return sum(device_us(e) for e in events
                        if named(e, (kernel, *more))) / 1e3 / n
-    raise SmokeFailure(f"the profiler recorded no launch of {kernel}")
+        seen.append([(e.key[:80], e.count) for e in events if device_us(e)])
+    raise SmokeFailure(f"the profiler recorded no launch of {kernel}; on "
+                       f"the device it recorded {seen}")
 
 
 def level_inputs(db, rng, rows: int, hubs_only: bool,
@@ -2020,54 +2024,88 @@ def cross_checks(T, dbs, counts):
                  f"vlftj {n}")
 
 
-def small_scale(T):
-    """At 2% scale, every shape but the 3-lollipop enumerated on the card
-    and on the plain CPU path (identical arrays), the 3-lollipop counted
-    on both; on the card, each enumeration's length against its count and
-    three counts against ``engine="vlftj"``."""
+def rows_digest(rows: np.ndarray) -> tuple:
+    """``(shape, dtype, SHA-256 of the bytes)`` of an array: equal for
+    identical arrays, so two processes compare rows without sending
+    them."""
+    import hashlib
+    rows = np.ascontiguousarray(rows)
+    return rows.shape, str(rows.dtype), hashlib.sha256(rows.data).hexdigest()
+
+
+def small_scale_host(T) -> dict:
+    """The CPU half of :func:`small_scale`, in a child process: on the
+    plain CPU path at ``SMALL_SCALE``, ``(db, shape) -> ("rows", digest,
+    seconds)`` for the shapes of ``ENUM_SHAPES`` and ``("count", n,
+    seconds)`` for the 3-lollipop."""
+    from repro_torch.core import engine as E
+    _, db, hdb = bench_gdb(T, SMALL_SCALE, "cpu")
+    out = {}
+    for db_name, d in (("plain", db), ("hybrid", hdb)):
+        for shape in SHAPES:
+            t0 = time.perf_counter()
+            q = T.get_query(shape)
+            if shape in ENUM_SHAPES:
+                got = ("rows", rows_digest(E.enumerate(q, d,
+                                                       mode="flat").rows))
+            else:
+                got = ("count", T.count(q, d))
+            out[db_name, shape] = got + (time.perf_counter() - t0,)
+    return out
+
+
+def small_scale(T, worker):
+    """At 5% scale, every shape but the 3-lollipop enumerated on the card
+    and on the plain CPU path (identical arrays: the CPU half,
+    :func:`small_scale_host`, runs in ``worker`` and sends each array's
+    digest), the 3-lollipop counted on both; on the card, each
+    enumeration's length against its count and three counts against
+    ``engine="vlftj"``."""
     import torch
     from repro_torch.core import engine as E
-    got, card_rows = {}, {}
-    for device in ("cuda", "cpu"):
-        _, db, hdb = bench_gdb(T, SMALL_SCALE, device)
-        for db_name, d in (("plain", db), ("hybrid", hdb)):
-            for shape in SHAPES:
-                t0 = time.perf_counter()
-                q = T.get_query(shape)
-                if shape not in ENUM_SHAPES:
-                    got[device, db_name, shape] = T.count(q, d)
-                    continue
-                rows = E.enumerate(q, d, mode="flat").rows
-                got[device, db_name, shape] = rows.shape[0]
-                if device == "cuda":
-                    n = T.count(q, d)
-                    need(n == rows.shape[0],
-                         f"scale {SMALL_SCALE} {db_name} {shape}: "
-                         f"{rows.shape[0]} rows != count {n}")
-                    card_rows[db_name, shape] = rows
-                else:
-                    need(np.array_equal(rows, card_rows.pop((db_name, shape))),
-                         f"scale {SMALL_SCALE} {db_name} {shape}: card and "
-                         "CPU enumerations differ")
-                log(f"enumerate {device} {db_name} {shape}: {rows.shape[0]} "
-                    f"rows ({time.perf_counter() - t0:.3f} s)")
-        if device == "cuda":
-            torch.cuda.synchronize()
-            for shape in ("3-path", "2-lollipop", "3-lollipop"):
-                t0 = time.perf_counter()
-                n = T.count(T.get_query(shape), db, engine="vlftj")
-                log(f"vlftj scale {SMALL_SCALE} plain {shape}: {n} "
-                    f"({time.perf_counter() - t0:.3f} s)")
-                need(n == got[device, "plain", shape],
-                     f"scale {SMALL_SCALE} {shape}: auto "
-                     f"{got[device, 'plain', shape]} != vlftj {n}")
-    for (device, db_name, shape), n in got.items():
-        if device == "cuda":
-            need(n == got["cpu", db_name, shape],
-                 f"scale {SMALL_SCALE} {db_name} {shape}: cuda {n} != cpu "
-                 f"{got['cpu', db_name, shape]}")
+    _, db, hdb = bench_gdb(T, SMALL_SCALE, "cuda")
+    card = {}
+    for db_name, d in (("plain", db), ("hybrid", hdb)):
+        for shape in SHAPES:
+            t0 = time.perf_counter()
+            q = T.get_query(shape)
+            if shape not in ENUM_SHAPES:
+                card[db_name, shape] = ("count", T.count(q, d))
+                continue
+            rows = E.enumerate(q, d, mode="flat").rows
+            n = T.count(q, d)
+            need(n == rows.shape[0],
+                 f"scale {SMALL_SCALE} {db_name} {shape}: "
+                 f"{rows.shape[0]} rows != count {n}")
+            card[db_name, shape] = ("rows", rows_digest(rows))
+            log(f"enumerate cuda {db_name} {shape}: {rows.shape[0]} rows "
+                f"({time.perf_counter() - t0:.3f} s)")
+    torch.cuda.synchronize()
+
+    def size(v):
+        return v[1][0][0] if v[0] == "rows" else v[1]
+
+    for shape in ("3-path", "2-lollipop", "3-lollipop"):
+        t0 = time.perf_counter()
+        n = T.count(T.get_query(shape), db, engine="vlftj")
+        log(f"vlftj scale {SMALL_SCALE} plain {shape}: {n} "
+            f"({time.perf_counter() - t0:.3f} s)")
+        need(n == size(card["plain", shape]),
+             f"scale {SMALL_SCALE} {shape}: auto "
+             f"{size(card['plain', shape])} != vlftj {n}")
+    t0 = time.perf_counter()
+    host = host_result(worker, "the small-scale CPU enumerations")
+    log(f"small scale: waited {time.perf_counter() - t0:.2f} s for the CPU "
+        "half")
+    need(set(host) == set(card), f"CPU half ran {sorted(host)}")
+    for (db_name, shape), (kind, got, secs) in host.items():
+        log(f"{'enumerate' if kind == 'rows' else 'count'} cpu {db_name} "
+            f"{shape}: {size((kind, got))} ({secs:.3f} s, in the child)")
+        need((kind, got) == card[db_name, shape],
+             f"scale {SMALL_SCALE} {db_name} {shape}: card "
+             f"{card[db_name, shape]} != CPU {(kind, got)}")
     log("scale", SMALL_SCALE, json.dumps(
-        {f"{db}/{s}": n for (dv, db, s), n in got.items() if dv == "cuda"}))
+        {f"{db}/{s}": size(v) for (db, s), v in card.items()}))
 
 
 def baseline_records() -> dict:
@@ -2178,35 +2216,55 @@ def scalar_counts(T, device: str) -> dict:
     return out
 
 
-def _scalar_worker(conn, src: str) -> None:
-    """Child process: :func:`scalar_counts` on the host, sent back as
-    ``("ok", counts)`` or ``("error", traceback)``.  The scalar oracles
-    read only the db's host CSR, so the child never touches the card."""
+def _host_worker(conn, src: str, job: str, threads: int) -> None:
+    """Child process: the host job ``job`` (``"scalar"``,
+    :func:`scalar_counts` on the CPU, or ``"small"``,
+    :func:`small_scale_host`), sent back as ``("ok", result)`` or
+    ``("error", traceback)``.  Both read host data alone, so the child
+    never touches the card."""
     import traceback
     try:
         sys.path.insert(0, src)
         import torch
-        torch.set_num_threads(1)
+        torch.set_num_threads(threads)
         import repro_torch.core as T
-        conn.send(("ok", scalar_counts(T, "cpu")))
+        if job == "scalar":
+            conn.send(("ok", scalar_counts(T, "cpu")))
+        else:
+            conn.send(("ok", small_scale_host(T)))
     except Exception:
         conn.send(("error", traceback.format_exc()))
     finally:
         conn.close()
 
 
-def start_scalar_counts(src: Path):
-    """Start :func:`scalar_counts` in a child process (the scalar
-    oracles are host-bound Python for minutes, so they run beside the
-    card paths); returns ``(process, receiving end)``."""
+def start_host_job(src: Path, job: str, threads: int = 1):
+    """Start :func:`_host_worker` on ``job`` in a child process (host-bound
+    work for minutes, run beside the card paths); returns ``(process,
+    receiving end)``."""
     import multiprocessing
     ctx = multiprocessing.get_context("spawn")
     recv, send = ctx.Pipe(duplex=False)
-    proc = ctx.Process(target=_scalar_worker, args=(send, str(src)),
-                       daemon=True)
+    proc = ctx.Process(target=_host_worker,
+                       args=(send, str(src), job, threads), daemon=True)
     proc.start()
     send.close()
     return proc, recv
+
+
+def host_result(worker, what: str):
+    """Wait for the result of ``worker`` (:func:`start_host_job`); fails
+    if it died or raised."""
+    proc, recv = worker
+    try:
+        status, out = recv.recv()
+    except EOFError:
+        proc.join()
+        raise SmokeFailure(f"the worker of {what} died with exit code "
+                           f"{proc.exitcode}") from None
+    proc.join()
+    need(status == "ok", f"{what} failed:\n{out}")
+    return out
 
 
 def scalar_oracles(T, worker, device: str = "cuda") -> None:
@@ -2217,17 +2275,9 @@ def scalar_oracles(T, worker, device: str = "cuda") -> None:
     identical arrays."""
     from repro_torch.core import engine as E
     from repro_torch.kernels import build
-    proc, recv = worker
     t0 = time.perf_counter()
-    try:
-        status, counts = recv.recv()
-    except EOFError:
-        proc.join()
-        raise SmokeFailure("the scalar oracle worker died with exit code "
-                           f"{proc.exitcode}") from None
+    counts = host_result(worker, "the scalar oracle counts")
     waited = time.perf_counter() - t0
-    proc.join()
-    need(status == "ok", f"scalar oracle counts failed:\n{counts}")
     db = oracle_gdb(T, ORACLE_DATASET, T6_SCALE, 8.0, device)
     before = dict(build.LAUNCHES)
     rows, walls = {}, {}
@@ -2305,7 +2355,7 @@ def verifier_lines(T, dbs) -> None:
 
 def oracles_phase(T, dbs, worker) -> dict:
     """The ``oracles`` phase: Tables 6 and 7, the scalar oracles (their
-    counts from ``worker``, :func:`start_scalar_counts`) and the verifier
+    counts from ``worker``, :func:`start_host_job`) and the verifier
     lines; returns the launches of the tables' card counts."""
     t0 = time.perf_counter()
     launches = oracle_tables(T)
@@ -2333,10 +2383,6 @@ SERVE_QUANTA = 200
 #: would fail the job with a 429-style result at its first parking
 SERVE_PARK_BYTES = 4 << 30
 SERVE_PAGE_ROWS, SERVE_PAGES = 20_000, 5
-#: the rows check enumerates the whole 3-path to compare pages with
-#: ``enumerate(limit=)``: it takes the first selectivity (of the second
-#: and sparser ones) whose 3-path count is at most this
-SERVE_ROWS_MAX = 20_000_000
 #: ``benchmarks/bench_serve.py``'s quick workload (the JAX package's
 #: ``BENCH_serve.json``): one heavy full-graph 3-path enumeration and 16
 #: small 3-path counts on ``powerlaw_cluster(800, 5, seed=0)``
@@ -2350,20 +2396,40 @@ SERVE_BENCH_EXACT = ("heavy_rows_expanded", "heavy_quanta",
                      "small_p50_vclock", "small_p99_vclock")
 
 
-def serve_at_scale(T, g, device: str = "cuda"):
+class ServedLaunches:
+    """Kernel launches of the served calls alone: :meth:`window` sets the
+    counters to 0 just before a served call and adds them up just after,
+    so the direct counts and other references between windows are left
+    out."""
+
+    def __init__(self):
+        from repro_torch.kernels import build
+        self.build = build
+        self.total = dict.fromkeys(build.LAUNCHES, 0)
+
+    @contextlib.contextmanager
+    def window(self):
+        self.build.reset_launches()
+        yield
+        for k, n in self.build.LAUNCHES.items():
+            self.total[k] += n
+
+
+def serve_at_scale(T, g, served: ServedLaunches):
     """``execute_many`` of the six shapes at both selectivities, twice
     (the second pass all plan-cache hits), each count held to a direct
     ``count`` with the result's engine on the server's warmed db.  Returns
     the server and the counts."""
     import torch
     from repro_torch.serve import QueryRequest, QueryServer
-    server = QueryServer(g, device=device)
+    server = QueryServer(g, device="cuda")
     reqs = [QueryRequest(shape, selectivity=sel, seed=0)
             for sel in SERVE_SELECTIVITIES for shape in SHAPES]
     counts = {}
     for rnd in (1, 2):
         t0 = time.perf_counter()
-        results = server.execute_many(reqs)
+        with served.window():
+            results = server.execute_many(reqs)
         wall = time.perf_counter() - t0
         for r in results:
             key = (r.request.query_name, r.request.selectivity)
@@ -2387,13 +2453,12 @@ def serve_at_scale(T, g, device: str = "cuda"):
                          engine=engine)
         need(direct == n, f"serve {shape} sel {sel}: {n} != direct "
              f"{engine} count {direct}")
-    if device == "cuda":
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
     log(f"serve direct counts: {time.perf_counter() - t0:.2f} s, all equal")
     return server, counts
 
 
-def serve_preemption(T, g, server, counts, device: str = "cuda") -> dict:
+def serve_preemption(T, g, server, counts, served: ServedLaunches) -> dict:
     """The 4-cycle through ``execute_concurrent`` beside four small
     3-cliques: first in ``fifo`` (unpreempted, the wall to compare), then
     with a quantum that cuts it into ~``SERVE_QUANTA`` quanta; then a
@@ -2416,10 +2481,11 @@ def serve_preemption(T, g, server, counts, device: str = "cuda") -> dict:
         if policy == "quantum":
             quantum = max(64, out["fifo"]["rows_expanded"] // SERVE_QUANTA)
         t0 = time.perf_counter()
-        res = server.execute_concurrent(
-            [heavy] + smalls, policy=policy,
-            quantum_rows=quantum or SERVE_BENCH_QUANTUM,
-            quotas={heavy.tenant: quota})
+        with served.window():
+            res = server.execute_concurrent(
+                [heavy] + smalls, policy=policy,
+                quantum_rows=quantum or SERVE_BENCH_QUANTUM,
+                quotas={heavy.tenant: quota})
         wall = time.perf_counter() - t0
         need(all(r.engine != "rejected" for r in res),
              f"scheduled ({policy}): {[r.stats.get('error') for r in res]}")
@@ -2443,8 +2509,10 @@ def serve_preemption(T, g, server, counts, device: str = "cuda") -> dict:
     sched = QuantumScheduler(server, quantum_rows=quantum,
                              default_quota=quota)
     token = sched.submit(heavy)
-    while sched.stats["quanta"] < out["quantum"]["quanta"] // 2:
-        need(sched.step(), "the 4-cycle finished before its halfway point")
+    with served.window():
+        while sched.stats["quanta"] < out["quantum"]["quanta"] // 2:
+            need(sched.step(),
+                 "the 4-cycle finished before its halfway point")
     snap = server._cursors[token][0]
     need(isinstance(snap, PlanSnapshot), f"parked {type(snap).__name__}")
     wire = snap.to_bytes()
@@ -2453,14 +2521,15 @@ def serve_preemption(T, g, server, counts, device: str = "cuda") -> dict:
     out["snapshot"] = dict(phase=back.phase, level=back.start_level,
                            frontier_rows=int(back.frontier.shape[0]),
                            offset=back.offset, bytes=len(wire))
-    fresh = QueryServer(g, device=device)
+    fresh = QueryServer(g, device="cuda")
     resumed = QuantumScheduler(fresh, quantum_rows=quantum,
                                default_quota=quota)
     tok = resumed.submit(heavy)
     job = resumed._jobs[0]
     fresh._register_cursor(back, job.label, job.plan, token=tok)
     t0 = time.perf_counter()
-    (res,) = resumed.run()
+    with served.window():
+        (res,) = resumed.run()
     need(res.count == want,
          f"snapshot resume: {res.count} != {want}")
     out["snapshot"].update(resume_quanta=res.stats["quanta"],
@@ -2471,30 +2540,32 @@ def serve_preemption(T, g, server, counts, device: str = "cuda") -> dict:
     return out
 
 
-def serve_rows(T, server) -> None:
+def serve_rows(T, server, served: ServedLaunches) -> None:
     """A ``limit=`` 3-path request and its ``next_cursor`` continuations:
-    the pages, concatenated, equal ``enumerate(..., limit=)`` row for
-    row."""
+    ``SERVE_PAGES`` full pages that, concatenated, equal
+    ``enumerate(..., limit=)`` row for row."""
     from repro_torch.core import engine as E
     from repro_torch.serve import QueryRequest
     q = T.get_query("3-path")
-    for sel in (SERVE_SELECTIVITIES[1], 10 * SERVE_SELECTIVITIES[1],
-                100 * SERVE_SELECTIVITIES[1]):
-        total = T.count(q, server._gdb_for(sel, 0))
-        if total <= SERVE_ROWS_MAX:
-            break
-    need(total <= SERVE_ROWS_MAX, f"3-path count {total} at sel {sel}")
+    sel = SERVE_SELECTIVITIES[1]
+    total = T.count(q, server._gdb_for(sel, 0))
+    need(total > SERVE_PAGES * SERVE_PAGE_ROWS,
+         f"3-path count {total} at sel {sel}: fewer than "
+         f"{SERVE_PAGES} pages")
     t0 = time.perf_counter()
-    first = server.execute(QueryRequest("3-path", engine="vlftj",
-                                        selectivity=sel,
-                                        limit=SERVE_PAGE_ROWS))
-    pages, tok, lat = [first.rows], first.next_cursor, [first.latency_s]
-    while tok is not None and len(pages) < SERVE_PAGES:
-        nxt = server.execute(QueryRequest("3-path", cursor=tok,
-                                          limit=SERVE_PAGE_ROWS))
-        pages.append(nxt.rows)
-        lat.append(nxt.latency_s)
-        tok = nxt.next_cursor
+    with served.window():
+        first = server.execute(QueryRequest("3-path", engine="vlftj",
+                                            selectivity=sel,
+                                            limit=SERVE_PAGE_ROWS))
+        pages, tok, lat = [first.rows], first.next_cursor, [first.latency_s]
+        while tok is not None and len(pages) < SERVE_PAGES:
+            nxt = server.execute(QueryRequest("3-path", cursor=tok,
+                                              limit=SERVE_PAGE_ROWS))
+            pages.append(nxt.rows)
+            lat.append(nxt.latency_s)
+            tok = nxt.next_cursor
+    need([p.shape[0] for p in pages] == [SERVE_PAGE_ROWS] * SERVE_PAGES,
+         f"3-path pages {[p.shape[0] for p in pages]}")
     rows = np.concatenate(pages)
     wall = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2508,10 +2579,11 @@ def serve_rows(T, server) -> None:
                         open_cursors=server.cursor_info())))
 
 
-def serve_bench_record(T, device: str = "cuda") -> dict:
+def serve_bench_record(T) -> dict:
     """``benchmarks/bench_serve.py``'s quick workload with the port, both
     policies, every deterministic field held to ``BENCH_serve.json``
-    exactly; the walls are printed beside the record's, not compared."""
+    exactly; the walls are printed beside the record's, not compared.
+    Returns the launches of its two scheduler runs."""
     from repro_torch.graphs import powerlaw_cluster
     from repro_torch.serve import (QuantumScheduler, QueryRequest,
                                    QueryServer, TenantQuota)
@@ -2519,9 +2591,9 @@ def serve_bench_record(T, device: str = "cuda") -> dict:
                          / BENCH_SERVE).read_text())["policies"]
     n, m, seed = SERVE_BENCH_GRAPH
     csr = powerlaw_cluster(n, m, seed=seed)
-    got = {}
+    got, launches = {}, ServedLaunches()
     for policy in ("fifo", "quantum"):
-        server = QueryServer(csr, page_rows=SERVE_BENCH_PAGE, device=device)
+        server = QueryServer(csr, page_rows=SERVE_BENCH_PAGE, device="cuda")
         sched = QuantumScheduler(
             server, quantum_rows=SERVE_BENCH_QUANTUM, policy=policy,
             default_quota=TenantQuota(max_in_flight=SERVE_BENCH_SMALL + 1))
@@ -2530,9 +2602,10 @@ def serve_bench_record(T, device: str = "cuda") -> dict:
         reqs += [QueryRequest("3-path", engine="vlftj", seed=i % 4)
                  for i in range(SERVE_BENCH_SMALL)]
         t0 = time.time()
-        for req in reqs:
-            sched.submit(req, collect_rows=req.limit is None)
-        results = sched.run()
+        with launches.window():
+            for req in reqs:
+                sched.submit(req, collect_rows=req.limit is None)
+            results = sched.run()
         wall_s = time.time() - t0
         heavy, smalls = results[0], results[1:]
         vlat = np.array([r.stats["vclock_done"] - r.stats["vclock_submit"]
@@ -2553,11 +2626,11 @@ def serve_bench_record(T, device: str = "cuda") -> dict:
             small_p99_wall_us=float(np.percentile(wlat, 99) * 1e6),
             recorded_wall_s=record[policy]["wall_s"],
             recorded_small_p99_wall_us=record[policy]["small_p99_wall_us"])
-    log(json.dumps({"serve_bench": got}))
-    return got
+    log(json.dumps({"serve_bench": got, "launches": launches.total}))
+    return launches.total
 
 
-def serve_observability(T, server, device: str = "cuda") -> None:
+def serve_observability(T, server) -> None:
     """One traced and profiled request; profile on against off; the
     profile against the static census; EXPLAIN ANALYZE; the metrics
     snapshot; profiles in two threads at once."""
@@ -2596,7 +2669,7 @@ def serve_observability(T, server, device: str = "cuda") -> None:
     need(0 < kernel_s <= res.latency_s,
          f"event-timed kernel wall {kernel_s} s not in (0, "
          f"{res.latency_s}]")
-    need(device != "cuda" or prof.memory["device_peak_bytes"] is not None,
+    need(prof.memory["device_peak_bytes"] is not None,
          "no device peak bytes on the card")
     gdb = server._gdb_for(sel, 0)
     audit = audit_recompilation(res.plan, T.GraphStats.of(gdb))
@@ -2638,30 +2711,30 @@ def serve_observability(T, server, device: str = "cuda") -> None:
         profile_off_latency_s=[r.latency_s for r, _ in runs[False]])))
 
 
-def serve_phase(T, g, device: str = "cuda") -> dict:
+def serve_phase(T, g) -> tuple:
     """The ``serve`` phase: the query server and its scheduler at
     ``soc-Slashdot0811`` scale, the JAX package's serve record, and the
-    observability they report through.  The launch counters are set to 0
-    just before and read just after; returns them."""
-    from repro_torch.kernels import build
-    build.reset_launches()
+    observability they report through.  Returns the launches of the
+    served calls at scale (each window's counters set to 0 just before
+    the call and read just after; the direct counts and ``enumerate``
+    they are held to fall outside) and those of the record's workload."""
+    served = ServedLaunches()
     t0 = time.perf_counter()
-    server, counts = serve_at_scale(T, g, device)
+    server, counts = serve_at_scale(T, g, served)
     log(f"serve at scale: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    serve_preemption(T, g, server, counts, device)
+    serve_preemption(T, g, server, counts, served)
     log(f"serve preemption: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    serve_rows(T, server)
+    serve_rows(T, server, served)
     log(f"serve rows: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    serve_bench_record(T, device)
+    record = serve_bench_record(T)
     log(f"serve record: {time.perf_counter() - t0:.2f} s")
-    launches = dict(build.LAUNCHES)
     t0 = time.perf_counter()
-    serve_observability(T, server, device)
+    serve_observability(T, server)
     log(f"serve observability: {time.perf_counter() - t0:.2f} s")
-    return launches
+    return served.total, record
 
 
 def main(argv=None) -> int:
@@ -2694,21 +2767,23 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    worker = None
+    workers = {}
     if "join" in phases or "oracles" in phases:
-        worker = start_scalar_counts(src)
+        workers["scalar"] = start_host_job(src, "scalar")
+    if "join" in phases:
+        workers["small"] = start_host_job(src, "small", threads=2)
     try:
-        return run_phases(T, phases, smi, worker)
+        return run_phases(T, phases, smi, workers)
     finally:
-        if worker is not None and worker[0].is_alive():
-            worker[0].terminate()
-        if worker is not None:
-            worker[0].join()
+        for proc, _ in workers.values():
+            if proc.is_alive():
+                proc.terminate()
+            proc.join()
 
 
-def run_phases(T, phases, smi: str, worker) -> int:
-    """The phases of ``main``, in order; ``worker`` computes the scalar
-    oracles' counts beside them."""
+def run_phases(T, phases, smi: str, workers: dict) -> int:
+    """The phases of ``main``, in order; ``workers`` compute the scalar
+    oracles' counts and the small-scale CPU enumerations beside them."""
     import torch
     from repro_torch.configs import CHATGLM3_6B, STABLELM_3B
     from repro_torch.kernels import build
@@ -2768,20 +2843,23 @@ def run_phases(T, phases, smi: str, worker) -> int:
         log(f"stream path: {time.perf_counter() - t0:.2f} s, launches "
             f"{stream_launches}")
         t0 = time.perf_counter()
-        small_scale(T)
+        small_scale(T, workers["small"])
         log(f"small scale: {time.perf_counter() - t0:.2f} s")
     if "join" in phases or "oracles" in phases:
         t0 = time.perf_counter()
-        oracles_phase(T, dbs, worker)
+        oracles_phase(T, dbs, workers["scalar"])
         log(f"oracles: {time.perf_counter() - t0:.2f} s")
 
     if "serve" in phases:
         t0 = time.perf_counter()
-        serve_launches = serve_phase(T, g)
-        log(f"serve: {time.perf_counter() - t0:.2f} s, launches "
-            f"{serve_launches}")
-        need(serve_launches["searchsorted_segments"] > 0,
-             "the serve path never launched searchsorted_segments")
+        serve_launches, record_launches = serve_phase(T, g)
+        log(f"serve: {time.perf_counter() - t0:.2f} s, launches of the "
+            f"served calls {serve_launches}, of the record's workload "
+            f"{record_launches}")
+        for name, n in (("served calls", serve_launches),
+                        ("record's workload", record_launches)):
+            need(n["searchsorted_segments"] > 0,
+                 f"the {name} never launched searchsorted_segments")
 
     if "lm" in phases:
         # each model's serving path with its own counters, summed
