@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases kernels,join,serve,lm]
+    python3 chip_smoke.py [--phases kernels,join,serve,dist,lm]
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
 kernel against its plain PyTorch version at the main path's shapes
@@ -85,6 +85,21 @@ kernels' launch counters set to 0 just before it and read just after:
   peak bytes, ``check_runtime`` clean), with the same count, engine
   meters and launches as with neither, EXPLAIN ANALYZE, the metrics
   snapshot, and two threads profiling at once;
+* ``dist``: the server's partitioned route (``dist_edge_threshold``
+  lowered to the graph's 1,778,854 directed edges) answers the 3-clique,
+  4-clique, 4-cycle and 3-path at selectivity 8 as ``vlftj+partitioned``
+  over 4 worker threads x 2 parts, each count equal to the same parts
+  run in sequence and to the unpartitioned engine (the three walls
+  printed), the lollipops through the planner's engine on the same
+  server, 3-path pages through the route equal to
+  ``enumerate(limit=)``, and a dead worker's parts re-dealt; every
+  deterministic field of ``BENCH_dist.json``'s join, skew and
+  sharded-CSR rows held exactly (``spmd_join_step`` and
+  ``AdaptiveJoin`` on the card, ``sharded_count`` on the host); the
+  SPMD steps at world size 1 over NCCL at full scale (the 889,427-row
+  triangle level replicated, with a ``FrontierRebalancer``, and over a
+  1-shard ``ShardedGraphDB``, each equal to the 3-clique count, and the
+  SpMV against ``index_add_``);
 * chatglm3-6b and stablelm-3b served at full width and depth in bf16
   (``lm serve``): 4 requests of 2048 prompt tokens, prefill (one launch
   of the wgmma flash kernel a layer, 28 and 32, none of the mma.sync
@@ -112,7 +127,8 @@ line, the card's name and power limit, and as its last line
 kernels against their plain versions, the join paths, the LM paths, or
 ``oracles``, the last part of the join paths alone) and then prints
 neither the ``kernels`` line nor the last line (``--phases serve`` runs
-the query server's phase alone).
+the query server's phase alone, ``--phases dist`` distributed
+execution's).
 """
 from __future__ import annotations
 
@@ -199,8 +215,9 @@ OUTER_KERNELS = ("segment_outer_kernel", "segment_outer_merge_kernel",
 
 
 #: what a run drives, in order: the kernels against their plain versions,
-#: the join paths, the query server and its scheduler, the LM paths
-PHASES = ("kernels", "join", "serve", "lm")
+#: the join paths, the query server and its scheduler, distributed
+#: execution, the LM paths
+PHASES = ("kernels", "join", "serve", "dist", "lm")
 #: the join path's kernel functions, reported by name in count profiles
 PORT_JOIN_KERNELS = ("searchsorted_segments_kernel", "tile_member_mask_kernel",
                      "bitset_member_mask_kernel")
@@ -2737,6 +2754,346 @@ def serve_phase(T, g) -> tuple:
     return served.total, record
 
 
+#: the ``dist`` phase: the query server's partitioned route on the
+#: soc-Slashdot CSR (the threshold lowered to the graph's own edges: no
+#: SNAP_LIKE graph reaches the default 4,194,304), ``DIST_WORKERS`` x
+#: ``DIST_GRANULARITY`` parts, each routed shape's count on the thread
+#: pool, in sequence and unpartitioned.  The lollipops are served with
+#: the planner's engine on the same server: the 2-lollipop's vlftj count
+#: took ~20 s in sequence and ~94 s on the pool on one H100 80GB HBM3 at
+#: 700 W, and the 3-lollipop's vlftj plan materializes a ~744 M-row
+#: frontier
+DIST_SELECTIVITY = 8.0
+DIST_WORKERS, DIST_GRANULARITY = 4, 2
+DIST_ROUTED = ("3-clique", "4-clique", "4-cycle", "3-path")
+#: ``benchmarks/bench_dist.py``'s quick workloads (the JAX package's
+#: ``BENCH_dist.json``): the triangle level of ``powerlaw_cluster(1200,
+#: 6, seed=0)`` padded to the record's 8 devices; the Zipf 3-path skew
+#: rows (``zipf_graph(8000, 200000, alpha=1.4, seed=0)``, samples at
+#: selectivity 150, 16 shards, threshold 1.2); the sharded-CSR rows
+#: (``powerlaw_cluster(300, 4, seed=11)``, samples at selectivity 6, 8
+#: shards, a fresh ``ShardedGraphDB`` per shape)
+BENCH_DIST = "BENCH_dist.json"
+DIST_JOIN_GRAPH, DIST_JOIN_PAD = (1200, 6, 0), 8
+DIST_SKEW_GRAPH, DIST_SKEW_SEL = (8000, 200000, 1.4, 0), 150
+DIST_SKEW_SHARDS, DIST_SKEW_THRESHOLD = 16, 1.2
+DIST_CSR_GRAPH, DIST_CSR_SEL, DIST_CSR_SHARDS = (300, 4, 11), 6, 8
+#: the record's fields that depend only on the data (its ``us_per_call``,
+#: ``rows_per_s``, ``makespan_ratio`` and ``total_time_us`` are a TPU or
+#: CPU run's walls, never compared)
+DIST_EXACT = {"join": ("rows", "triangles"),
+              "skew": ("count", "shards", "cost_makespan", "rebalances",
+                       "cost_ratio"),
+              "sharded_csr": ("count", "match", "shards",
+                              "exchanged_values")}
+
+
+def dist_route(T, g) -> dict:
+    """The server's partitioned route at scale: each routed shape's count
+    through ``QueryServer(..., dist_edge_threshold=g.n_edges)`` (the
+    thread pool), then the same parts in sequence and the unpartitioned
+    engine, all equal; the lollipops through the planner's engine on the
+    same server; 3-path pages through the route
+    against ``enumerate(limit=)``.  Returns the launches of the routed
+    calls alone."""
+    import torch
+    from repro_torch.core import engine as E
+    from repro_torch.dist import PartitionedJoin
+    from repro_torch.serve import QueryRequest, QueryServer
+    server = QueryServer(g, device="cuda", dist_edge_threshold=g.n_edges,
+                         dist_workers=DIST_WORKERS,
+                         dist_granularity=DIST_GRANULARITY)
+    routed = ServedLaunches()
+    gdb = server._gdb_for(DIST_SELECTIVITY, 0)
+    for shape in DIST_ROUTED:
+        q = T.get_query(shape)
+        t0 = time.perf_counter()
+        with routed.window():
+            res = server.execute(QueryRequest(
+                shape, engine="vlftj", selectivity=DIST_SELECTIVITY))
+        routed_s = time.perf_counter() - t0
+        st = server.last_dist_stats
+        need(res.engine == "vlftj+partitioned",
+             f"dist {shape}: served by {res.engine}")
+        need(st["parts"] == DIST_WORKERS * DIST_GRANULARITY
+             and st["backend"] == "thread", f"dist {shape}: {st['parts']} "
+             f"parts on {st['backend']}")
+        need(st["makespan"] <= st["total_time"] + 1e-9,
+             f"dist {shape}: makespan {st['makespan']} > total "
+             f"{st['total_time']}")
+        thread = dict(wall_s=st["wall_time"], makespan_s=st["makespan"],
+                      total_s=st["total_time"],
+                      part_counts=st["part_counts"])
+        seq = PartitionedJoin(q, gdb, n_workers=DIST_WORKERS,
+                              granularity=DIST_GRANULARITY, plan=res.plan,
+                              backend="sequential")
+        n_seq = seq.count()
+        t0 = time.perf_counter()
+        direct = T.count(q, gdb, engine="vlftj")
+        torch.cuda.synchronize()
+        direct_s = time.perf_counter() - t0
+        need(res.count == n_seq == direct, f"dist {shape}: routed "
+             f"{res.count}, sequential {n_seq}, direct {direct}")
+        need(seq.stats["part_counts"] == st["part_counts"],
+             f"dist {shape}: part counts differ between the pool and "
+             "the sequence")
+        log(json.dumps(dict(
+            dist_route=shape, selectivity=DIST_SELECTIVITY, count=res.count,
+            engine=res.engine, request_s=routed_s, thread=thread,
+            sequential=dict(wall_s=seq.stats["wall_time"],
+                            total_s=seq.stats["total_time"]),
+            unpartitioned_s=direct_s,
+            thread_over_sequential=st["wall_time"]
+            / seq.stats["wall_time"])))
+    for shape in SHAPES:
+        if shape in DIST_ROUTED:
+            continue
+        res = server.execute(QueryRequest(shape,
+                                          selectivity=DIST_SELECTIVITY))
+        direct = T.count(T.get_query(shape), gdb, engine=res.engine)
+        need(res.engine != "vlftj" and res.count == direct,
+             f"dist {shape}: {res.engine} {res.count} != direct {direct}")
+        log(json.dumps(dict(dist_route=shape, engine=res.engine,
+                            count=res.count, latency_s=res.latency_s)))
+    # pages of the 3-path through the route
+    sel = SERVE_SELECTIVITIES[1]
+    q = T.get_query("3-path")
+    t0 = time.perf_counter()
+    with routed.window():
+        first = server.execute(QueryRequest(
+            "3-path", engine="vlftj", selectivity=sel,
+            limit=SERVE_PAGE_ROWS))
+        pages, tok = [first.rows], first.next_cursor
+        while tok is not None and len(pages) < SERVE_PAGES:
+            nxt = server.execute(QueryRequest("3-path", cursor=tok,
+                                              limit=SERVE_PAGE_ROWS))
+            pages.append(nxt.rows)
+            tok = nxt.next_cursor
+    wall = time.perf_counter() - t0
+    need(first.engine == "vlftj+partitioned",
+         f"dist 3-path pages served by {first.engine}")
+    need([p.shape[0] for p in pages] == [SERVE_PAGE_ROWS] * SERVE_PAGES,
+         f"dist 3-path pages {[p.shape[0] for p in pages]}")
+    rows = np.concatenate(pages)
+    want = E.enumerate(q, server._gdb_for(sel, 0), plan=first.plan,
+                       order=first.row_vars, limit=rows.shape[0]).rows
+    need(np.array_equal(rows, want), "dist 3-path pages != enumerate")
+    log(json.dumps(dict(dist_rows="3-path", selectivity=sel,
+                        pages=[int(p.shape[0]) for p in pages],
+                        wall_s=wall)))
+    # a dead worker: its parts re-dealt, its time 0
+    plan = server._plan_for(QueryRequest("4-cycle", engine="vlftj"),
+                            gdb)[0]
+    want = T.count(T.get_query("4-cycle"), gdb, engine="vlftj")
+    pj = PartitionedJoin(T.get_query("4-cycle"), gdb,
+                         n_workers=DIST_WORKERS,
+                         granularity=DIST_GRANULARITY, plan=plan, dead={2})
+    got = pj.count()
+    need(got == want and pj.stats["worker_time"][2] == 0.0
+         and 2 not in pj.schedule,
+         f"dead worker: {got} != {want} or worker 2 ran "
+         f"({pj.stats['worker_time']})")
+    log(json.dumps(dict(dist_dead_worker="4-cycle", count=got,
+                        worker_time=pj.stats["worker_time"],
+                        wall_s=pj.stats["wall_time"])))
+    return routed.total
+
+
+def dist_record() -> dict:
+    """``BENCH_dist.json``'s deterministic fields, by row name."""
+    rows = json.loads((Path(__file__).resolve().parent
+                       / BENCH_DIST).read_text())["rows"]
+    out = {}
+    for row in rows:
+        kind = row["name"].split("/")[0]
+        if kind in DIST_EXACT:
+            fields = dict(kv.split("=") for kv in row["derived"].split(";"))
+            out[row["name"]] = {k: fields[k] for k in DIST_EXACT[kind]
+                                if k in fields}
+    return out
+
+
+def hold(record: dict, name: str, got: dict) -> None:
+    """Each field of ``got`` (formatted as the record formats it) equal
+    to the record's row ``name``."""
+    want = record[name]
+    need(set(got) == set(want), f"BENCH_dist {name}: fields {sorted(got)} "
+         f"!= {sorted(want)}")
+    for k, v in got.items():
+        need(str(v) == want[k], f"BENCH_dist {name} {k}: {v} != recorded "
+             f"{want[k]}")
+
+
+def dist_bench(T, group) -> dict:
+    """Every deterministic field of ``BENCH_dist.json``'s join, skew and
+    sharded-CSR rows, held exactly: ``spmd_join_step`` on the card at
+    world size 1, ``AdaptiveJoin`` on the card, ``ShardedGraphDB`` /
+    ``sharded_count`` on the host (held against ``vlftj`` on the card).
+    Returns the walls beside the record's."""
+    import torch
+    from repro_torch.dist import (AdaptiveJoin, ShardedGraphDB,
+                                  sharded_count, spmd_join_step)
+    from repro_torch.graphs import node_sample, powerlaw_cluster, zipf_graph
+    record = dist_record()
+    out = {}
+    # join/<n>shard: the record pads the frontier to its 8 devices
+    n, m, seed = DIST_JOIN_GRAPH
+    g = powerlaw_cluster(n, m, seed=seed)
+    db = T.GraphDB(g, {}, device="cuda")
+    ea = g.edge_array()
+    fr = ea[ea[:, 0] < ea[:, 1]].astype(np.int32)
+    pad = (-fr.shape[0]) % DIST_JOIN_PAD
+    mult = np.concatenate([np.ones(fr.shape[0], np.int64),
+                           np.zeros(pad, np.int64)])
+    fr = np.concatenate([fr, np.zeros((pad, 2), np.int32)])
+    width, _ = T.executor_geometry(db.max_degree)
+    kw = dict(probe_cols=(0, 1), n_unary=0, lower_cols=(1,), upper_cols=(),
+              width=width, n_iter=db.bsearch_iters, needs_degree=False)
+    step = spmd_join_step(group, kw)
+    t0 = time.perf_counter()
+    tri = int(step(db.dev("indptr"), db.dev("indices"), fr, mult))
+    join_s = time.perf_counter() - t0
+    need(tri == T.VLFTJ(T.get_query("3-clique"), db).count(),
+         f"join: spmd {tri} != vlftj")
+    for name in ("join/1shard", "join/8shard"):
+        hold(record, name, {"rows": fr.shape[0], "triangles": tri})
+    out["join"] = dict(rows=int(fr.shape[0]), triangles=tri, wall_s=join_s)
+    # skew/static and skew/rebalanced
+    n, m, alpha, seed = DIST_SKEW_GRAPH
+    g = zipf_graph(n, m, alpha=alpha, seed=seed)
+    unary = {f"v{i}": node_sample(g.n_nodes, DIST_SKEW_SEL, seed=i)
+             for i in range(1, 5)}
+    db = T.GraphDB(g, unary, device="cuda")
+    q = T.get_query("3-path")
+    runs = {}
+    for label, rebalance in (("static", False), ("rebalanced", True)):
+        aj = AdaptiveJoin(q, db, n_shards=DIST_SKEW_SHARDS,
+                          threshold=DIST_SKEW_THRESHOLD, rebalance=rebalance)
+        t0 = time.perf_counter()
+        c = aj.count()
+        runs[label] = (c, aj.stats, time.perf_counter() - t0)
+    cost_ratio = (runs["rebalanced"][1]["cost_makespan"]
+                  / max(runs["static"][1]["cost_makespan"], 1e-12))
+    for label, (c, st, wall) in runs.items():
+        got = {"count": c, "shards": DIST_SKEW_SHARDS,
+               "cost_makespan": f"{st['cost_makespan']:.0f}",
+               "rebalances": len(st["rebalances"])}
+        if label == "rebalanced":
+            got["cost_ratio"] = f"{cost_ratio:.3f}"
+        hold(record, f"skew/{label}", got)
+        out[f"skew/{label}"] = dict(got, makespan_s=st["makespan"],
+                                    total_s=st["total_time"], wall_s=wall)
+    # sharded_csr/<shape>
+    n, m, seed = DIST_CSR_GRAPH
+    g = powerlaw_cluster(n, m, seed=seed)
+    unary = {f"v{i}": node_sample(g.n_nodes, DIST_CSR_SEL, seed=i)
+             for i in range(1, 5)}
+    db = T.GraphDB(g, unary, device="cuda")
+    for shape in SHAPES:
+        sg = ShardedGraphDB(g, DIST_CSR_SHARDS, unary)
+        t0 = time.perf_counter()
+        got = sharded_count(T.get_query(shape), sg)
+        wall = time.perf_counter() - t0
+        ref = T.count(T.get_query(shape), db, engine="vlftj")
+        fields = {"count": got, "match": int(got == ref),
+                  "shards": DIST_CSR_SHARDS,
+                  "exchanged_values": sg.exchange["values"]}
+        hold(record, f"sharded_csr/{shape}", fields)
+        out[f"sharded_csr/{shape}"] = dict(fields, wall_s=wall)
+    torch.cuda.synchronize()
+    log(json.dumps({"dist_bench": out}))
+    return out
+
+
+def dist_spmd(T, g, db, group) -> dict:
+    """The SPMD steps at soc-Slashdot0811 scale at world size 1 over
+    NCCL: the triangle level (every edge with a < b) replicated, with a
+    ``FrontierRebalancer`` as the plan's callback, and over a 1-shard
+    ``ShardedGraphDB``, each equal to the 3-clique count; the SpMV
+    against ``index_add_`` over the whole edge list.  Returns the
+    launches of the three join steps."""
+    import torch
+    from repro_torch.dist import (FrontierRebalancer, ShardedGraphDB,
+                                  spmd_join_step, spmd_sharded_join_step,
+                                  spmd_spmv_step)
+    q = T.get_query("3-clique")
+    want = T.count(q, db)
+    ea = g.edge_array()
+    fr = ea[ea[:, 0] < ea[:, 1]].astype(np.int32)
+    mult = np.ones(fr.shape[0], np.int64)
+    width, chunk = T.executor_geometry(db.max_degree)
+    kw = dict(probe_cols=(0, 1), n_unary=0, lower_cols=(1,), upper_cols=(),
+              width=width, n_iter=db.bsearch_iters, needs_degree=False)
+    # the rebalancer prices the plan's last level by its probe columns
+    # (the filter direction does not enter the cost)
+    plan = T.plan_query(q, T.GraphStats.of(db), engine="vlftj")
+    need(plan.levels[2].edge_sources == (0, 1),
+         f"3-clique's last level {plan.levels[2]}")
+    launches = ServedLaunches()
+    out = dict(rows=int(fr.shape[0]), width=width, chunk_rows=chunk,
+               count=want)
+    args = (db.dev("indptr"), db.dev("indices"), fr, mult)
+    t0 = time.perf_counter()
+    with launches.window():
+        got = int(spmd_join_step(group, kw)(*args))
+    out["replicated_s"] = time.perf_counter() - t0
+    need(got == want, f"spmd_join_step {got} != 3-clique {want}")
+    reb = FrontierRebalancer(plan, n_shards=8, degrees=g.degrees,
+                             threshold=1.01)
+    t0 = time.perf_counter()
+    with launches.window():
+        got = int(spmd_join_step(group, kw, plan=plan.with_level_callback(
+            reb))(*args))
+    out["rebalanced_s"] = time.perf_counter() - t0
+    need(got == want and reb.events,
+         f"rebalanced spmd_join_step {got} != {want} ({reb.events})")
+    out["rebalance"] = reb.events[0]
+    sgdb = ShardedGraphDB(g, 1)
+    t0 = time.perf_counter()
+    with launches.window():
+        got = spmd_sharded_join_step(group, kw, sgdb)(fr, mult)
+    out["sharded_s"] = time.perf_counter() - t0
+    need(got == want, f"spmd_sharded_join_step {got} != {want}")
+    idx, sid = db.dev("indices"), db.dev("src_ids")
+    c = torch.arange(g.n_nodes, dtype=torch.int64, device="cuda")
+    t0 = time.perf_counter()
+    y = spmd_spmv_step(group, g.n_nodes)(idx, sid, c)
+    torch.cuda.synchronize()
+    out["spmv_s"] = time.perf_counter() - t0
+    oracle = torch.zeros(g.n_nodes, dtype=torch.int64, device="cuda")
+    oracle.index_add_(0, sid.long(), c[idx.long()])
+    need(torch.equal(y, oracle), "spmd_spmv_step != index_add_")
+    out["launches"] = launches.total
+    log(json.dumps({"dist_spmd": out}))
+    return launches.total
+
+
+def dist_phase(T, g, db) -> dict:
+    """The ``dist`` phase: the server's partitioned route at scale, a dead
+    worker, ``BENCH_dist.json``'s deterministic fields, and the SPMD
+    steps over a world-size-1 NCCL group (an in-memory store, no
+    network), destroyed at the end.  Returns the launches of the routed
+    calls and of the SPMD join steps."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    routed = dist_route(T, g)
+    log(f"dist route: {time.perf_counter() - t0:.2f} s, launches of the "
+        f"routed calls {routed}")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        group = dist.group.WORLD
+        t0 = time.perf_counter()
+        dist_bench(T, group)
+        log(f"dist record: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        spmd = dist_spmd(T, g, db, group)
+        log(f"dist spmd: {time.perf_counter() - t0:.2f} s")
+    finally:
+        dist.destroy_process_group()
+    return {"routed": routed, "spmd": spmd}
+
+
 def main(argv=None) -> int:
     import argparse
     import torch
@@ -2795,7 +3152,7 @@ def run_phases(T, phases, smi: str, workers: dict) -> int:
         if "Used" in line or "spill" in line:
             log("  ptxas:", line.strip())
 
-    if {"kernels", "join", "oracles", "serve"} & set(phases):
+    if {"kernels", "join", "oracles", "serve", "dist"} & set(phases):
         t0 = time.perf_counter()
         g, db, hdb = bench_gdb(T, 1.0, "cuda")
         dbs = {"plain": db, "hybrid": hdb}
@@ -2860,6 +3217,16 @@ def run_phases(T, phases, smi: str, workers: dict) -> int:
                         ("record's workload", record_launches)):
             need(n["searchsorted_segments"] > 0,
                  f"the {name} never launched searchsorted_segments")
+
+    if "dist" in phases:
+        t0 = time.perf_counter()
+        dist_launches = dist_phase(T, g, db)
+        log(f"dist: {time.perf_counter() - t0:.2f} s, launches of the "
+            f"routed calls {dist_launches['routed']}, of the SPMD join "
+            f"steps {dist_launches['spmd']}")
+        for name, n in dist_launches.items():
+            need(n["searchsorted_segments"] > 0,
+                 f"the {name} calls never launched searchsorted_segments")
 
     if "lm" in phases:
         # each model's serving path with its own counters, summed

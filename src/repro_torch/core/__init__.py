@@ -9,7 +9,8 @@ from .hypergraph import Hypergraph, all_neos, is_beta_acyclic, is_neo
 from .lftj_ref import LFTJ, lftj_count
 from .minesweeper_ref import Minesweeper, minesweeper_count
 from .plan import (GraphStats, HybridPlan, JoinPlan, LevelPlan,
-                   compile_levels, executor_geometry)
+                   compile_levels, executor_geometry, partition_first_level,
+                   stripe_partition)
 from .planner import (PlanCache, candidate_gaos, candidate_plans,
                       choose_level_layouts, decompose_hybrid,
                       estimate_vlftj_cost, plan_query)
@@ -28,6 +29,7 @@ __all__ = [
     "all_neos", "is_beta_acyclic", "is_neo", "LFTJ", "lftj_count",
     "Minesweeper", "minesweeper_count", "GraphStats", "HybridPlan",
     "JoinPlan", "LevelPlan", "compile_levels", "executor_geometry",
+    "partition_first_level", "stripe_partition",
     "PlanCache", "candidate_gaos", "candidate_plans", "choose_level_layouts",
     "decompose_hybrid", "estimate_vlftj_cost", "plan_query",
     "PAPER_QUERIES", "Atom", "LessThan", "Query", "clique", "comb", "cycle",

@@ -21,6 +21,7 @@ the CUDA kernel reads the same words as ``uint32_t``.
 from __future__ import annotations
 
 import math
+import threading
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -31,6 +32,9 @@ from ..graphs.csr import CSRGraph
 from ..graphs.layout import (HybridLayout, degree_sort_permutation,
                              map_rows_back, renumber_csr)
 from .relation import Database, Relation
+
+#: serializes the lazy builds of :meth:`GraphDB.dev` across threads
+_BUILD_LOCK = threading.Lock()
 
 
 @dataclass
@@ -86,10 +90,14 @@ class GraphDB:
     def dev(self, key: str) -> torch.Tensor:
         """The device tensor for ``key`` (``indptr``, ``indices``,
         ``src_ids``, ``summary:<s>``, ``bitmap:<u>``), built on first
-        use."""
+        use.  Several threads may ask at once (the partitioned join's
+        workers): a tensor is built once."""
         v = self._dev.get(key)
         if v is None:
-            v = self._dev[key] = self._build(key)
+            with _BUILD_LOCK:
+                v = self._dev.get(key)
+                if v is None:
+                    v = self._dev[key] = self._build(key)
         return v
 
     def device_bytes(self) -> int:

@@ -21,6 +21,8 @@ import hashlib
 import math
 from dataclasses import dataclass, field
 
+import numpy as np
+
 from .query import Query
 
 
@@ -91,6 +93,46 @@ def compile_levels(query: Query, gao: tuple[str, ...]
                                tuple(unary), tuple(lower), tuple(upper),
                                needs_degree))
     return tuple(plans)
+
+
+def stripe_partition(costs: np.ndarray, n_parts: int) -> list[np.ndarray]:
+    """Deal items into ``n_parts`` cost-balanced parts (index arrays).
+
+    Items are sorted by cost descending and dealt boustrophedon (snake)
+    across the parts, so part sizes differ by at most one and part costs
+    track each other even under power-law skew.  Parts past the item
+    count come back empty — callers (``dist.PartitionedJoin``) rely on
+    getting exactly ``n_parts`` entries.
+    """
+    costs = np.asarray(costs, dtype=np.float64)
+    order = np.argsort(-costs, kind="stable")
+    parts: list[list[int]] = [[] for _ in range(n_parts)]
+    for rank, item in enumerate(order):
+        lap, off = divmod(rank, n_parts)
+        slot = off if lap % 2 == 0 else n_parts - 1 - off
+        parts[slot].append(int(item))
+    return [np.asarray(sorted(p), dtype=np.int64) for p in parts]
+
+
+def partition_first_level(plan: "JoinPlan", values: np.ndarray,
+                          degrees: np.ndarray,
+                          n_parts: int) -> list[np.ndarray]:
+    """Plan-aware sharding of a plan's first GAO level.
+
+    Splits the seed domain ``values`` (candidate bindings of
+    ``plan.gao[0]``) into ``n_parts`` work shards.  Binding the first
+    variable partitions the output, so shard counts sum exactly to the
+    full count.  The per-seed cost proxy is the adjacency length when
+    any later level probes the seed column (frontier work is
+    degree-driven there: the padded expansion tile of every descendant
+    row gathers that adjacency); uniform otherwise.
+    """
+    values = np.asarray(values)
+    if plan.levels and any(0 in lp.edge_sources for lp in plan.levels[1:]):
+        costs = 1.0 + np.asarray(degrees)[values]
+    else:
+        costs = np.ones(values.shape[0])
+    return [values[idx] for idx in stripe_partition(costs, n_parts)]
 
 
 @dataclass(frozen=True)

@@ -14,7 +14,8 @@ Each C entry point takes device pointers and the CUDA stream as
 
 The wrappers count their launches in :data:`LAUNCHES` (kernel name ->
 launches since the last :func:`reset_launches`), so a caller can show
-that a run really went through the kernels.
+that a run really went through the kernels.  The count is taken under a
+lock: the partitioned join launches from several threads at once.
 """
 from __future__ import annotations
 
@@ -68,18 +69,21 @@ LAUNCHES = {"searchsorted_segments": 0, "bitset_member_mask": 0,
             "segment_outer": 0}
 
 _lock = threading.Lock()
+_launch_lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 #: what the last build did: seconds, library path, nvcc's -Xptxas -v output
 build_info: dict = {}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _launch_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def count_launch(name: str) -> None:
-    LAUNCHES[name] += 1
+    with _launch_lock:
+        LAUNCHES[name] += 1
 
 
 def sources() -> list[Path]:

@@ -17,11 +17,11 @@ asks for the CPU — and serves through the plan/execute split
     hit/miss counters;
   * ``execute_many`` groups same-plan requests so consecutive
     executions of one plan run back to back on one warm graph;
-  * graphs at or above ``dist_edge_threshold`` directed edges would
-    route their ``vlftj`` plans through the JAX package's partitioned
-    join, which the port does not have yet: such a request raises
-    :class:`NotImplementedError` (:data:`DIST_ITEM`) rather than run the
-    unpartitioned engine in its place;
+  * graphs at or above ``dist_edge_threshold`` directed edges run their
+    ``vlftj`` plans through :class:`repro_torch.dist.PartitionedJoin`
+    (granularity-factor over-partitioning on a thread pool; engine label
+    ``vlftj+partitioned``, pool stats in ``last_dist_stats``), counts
+    and pages alike;
   * requests with ``limit=`` (or a continuation ``cursor=``) return
     *rows*, not counts: the server opens a bounded-memory
     :class:`~repro_torch.results.ResultCursor` (``core.engine.stream`` —
@@ -49,12 +49,9 @@ from ..core import GraphDB, GraphStats, JoinPlan, PlanCache, get_query
 from ..core import engine as engine_mod
 from ..device import resolve_device
 from ..graphs import CSRGraph, node_sample
-from ..obs import DeviceProfile, MetricsRegistry, QueryTrace, get_registry
+from ..obs import (DeviceProfile, MetricsRegistry, QueryTrace, get_registry,
+                   normalize_engine_stats)
 from ..results import ResultCursor
-
-#: where the partitioned join the large-graph route needs stands in the
-#: port's plan
-DIST_ITEM = "ROADMAP Queue 1 item 5 (dist/)"
 
 
 @dataclass
@@ -144,12 +141,12 @@ class QueryServer:
     ``device`` is where every ``GraphDB`` the server warms lives and its
     engines run: ``"cuda"`` by default, which raises here when the
     process has no card; ``"cpu"`` runs the plain PyTorch path.  The
-    other arguments are the JAX package's, but for the partitioned
-    join's worker count and granularity, which wait for its port."""
+    other arguments are the JAX package's."""
 
     def __init__(self, csr: CSRGraph, default_selectivity: float = 10.0,
                  plan_cache_size: int = 256,
                  dist_edge_threshold: int | None = 1 << 22,
+                 dist_workers: int = 4, dist_granularity: int = 2,
                  page_rows: int = 1024, max_open_cursors: int = 64,
                  metrics: MetricsRegistry | None = None,
                  request_log: str | None = None,
@@ -174,10 +171,14 @@ class QueryServer:
         self._warm: dict = {}
         self._stats: dict = {}
         self.plan_cache = PlanCache(maxsize=plan_cache_size)
-        # graphs at or above dist_edge_threshold directed edges route
-        # their vlftj plans to the partitioned join, which raises until
-        # the port has dist/; None disables the route entirely.
+        # graphs at or above dist_edge_threshold directed edges run their
+        # vlftj plans through dist.PartitionedJoin (granularity-factor
+        # over-partitioning); None disables the route entirely.
         self.dist_edge_threshold = dist_edge_threshold
+        self.dist_workers = dist_workers
+        self.dist_granularity = dist_granularity
+        self.last_dist_stats: dict | None = None
+        self._dist_joins: dict = {}
         # open enumeration cursors: token -> (cursor, engine label, plan),
         # LRU-capped at max_open_cursors so abandoned paginations (a
         # client that never follows next_cursor) cannot accumulate
@@ -298,22 +299,33 @@ class QueryServer:
                 and plan.engine == "vlftj"
                 and gdb.csr.n_edges >= self.dist_edge_threshold)
 
-    def _refuse_dist(self, gdb: GraphDB) -> None:
-        """The partitioned route is not ported: refuse it, never run the
-        unpartitioned engine in its place."""
-        raise NotImplementedError(
-            f"a graph of {gdb.csr.n_edges} directed edges routes vlftj "
-            f"plans to the partitioned join (dist_edge_threshold="
-            f"{self.dist_edge_threshold}), which is not ported yet "
-            f"({DIST_ITEM}); pass dist_edge_threshold=None to serve it "
-            "unpartitioned")
+    def _dist_join_for(self, plan: JoinPlan, gdb: GraphDB,
+                       req: QueryRequest):
+        """Memoized per (plan, graph): the seed-domain sort and the part
+        schedule amortize over same-plan request groups."""
+        from ..dist.sharded_join import PartitionedJoin
+        # count and rows plans for one query differ only in output_mode,
+        # which the partition layer never reads — share one instance
+        key = (plan.query.atoms, plan.query.filters, plan.gao, id(gdb))
+        pj = self._dist_joins.get(key)
+        if pj is None:
+            pj = PartitionedJoin(get_query(req.query_name), gdb,
+                                 n_workers=self.dist_workers,
+                                 granularity=self.dist_granularity,
+                                 plan=plan)
+            self._dist_joins[key] = pj
+        return pj
 
     def _execute_plan(self, plan: JoinPlan, gdb: GraphDB,
                       req: QueryRequest) -> tuple[int, str, dict]:
         """(count, engine label, normalized engine stats); large graphs
-        would take the partitioned path, which raises."""
+        take the partitioned path."""
         if self._routes_to_dist(plan, gdb):
-            self._refuse_dist(gdb)
+            pj = self._dist_join_for(plan, gdb, req)
+            c = pj.count()
+            self.last_dist_stats = pj.stats
+            label = plan.engine + "+partitioned"
+            return c, label, normalize_engine_stats(label, pj.stats)
         c, stats = engine_mod.execute_stats(plan, gdb)
         return c, plan.engine, stats
 
@@ -363,11 +375,15 @@ class QueryServer:
     # -- enumeration / pagination -------------------------------------------
     def _open_cursor(self, plan: JoinPlan, gdb: GraphDB,
                      req: QueryRequest) -> tuple[ResultCursor, str]:
-        """(cursor, engine label); large graphs would stream the
-        partitioned join's pages, which raises."""
+        """(cursor, engine label); large graphs stream the merged
+        per-part pages of the partitioned join."""
         q = get_query(req.query_name)
         if self._routes_to_dist(plan, gdb):
-            self._refuse_dist(gdb)
+            pj = self._dist_join_for(plan, gdb, req)
+            cur = ResultCursor.from_blocks(
+                pj.executor.gao, pj.pages(page_rows=self.page_rows),
+                page_rows=self.page_rows)
+            return cur, plan.engine + "+partitioned"
         return engine_mod.stream(q, gdb, plan=plan,
                                  page_rows=self.page_rows), plan.engine
 

@@ -688,9 +688,8 @@ class QuantumScheduler:
 
     def _run_opaque(self, job: _Job) -> bool:
         """Non-preemptible fallback: engines without the level-boundary
-        hook (yannakakis/hybrid/refs) run to completion in one quantum;
-        a dist-routed plan raises (the server's partitioned route is not
-        ported)."""
+        hook (yannakakis/hybrid/refs) and dist-routed plans run to
+        completion in one quantum."""
         if job.req.limit is not None:
             cur, label = self.server._open_cursor(job.plan, job.gdb,
                                                   job.req)

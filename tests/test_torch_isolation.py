@@ -48,7 +48,12 @@ def test_importing_every_port_module_imports_no_jax():
             "repro_torch.obs.profile", "repro_torch.obs.explain",
             "repro_torch.obs.export_trace",
             "repro_torch.serve", "repro_torch.serve.query_server",
-            "repro_torch.serve.scheduler"} <= set(mods)
+            "repro_torch.serve.scheduler",
+            "repro_torch.dist", "repro_torch.dist.pool",
+            "repro_torch.dist.overlap", "repro_torch.dist.compression",
+            "repro_torch.dist.sharded_join", "repro_torch.dist.rebalance",
+            "repro_torch.dist.sharded_csr",
+            "repro_torch.train", "repro_torch.train.stragglers"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -127,3 +132,29 @@ def test_default_device_is_the_card_for_the_transformer(monkeypatch):
         init_params(cfg, torch.Generator().manual_seed(0))
     p = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     assert p["embed"].device.type == "cpu"
+
+
+def test_default_device_is_the_card_for_dist(monkeypatch):
+    """The SPMD steps run on the card unless the caller asks for the
+    CPU: without one they raise at construction, before any collective.
+    ``PartitionedJoin`` runs where its db lives, and a db built for the
+    default device raises without a card."""
+    import torch
+    from repro_torch.core import get_query
+    from repro_torch.dist import (PartitionedJoin, ShardedGraphDB,
+                                  spmd_join_step, spmd_sharded_join_step,
+                                  spmd_spmv_step)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = erdos_renyi(20, 40, seed=0)
+    kw = dict(probe_cols=(0, 1), n_unary=0, lower_cols=(1,),
+              upper_cols=(), width=8, n_iter=4, needs_degree=False)
+    for build in (lambda: spmd_join_step(None, kw),
+                  lambda: spmd_spmv_step(None, g.n_nodes),
+                  lambda: spmd_sharded_join_step(None, kw,
+                                                 ShardedGraphDB(g, 1))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PartitionedJoin(get_query("3-clique"), GraphDB(g))
+    pj = PartitionedJoin(get_query("3-clique"), GraphDB(g, device="cpu"))
+    assert pj.executor.gdb.dev("indices").device.type == "cpu"

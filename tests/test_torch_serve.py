@@ -8,8 +8,9 @@ package and resumed by the other.
 
 Mirrors ``tests/test_scheduler.py`` and the server tests of
 ``tests/test_enumerate.py``, ``tests/test_planner.py`` and
-``tests/test_perf_options.py``, except the partitioned (``dist``)
-routes: the port raises there (``test_partitioned_route_raises``).
+``tests/test_perf_options.py``; the partitioned (``dist``) route is held
+here against the JAX server (``test_partitioned_route_serves``) and in
+``tests/test_torch_dist.py``.
 """
 import numpy as np
 import pytest
@@ -35,7 +36,6 @@ from repro_torch.results import ResultCursor
 from repro_torch.serve import (AdmissionError, PlanSnapshot, Preempted,
                                QuantumBudget, QuantumScheduler, QueryRequest,
                                QueryServer, TenantQuota)
-from repro_torch.serve.query_server import DIST_ITEM
 
 torch.set_num_threads(1)
 
@@ -723,31 +723,54 @@ def test_server_engine_stats_match_reference(engine, shape):
 # the partitioned route and the device
 # ---------------------------------------------------------------------------
 
-def test_partitioned_route_raises(csr300):
-    """At or above ``dist_edge_threshold`` the JAX package partitions a
-    vlftj plan; the port refuses rather than run it unpartitioned, on
-    every entry point that would route there."""
-    srv = QueryServer(_port_csr(csr300), dist_edge_threshold=1, device="cpu")
-    for req in (QueryRequest("3-clique", engine="vlftj"),
-                QueryRequest("3-clique", engine="vlftj", limit=10)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            srv.execute(req)
-    with pytest.raises(NotImplementedError, match="partitioned"):
-        srv.execute_many([QueryRequest("3-clique", engine="vlftj")])
-    with pytest.raises(NotImplementedError, match="partitioned"):
-        srv.execute_concurrent([QueryRequest("3-clique", engine="vlftj")])
-    # a dist-routed plan is not preemptible; other engines still serve
-    sched = QuantumScheduler(srv, quantum_rows=64)
+def test_partitioned_route_serves(csr300):
+    """At or above ``dist_edge_threshold`` both packages run a vlftj
+    plan through ``PartitionedJoin`` (label ``vlftj+partitioned``) on
+    every entry point that routes there: counts, pages and the pool
+    stats equal the JAX server's."""
+    twin = Twin(csr300, dist_edge_threshold=1, page_rows=64)
+    for shape in TIER1_SHAPES:
+        jr, tr = twin.req(shape, engine="vlftj", selectivity=8)
+        want, got = twin.j.execute(jr), twin.t.execute(tr)
+        assert (got.count, got.engine) == (want.count, want.engine)
+        assert got.engine == "vlftj+partitioned"
+        jst, tst = twin.j.last_dist_stats, twin.t.last_dist_stats
+        for k in ("parts", "part_sizes", "part_counts", "backend"):
+            assert tst[k] == jst[k], k
+        assert tst["parts"] == 8                      # 4 workers x 2
+        assert tst["makespan"] <= tst["total_time"] + 1e-9
+        _, t_gdb = twin.gdbs(selectivity=8)
+        assert got.count == T.count(T.get_query(shape), t_gdb,
+                                    engine="vlftj")
+    # pages through the route, and their continuation
+    jr, tr = twin.req("3-path", engine="vlftj", limit=100)
+    want, got = twin.j.execute(jr), twin.t.execute(tr)
+    assert got.engine == want.engine == "vlftj+partitioned"
+    assert got.row_vars == tuple(want.row_vars)
+    np.testing.assert_array_equal(got.rows, want.rows)
+    jr, tr = twin.req("3-path", limit=100, cursor=want.next_cursor)
+    tr.cursor = got.next_cursor
+    np.testing.assert_array_equal(twin.t.execute(tr).rows,
+                                  twin.j.execute(jr).rows)
+    # execute_many and the scheduler keep the route; a dist-routed plan
+    # runs opaque (not preemptible); other engines are never routed
+    res = twin.t.execute_many(
+        [QueryRequest("3-clique", engine="vlftj")] * 2)
+    assert [r.engine for r in res] == ["vlftj+partitioned"] * 2
+    (conc,) = twin.t.execute_concurrent(
+        [QueryRequest("3-clique", engine="vlftj")])
+    assert (conc.count, conc.engine) == (res[0].count, res[0].engine)
+    sched = QuantumScheduler(twin.t, quantum_rows=64)
     sched.submit(QueryRequest("3-clique", engine="vlftj"))
     assert not sched._preemptible(sched._jobs[0])
-    res = srv.execute(QueryRequest("3-path", engine="yannakakis"))
+    res = twin.t.execute(QueryRequest("3-path", engine="yannakakis"))
     assert res.engine == "yannakakis"
-    assert DIST_ITEM.startswith("ROADMAP Queue 1 item 5")
     # below the threshold (the default, 4,194,304 directed edges) the
     # same request serves unpartitioned
     plain = QueryServer(_port_csr(csr300), device="cpu")
     assert plain.dist_edge_threshold == 1 << 22
-    assert plain.execute(QueryRequest("3-clique", engine="vlftj")).count > 0
+    assert plain.execute(QueryRequest("3-clique", engine="vlftj")).engine \
+        == "vlftj"
 
 
 def test_server_graphs_live_on_its_device(csr300):
