@@ -2812,6 +2812,8 @@ def dist_route(T, g) -> dict:
             res = server.execute(QueryRequest(
                 shape, engine="vlftj", selectivity=DIST_SELECTIVITY))
         routed_s = time.perf_counter() - t0
+        # the window zeroed the counters just before this call
+        launched = routed.build.LAUNCHES["searchsorted_segments"]
         st = server.last_dist_stats
         need(res.engine == "vlftj+partitioned",
              f"dist {shape}: served by {res.engine}")
@@ -2839,7 +2841,8 @@ def dist_route(T, g) -> dict:
              "the sequence")
         log(json.dumps(dict(
             dist_route=shape, selectivity=DIST_SELECTIVITY, count=res.count,
-            engine=res.engine, request_s=routed_s, thread=thread,
+            engine=res.engine, request_s=routed_s,
+            searchsorted_launches=launched, thread=thread,
             sequential=dict(wall_s=seq.stats["wall_time"],
                             total_s=seq.stats["total_time"]),
             unpartitioned_s=direct_s,
