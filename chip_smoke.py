@@ -18,14 +18,15 @@ lane and ``lane_len`` (the live lanes the level step passes), and held
 exactly on their own edge cases.  Flash attention has two kernels,
 routed by dtype and head dim: bf16 with D a multiple of 16 up to 128 on
 wgmma (``flash_attention_tc``: chatglm3-6b's and stablelm-3b's prefill
-shapes, the mma.sync kernel and SDPA on the same tensors, and a bf16
-sweep over D 16-128, GQA groups, causal offsets, short and ragged
-streams and strided views) and the rest on mma.sync
-(``flash_attention_mma``: f32 in 3xTF32 at the path shape and the f32
-sweep, bf16 at D 72, 40 and 8 at stablelm-3b's shape, and a sweep of
-off-grid head dims in both dtypes, strided and offset views among
-them).  The two lines count the ``HGMMA`` and ``HMMA`` instructions in
-the built library's SASS where ``cuobjdump`` exists.  The segment outer
+shapes and granite-moe-3b-a800m's (D 64, GQA group 3), the mma.sync
+kernel and SDPA on the same tensors, and a bf16 sweep over D 16-128,
+GQA groups, causal offsets, short and ragged streams and strided
+views) and the rest on mma.sync (``flash_attention_mma``: f32 in
+3xTF32 at the path shape and the f32 sweep, bf16 at D 72, 40 and 8 at
+stablelm-3b's shape, and a sweep of off-grid head dims in both dtypes,
+strided and offset views among them).  The two lines count the
+``HGMMA`` and ``HMMA`` instructions in the built library's SASS where
+``cuobjdump`` exists.  The segment outer
 product runs at MACE's widths (131,072 nodes, 6,621,401 edges, C 128,
 M 9) on uniform and powerlaw destinations, in float32 and bf16 (each
 held at 2e-4 on the same tensors: bf16 products round alike), two calls
@@ -100,14 +101,25 @@ kernels' launch counters set to 0 just before it and read just after:
   triangle level replicated, with a ``FrontierRebalancer``, and over a
   1-shard ``ShardedGraphDB``, each equal to the 3-clique count, and the
   SpMV against ``index_add_``);
-* chatglm3-6b and stablelm-3b served at full width and depth in bf16
-  (``lm serve``): 4 requests of 2048 prompt tokens, prefill (one launch
-  of the wgmma flash kernel a layer, 28 and 32, none of the mma.sync
-  one) and 32 greedy decode steps, then one prefill profiled;
-  and each at full width with 2 layers in f32 (``lm parity``, on the
-  mma.sync flash kernel) the card's prefill and decode logits against
-  the port's CPU path (1e-3) and decode against ``forward`` over the
-  concatenated stream (2e-4).
+* chatglm3-6b, stablelm-3b and the two MoE models granite-moe-3b-a800m
+  (40 experts, top 8, heads of 64 in GQA groups of 3) and
+  moonshot-v1-16b-a3b (64 experts, top 6, two shared experts) served at
+  full width and depth in bf16 (``lm serve``): 4 requests of 2048 prompt
+  tokens, prefill (one launch of the wgmma flash kernel a layer, 28, 32,
+  32 and 48, none of the mma.sync one) and 32 greedy decode steps, then
+  one prefill profiled; an MoE model's line adds its parameter and
+  active-parameter counts, its capacities at prefill and decode, the
+  picks each layer's prefill drops and the experts' least and greatest
+  load, and a second profile names the MoE dispatch's share of the
+  prefill's device time; each model at full width with 2 layers in f32
+  (``lm parity``, on the mma.sync flash kernel): the card's prefill and
+  decode logits against the port's CPU path (1e-3; an MoE model's router
+  picks equal first, at its own capacity factor) and decode against
+  ``forward`` over the concatenated stream (2e-4; an MoE model at
+  ``capacity_factor = n_experts / top_k``, where nothing drops); and
+  ``layers.moe.moe_ffn`` over a world-size-1 NCCL group against the
+  one-card MoE FFN in ``ep`` and ``tp`` mode, on one layer of each MoE
+  model at a prefill's 4 x 2048 tokens (one bf16 rounding step).
 
 The counts are checked against counts made on the host with scipy and
 numpy alone (the cliques, 3-path and lollipops), across the two dbs
@@ -178,6 +190,10 @@ PARITY_LAYERS, PARITY_PROMPT, PARITY_STEPS = 2, 256, 4
 #: tokens, lengths the flash kernel takes (the Pallas kernel's contract
 #: asks T % min(128, T) == 0, so 257..259 are refused)
 PARITY_FORWARD_PROMPT = 124
+#: ``moe_ffn`` over NCCL against the one-card MoE FFN, both in bf16: one
+#: bf16 rounding step (8 significant bits, so neighbouring values differ
+#: by at most 2^-7 of their magnitude), relative and absolute
+MOE_FFN_TOL = 2.0 ** -7
 #: the segment-outer line at MACE's widths (d_hidden 128, l_max 2 -> 9
 #: basis functions) on 131,072 nodes at ogb_products' mean directed degree
 #: (123,718,280 / 2,449,029), in node blocks of 8 and edge tiles of 128
@@ -925,9 +941,10 @@ def allclose_err(got, want, tol: float) -> tuple[float, bool]:
 
 def flash_bf16_sweep(randn) -> list:
     """The tensor-core flash kernel against its plain version at 2e-2 in
-    bf16: D 64 and 128 with GQA groups 1, 4 and 16, every other multiple
-    of 16 up to 128 (16 to 48 run the 64 instance with zero columns, 80
-    its own, 96 and 112 the 128 one) with groups 1 and 4; causal and not,
+    bf16: D 64 and 128 with GQA groups 1, 4 and 16 (and 3 at D 64,
+    granite-moe-3b-a800m's heads), every other multiple of 16 up to 128
+    (16 to 48 run the 64 instance with zero columns, 80 its own, 96 and
+    112 the 128 one) with groups 1 and 4; causal and not,
     Tq 1, 64, 128 and 2048 against Tk 2048 (the causal offset), a short
     stream (Tk 64) and a ragged one (Tk 100, less than a key tile),
     contiguous and as transposed (B, T, H, D) views.  Every case must
@@ -938,7 +955,8 @@ def flash_bf16_sweep(randn) -> list:
     bf, rows = torch.bfloat16, []
     build.reset_launches()
     for d in (64, 128, 16, 32, 48, 80, 96, 112):
-        for group in ((1, 4, 16) if d in (64, 128) else (1, 4)):
+        for group in ((1, 3, 4, 16) if d == 64 else
+                      (1, 4, 16) if d == 128 else (1, 4)):
             hkv = 2
             hq = hkv * group
             for tq, tk in ((1, 2048), (64, 2048), (128, 2048), (2048, 2048),
@@ -1070,6 +1088,51 @@ def flash_mma_sweep(randn) -> list:
     return rows
 
 
+def flash_granite_shape(randn) -> dict:
+    """The wgmma kernel's D 64 instance at granite-moe-3b-a800m's prefill
+    shape, the first model path at GQA group 3: 24 query and 8 KV heads
+    of 64 dims, 4 requests of 2048 tokens, bf16, causal, as prefill
+    passes them; against its plain version (2e-2) and timed beside
+    SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels.flash_attention import route
+    bf = torch.bfloat16
+    b, hq, hkv, t, d = LM_BATCH, 24, 8, LM_PROMPT, 64
+    q, k, v = (randn(b, t, h_, d, dtype=bf).transpose(1, 2)
+               for h_ in (hq, hkv, hkv))
+    need(route(q.device, q.dtype, d) == "tc", "flash route of granite's "
+         "bf16 heads is not the tensor-core kernel")
+    build.reset_launches()
+    o = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    need(build.LAUNCHES["flash_attention_tc"] == 1
+         and build.LAUNCHES["flash_attention_mma"] == 0,
+         f"granite's shape did not launch flash_attention_tc: "
+         f"{build.LAUNCHES}")
+    err, ok = allclose_err(o, ref.flash_attention_ref(q, k, v), 2e-2)
+    need(ok, f"flash_attention_tc (bf16, granite's shape) disagrees with "
+         f"its plain version beyond 2e-2 (max abs err {err})")
+    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    line = bound(dict(
+        shape=f"q ({b}, {hq}, {t}, {d}) bf16 as a transposed (B, T, H, D) "
+              f"view, k, v ({b}, {hkv}, {t}, {d}), causal",
+        instance="D 64", max_abs_err=err, tolerance=2e-2,
+        ms=device_ms(lambda: ops.flash_attention(q, k, v), 20,
+                     "flash_attention_tc_kernel"),
+        event_ms=cuda_ms(lambda: ops.flash_attention(q, k, v), 20),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            qc, kc, vc, is_causal=True, enable_gqa=True), 20),
+        library_call="scaled_dot_product_attention(q, k, v, "
+                     "is_causal=True, enable_gqa=True), contiguous",
+        flops_model="4 B Hq T^2 D / 2 (QK^T and PV, causal half)",
+        flops=4 * b * hq * t * t * d / 2, flops_type="bf16",
+        bytes=2 * q.nbytes + k.nbytes + v.nbytes))
+    line["achieved_tflop_s"] = line["flops"] / line["ms"] / 1e9
+    return line
+
+
 def kernel_phase_lm():
     """The flash-attention kernels against their plain versions on the
     same CUDA tensors, at the shapes their paths give them; then timed,
@@ -1133,6 +1196,8 @@ def kernel_phase_lm():
         **work))
     tc_stablelm["achieved_tflop_s"] = work["flops"] / tc_stablelm["ms"] / 1e9
     del q, k, v, qc, kc, vc, o
+
+    tc_granite = flash_granite_shape(randn)
 
     # the mma.sync kernel in bf16 at head dims off the multiples of 16, at
     # stablelm-3b's prefill shape otherwise: D 72 (an off-grid width near
@@ -1241,7 +1306,8 @@ def kernel_phase_lm():
         flops_model="4 B Hq T^2 D / 2 (QK^T and PV, causal half)",
         flops=flops, flops_type="bf16",
         bytes=q.nbytes + k.nbytes + v.nbytes + o.nbytes,
-        stablelm_3b=tc_stablelm, hgmma=sass_counts("HGMMA"))
+        stablelm_3b=tc_stablelm, granite_moe_3b_a800m=tc_granite,
+        hgmma=sass_counts("HGMMA"))
     tc["achieved_tflop_s"] = flops / tc["ms"] / 1e9
     out["flash_attention_tc"] = tc
     del q, k, v, qc, kc, vc, o
@@ -1537,11 +1603,8 @@ def gpu_profile(fn, what: str) -> dict:
     events = sorted(prof.key_averages(), key=device_us, reverse=True)
     groups = {"flash_attention": 0.0, "gemm": 0.0, "other": 0.0}
     for e in events:
-        key = e.key.lower()
-        group = ("flash_attention" if "flash_attention" in key else
-                 "gemm" if any(w in key for w in ("gemm", "xmma", "nvjet",
-                                                  "cutlass", "matmul"))
-                 else "other")
+        group = ("flash_attention" if "flash_attention" in e.key.lower() else
+                 "gemm" if is_gemm(e.key) else "other")
         groups[group] += device_us(e) / 1e6
     busy = sum(groups.values())
     return {"profile": what, "wall_s": wall, "device_busy_s": busy,
@@ -1552,14 +1615,159 @@ def gpu_profile(fn, what: str) -> dict:
                               for e in events[:10] if device_us(e) > 0]}
 
 
+def leaves(params: dict):
+    """The tensors of a parameter dict, nested dicts (an MoE config's
+    ``"moe"``) included."""
+    for v in params.values():
+        if isinstance(v, dict):
+            yield from leaves(v)
+        else:
+            yield v
+
+
+def params_to(params: dict, device: str) -> dict:
+    """A copy of ``params`` on ``device``, nested dicts included."""
+    return {k: params_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in params.items()}
+
+
+@contextlib.contextmanager
+def recorded_routes(calls: list):
+    """``layers.moe.route`` wrapped so that each call appends its
+    ``(logits, picks, pick logits)`` to ``calls``; the MoE layers call it
+    once a layer."""
+    from repro_torch.layers import moe
+    real = moe.route
+
+    def recording(x, router, top_k):
+        out = real(x, router, top_k)
+        calls.append(out)
+        return out
+
+    moe.route = recording
+    try:
+        yield calls
+    finally:
+        moe.route = real
+
+
+def moe_routing(params, tokens, cfg, ml: int) -> dict:
+    """One more prefill with the routes recorded: each layer's picks per
+    expert, and the picks the capacity drops (an expert keeps its first
+    ``capacity`` picks)."""
+    import torch
+    from repro_torch.layers.moe import capacity_of
+    from repro_torch.models import transformer as tfm
+    calls = []
+    with recorded_routes(calls):
+        tfm.prefill(params, tokens, cfg, max_len=ml)
+    need(len(calls) == cfg.n_layers, f"lm serve: {len(calls)} MoE routes "
+         f"in a prefill of {cfg.n_layers} layers")
+    cap = capacity_of(cfg.moe, tokens.numel())
+    loads = torch.stack([torch.bincount(idx.reshape(-1),
+                                        minlength=cfg.moe.n_experts)
+                         for _, idx, _ in calls]).cpu()
+    dropped = (loads - cap).clamp(min=0).sum(dim=1)
+    return dict(capacity_prefill=cap,
+                capacity_decode=capacity_of(cfg.moe, LM_BATCH),
+                picks_per_layer=tokens.numel() * cfg.moe.top_k,
+                dropped_per_layer=dropped.tolist(),
+                dropped_share=float(dropped.sum()) / (
+                    cfg.n_layers * tokens.numel() * cfg.moe.top_k),
+                expert_load_min=int(loads.min()),
+                expert_load_max=int(loads.max()))
+
+
+def is_gemm(kernel: str) -> bool:
+    """Whether a device kernel's name is a matrix product's (cuBLAS,
+    CUTLASS)."""
+    key = kernel.lower()
+    return any(w in key for w in ("gemm", "xmma", "nvjet", "cutlass",
+                                  "matmul"))
+
+
+def moe_profile(params, tokens, cfg, ml: int, prefill_busy_s: float) -> dict:
+    """The MoE layers' parts of one prefill's device time: each MoE
+    layer's input recorded in one prefill, then every layer's
+    ``_dispatch_compute`` and shared experts replayed on those inputs
+    under ``torch.profiler`` (device only: the prefill's kernels on the
+    prefill's tensors).  ``dispatch`` is ``_dispatch_compute``'s kernels
+    but its matrix products (routing, the sorts, the slot arithmetic,
+    both scatters); ``expert_gemms`` its matrix products (the three
+    expert products and the router's logits); each over
+    ``prefill_busy_s``, the prefill's device time in the ``profile``
+    line."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.layers.moe import capacity_of
+    from repro_torch.models import transformer as tfm
+    inputs = []
+    real = tfm._moe_ffn_local
+
+    def recording(x, lp, c):
+        inputs.append(x)
+        return real(x, lp, c)
+
+    tfm._moe_ffn_local = recording
+    try:
+        tfm.prefill(params, tokens, cfg, max_len=ml)
+    finally:
+        tfm._moe_ffn_local = real
+    need(len(inputs) == cfg.n_layers, f"moe profile: {len(inputs)} MoE "
+         f"inputs in a prefill of {cfg.n_layers} layers")
+    moe = cfg.moe
+    cap = capacity_of(moe, tokens.numel())
+    layers = [tfm._layer_params(params, i)["moe"]
+              for i in range(cfg.n_layers)]
+
+    def dispatch():
+        for x, lp in zip(inputs, layers):
+            tfm._dispatch_compute(
+                x.reshape(-1, cfg.d_model), lp["router"], lp["w_gate"],
+                lp["w_up"], lp["w_down"], cfg=moe, e_off=0,
+                n_total_experts=moe.n_experts, act=cfg.act, capacity=cap)
+
+    def shared():
+        for x, lp in zip(inputs, layers):
+            tfm.shared_experts(x, lp, cfg.act)
+
+    def device_s(fn) -> tuple[float, float]:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        gemm = other = 0.0
+        for e in prof.key_averages():
+            if is_gemm(e.key):
+                gemm += device_us(e) / 1e6
+            else:
+                other += device_us(e) / 1e6
+        return gemm, other
+
+    gemm, other = device_s(dispatch)
+    parts = {"dispatch": other, "expert_gemms": gemm,
+             "shared_experts": (sum(device_s(shared))
+                                if moe.n_shared_experts else 0.0)}
+    need(other > 0 and gemm > 0, f"moe profile: no device time ({parts})")
+    parts["rest"] = prefill_busy_s - sum(parts.values())
+    return {"moe_profile": f"prefill {cfg.name} {LM_BATCH}x{LM_PROMPT}",
+            "prefill_device_s": prefill_busy_s, "parts_s": parts,
+            "share": {k: v / prefill_busy_s for k, v in parts.items()}}
+
+
 def lm_serve(cfg):
-    """A model at full width and depth in bf16 (chatglm3-6b or
-    stablelm-3b), weights from a seeded generator on the card: a batch of
-    4 requests of 2048 synthetic prompt tokens, prefill, then 32 greedy
-    decode steps.  The kernels' launch counters are set to 0 just before
-    and read just after; every prefill layer must launch the wgmma flash
-    kernel once and the mma.sync one never.  Then one prefill is
-    profiled."""
+    """A model at full width and depth in bf16 (chatglm3-6b, stablelm-3b,
+    granite-moe-3b-a800m or moonshot-v1-16b-a3b), weights from a seeded
+    generator on the card: a batch of 4 requests of 2048 synthetic prompt
+    tokens, prefill, then 32 greedy decode steps.  The kernels' launch
+    counters are set to 0 just before and read just after; every prefill
+    layer must launch the wgmma flash kernel once and the mma.sync one
+    never.  Then one prefill is profiled; an MoE model's line adds its
+    capacities, the picks each layer's prefill drops and the experts'
+    loads (from one more prefill with its routes recorded), and
+    ``moe_profile`` names the MoE dispatch's share of the prefill's
+    device time."""
     import torch
     from repro_torch.kernels import build
     from repro_torch.models import transformer as tfm
@@ -1568,7 +1776,7 @@ def lm_serve(cfg):
     params = tfm.init_params(cfg, g, device="cuda")
     torch.cuda.synchronize()
     log(f"lm params: {cfg.name}, {cfg.n_params} parameters, "
-        f"{sum(p.nbytes for p in params.values())} bytes "
+        f"{sum(p.nbytes for p in leaves(params))} bytes "
         f"({time.perf_counter() - t0:.2f} s)")
     ml = LM_PROMPT + LM_DECODE
     tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
@@ -1594,6 +1802,7 @@ def lm_serve(cfg):
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
     ids = torch.cat(ids, dim=1)
     need(bool(torch.isfinite(logits).all()), "lm serve: non-finite logits")
     need(tuple(logits.shape) == (LM_BATCH, 1, cfg.padded_vocab),
@@ -1608,33 +1817,55 @@ def lm_serve(cfg):
          f"lm serve: {launches['flash_attention_tc']} wgmma and "
          f"{launches['flash_attention_mma']} mma.sync flash launches; "
          f"{cfg.n_layers} and 0 expected (one per layer of the prefill)")
-    log(json.dumps(dict(
+    del cache, logits
+    line = dict(
         path="lm serve", model=cfg.name, n_layers=cfg.n_layers,
-        head_dim=cfg.head_dim,
+        head_dim=cfg.head_dim, gqa_group=cfg.n_heads // cfg.n_kv_heads,
+        n_params=cfg.n_params, n_active_params=cfg.n_active_params,
         batch=LM_BATCH, prompt_tokens=LM_PROMPT, decode_steps=LM_DECODE,
         max_len=ml, prefill_s=prefill_s,
         prefill_tokens_s=LM_BATCH * LM_PROMPT / prefill_s,
         decode_ms_per_step=1e3 * decode_s / LM_DECODE,
         decode_tokens_s=LM_BATCH * LM_DECODE / decode_s,
-        peak_allocated_bytes=torch.cuda.max_memory_allocated(),
-        launches=launches, first_ids=ids[:, :8].tolist())))
-    del cache, logits
-    log(json.dumps(gpu_profile(
-        lambda: tfm.prefill(params, tokens, cfg, max_len=ml),
-        f"prefill {cfg.name} {LM_BATCH}x{LM_PROMPT}")))
+        peak_allocated_bytes=peak, launches=launches,
+        first_ids=ids[:, :8].tolist())
+    if cfg.moe is not None:
+        t0 = time.perf_counter()
+        line["moe"] = moe_routing(params, tokens, cfg, ml)
+        line["moe"]["routing_s"] = time.perf_counter() - t0
+    log(json.dumps(line))
+    prof = gpu_profile(lambda: tfm.prefill(params, tokens, cfg, max_len=ml),
+                       f"prefill {cfg.name} {LM_BATCH}x{LM_PROMPT}")
+    log(json.dumps(prof))
+    if cfg.moe is not None:
+        t0 = time.perf_counter()
+        parts = moe_profile(params, tokens, cfg, ml, prof["device_busy_s"])
+        parts["wall_s"] = time.perf_counter() - t0
+        log(json.dumps(parts))
     del params
     torch.cuda.empty_cache()
     return launches, prefill_s
 
 
+def topk_gap(logits, k: int) -> float:
+    """The smallest gap between a token's k-th and (k+1)-th router
+    logit: how near a pick came to another expert."""
+    top = logits.float().sort(dim=-1, descending=True).values
+    return float((top[:, k - 1] - top[:, k]).min())
+
+
 def lm_parity(model):
     """A model (chatglm3-6b: RMSNorm, half rotary, GQA; stablelm-3b:
-    LayerNorm, 25% rotary, tied embeddings, heads of 80) at full width
-    with 2 layers in float32 (TF32 off): the card's prefill logits and 4
-    greedy decode steps against the port's CPU path on the same weights
-    (1e-3), and on the card the decode logits against ``forward`` over
-    the concatenated stream (2e-4, the JAX package's own decode-vs-forward
-    tolerance)."""
+    LayerNorm, 25% rotary, tied embeddings, heads of 80; the MoE models:
+    routed and shared experts) at full width with 2 layers in float32
+    (TF32 off): the card's prefill logits and 4 greedy decode steps
+    against the port's CPU path on the same weights (1e-3), an MoE
+    model's router picks held equal first (a mismatch fails, naming the
+    smallest gap between a k-th and (k+1)-th logit); and on the card the
+    decode logits against ``forward`` over the concatenated stream (2e-4,
+    the JAX package's own decode-vs-forward tolerance), an MoE model at
+    ``capacity_factor = n_experts / top_k``, where no pick can drop (at
+    its own factor decode drops what a longer ``forward`` keeps)."""
     from dataclasses import replace
     import torch
     from repro_torch.kernels import build
@@ -1644,23 +1875,42 @@ def lm_parity(model):
     cfg = replace(model, n_layers=PARITY_LAYERS, dtype=torch.float32)
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     params = tfm.init_params(cfg, g, device="cuda")
-    cpu_params = {k: v.cpu() for k, v in params.items()}
+    cpu_params = params_to(params, "cpu")
     tokens = torch.randint(0, cfg.vocab_size, (1, PARITY_PROMPT), generator=g,
                            device="cuda")
     ml = PARITY_PROMPT + PARITY_STEPS
     errs = {}
     t0 = time.perf_counter()
-    runs = {}
+    runs, routes = {}, {}
     build.reset_launches()
     for dev, p in (("cuda", params), ("cpu", cpu_params)):
-        cache, logits = tfm.prefill(p, tokens.to(dev), cfg, max_len=ml)
-        out = [logits]
-        nxt = tokens[:, :1].to(dev)
-        for _ in range(PARITY_STEPS):
-            logits, cache = tfm.decode_step(p, cache, nxt, cfg)
-            out.append(logits)
-            nxt = logits.argmax(-1)
+        with recorded_routes(routes.setdefault(dev, [])):
+            cache, logits = tfm.prefill(p, tokens.to(dev), cfg, max_len=ml)
+            out = [logits]
+            nxt = tokens[:, :1].to(dev)
+            for _ in range(PARITY_STEPS):
+                logits, cache = tfm.decode_step(p, cache, nxt, cfg)
+                out.append(logits)
+                nxt = logits.argmax(-1)
         runs[dev] = out
+    extra = {}
+    if cfg.moe is not None:
+        k = cfg.moe.top_k
+        need(len(routes["cuda"]) == len(routes["cpu"])
+             == PARITY_LAYERS * (1 + PARITY_STEPS),
+             f"lm parity: {len(routes['cuda'])} and {len(routes['cpu'])} "
+             "MoE routes")
+        for i, ((_, a, _), (lg, b, _)) in enumerate(zip(routes["cuda"],
+                                                        routes["cpu"])):
+            need(torch.equal(a.cpu(), b),
+                 f"lm parity: router picks differ between card and CPU at "
+                 f"route {i}; smallest k-th/(k+1)-th logit gap "
+                 f"{topk_gap(lg, k)}")
+        extra = dict(capacity_factor=cfg.moe.capacity_factor,
+                     router_picks_equal=len(routes["cpu"]),
+                     min_topk_gap=min(topk_gap(lg, k)
+                                      for lg, _, _ in routes["cpu"]))
+    del routes
     for i, (a, b) in enumerate(zip(runs["cuda"], runs["cpu"])):
         err, ok = allclose_err(a.cpu(), b, 1e-3)
         errs["prefill" if i == 0 else f"decode {i}"] = err
@@ -1670,6 +1920,10 @@ def lm_parity(model):
              f"lm parity: card and CPU greedy ids differ at step {i}")
     cpu_s = time.perf_counter() - t0
     # decode against forward on the card, as the CPU test runs it
+    if cfg.moe is not None:
+        cfg = replace(cfg, moe=replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+        extra["decode_vs_forward_capacity_factor"] = cfg.moe.capacity_factor
     prompt = tokens[:, :PARITY_FORWARD_PROMPT]
     cache, _ = tfm.prefill(params, prompt, cfg, max_len=ml)
     nxt, dec = prompt[:, :1], []
@@ -1694,7 +1948,7 @@ def lm_parity(model):
         forward_prompt_tokens=PARITY_FORWARD_PROMPT,
         card_vs_cpu_max_abs_err=errs, decode_vs_forward_max_abs_err=fwd_errs,
         wall_s=time.perf_counter() - t0, card_and_cpu_s=cpu_s,
-        launches=dict(build.LAUNCHES))))
+        launches=dict(build.LAUNCHES), **extra)))
     launches = dict(build.LAUNCHES)
     # f32 attention runs on the mma.sync kernel: one launch per layer of
     # each prefill and forward
@@ -1704,6 +1958,57 @@ def lm_parity(model):
     del params, cpu_params, runs
     torch.cuda.empty_cache()
     return launches
+
+
+def lm_moe_ffn(model) -> None:
+    """``layers.moe.moe_ffn`` over a world-size-1 NCCL group (an in-memory
+    store, destroyed at the end) against the transformer's one-card
+    ``_moe_ffn_local``, in ``ep`` and ``tp`` mode, on one layer of the
+    model's full-width parameters in bf16 and a prefill's 4 x 2048
+    tokens: equal within bf16 rounding (``MOE_FFN_TOL``: the experts'
+    float32 sums are added in the order of ``index_add_``'s atomics, so
+    a rounding to bf16 may differ by one step); both timed."""
+    from dataclasses import replace
+    import torch
+    import torch.distributed as dist
+    from repro_torch.layers.moe import (init_moe_params, moe_ffn,
+                                        shard_moe_params)
+    from repro_torch.models import transformer as tfm
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    stacked = init_moe_params(g, model.d_model, model.moe, 1,
+                              dtype=model.dtype, device="cuda")
+    x = torch.randn((LM_BATCH, LM_PROMPT, model.d_model), generator=g,
+                    device="cuda").to(model.dtype)
+    lp = {k: v[0] for k, v in stacked.items()}
+    want, want_aux = tfm._moe_ffn_local(x, lp, model)
+    out = dict(path="lm moe_ffn", model=model.name, world_size=1,
+               backend="nccl", tokens=LM_BATCH * LM_PROMPT,
+               tolerance=MOE_FFN_TOL,
+               local_ms=cuda_ms(lambda: tfm._moe_ffn_local(x, lp, model), 3))
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        group = dist.group.WORLD
+        for mode in ("ep", "tp"):
+            mcfg = replace(model.moe, shard_mode=mode)
+            shard = {k: v[0] for k, v in
+                     shard_moe_params(stacked, mcfg, 0, 1).items()}
+            got, aux = moe_ffn(x, shard, mcfg, group, act=model.act,
+                               dtype=model.dtype)
+            err, ok = allclose_err(got, want, MOE_FFN_TOL)
+            need(ok and got.dtype == want.dtype,
+                 f"moe_ffn {mode} over NCCL vs _moe_ffn_local beyond "
+                 f"{MOE_FFN_TOL} (max abs err {err})")
+            need(float(aux) == float(want_aux),
+                 f"moe_ffn {mode}: aux {float(aux)} != {float(want_aux)}")
+            out[mode] = dict(max_abs_err=err, aux=float(aux), ms=cuda_ms(
+                lambda: moe_ffn(x, shard, mcfg, group, act=model.act,
+                                dtype=model.dtype), 3))
+    finally:
+        dist.destroy_process_group()
+    log(json.dumps(out))
+    del stacked, lp, x, want
+    torch.cuda.empty_cache()
 
 
 def main_path(T, dbs):
@@ -3106,7 +3411,9 @@ def main(argv=None) -> int:
                          f"{', '.join(PHASES)}, or oracles, the last part "
                          "of join alone (default: all; the kernels "
                          "line and the last line come only from a run of "
-                         "all)")
+                         "all); lm serves the two dense and the two MoE "
+                         "models, checks their parity and runs moe_ffn "
+                         "over NCCL")
     phases = ap.parse_args(argv).phases.split(",")
     if not set(phases) <= set(PHASES + ("oracles",)):
         ap.error(f"--phases takes {', '.join(PHASES)} or oracles (the "
@@ -3145,7 +3452,8 @@ def run_phases(T, phases, smi: str, workers: dict) -> int:
     """The phases of ``main``, in order; ``workers`` compute the scalar
     oracles' counts and the small-scale CPU enumerations beside them."""
     import torch
-    from repro_torch.configs import CHATGLM3_6B, STABLELM_3B
+    from repro_torch.configs import (CHATGLM3_6B, GRANITE_MOE_3B_A800M,
+                                     MOONSHOT_V1_16B_A3B, STABLELM_3B)
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     build.library()
@@ -3233,8 +3541,10 @@ def run_phases(T, phases, smi: str, workers: dict) -> int:
 
     if "lm" in phases:
         # each model's serving path with its own counters, summed
+        models = (CHATGLM3_6B, STABLELM_3B, GRANITE_MOE_3B_A800M,
+                  MOONSHOT_V1_16B_A3B)
         lm_launches = dict.fromkeys(build.LAUNCHES, 0)
-        for cfg in (CHATGLM3_6B, STABLELM_3B):
+        for cfg in models:
             t0 = time.perf_counter()
             served, _ = lm_serve(cfg)
             log(f"lm serve {cfg.name}: {time.perf_counter() - t0:.2f} s, "
@@ -3242,13 +3552,17 @@ def run_phases(T, phases, smi: str, workers: dict) -> int:
             for k, n in served.items():
                 lm_launches[k] += n
         parity_launches = dict.fromkeys(build.LAUNCHES, 0)
-        for cfg in (CHATGLM3_6B, STABLELM_3B):
+        for cfg in models:
             t0 = time.perf_counter()
             checked = lm_parity(cfg)
             log(f"lm parity {cfg.name}: {time.perf_counter() - t0:.2f} s, "
                 f"launches {checked}")
             for k, n in checked.items():
                 parity_launches[k] += n
+        for cfg in (GRANITE_MOE_3B_A800M, MOONSHOT_V1_16B_A3B):
+            t0 = time.perf_counter()
+            lm_moe_ffn(cfg)
+            log(f"lm moe_ffn {cfg.name}: {time.perf_counter() - t0:.2f} s")
 
     if phases != list(PHASES):
         log(f"partial run of {phases}: every check passed")
@@ -3257,7 +3571,7 @@ def run_phases(T, phases, smi: str, workers: dict) -> int:
     # bsearch main path for the first two, the auto path for the tile
     # kernel (the mask form of intersect_count_pallas; its count form is
     # the "kernel intersect_count" line above), the LM serving paths of
-    # both models for the wgmma flash kernel, their f32 parity paths for
+    # the four models for the wgmma flash kernel, their f32 parity paths for
     # the mma.sync one (both replace flash_attention_pallas, split by
     # dtype and head dim); no path runs the bitset AND-popcount or the
     # segment outer product, which only the kernel router reaches

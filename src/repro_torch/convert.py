@@ -82,22 +82,37 @@ def plan_from_fields(query, engine: str, gao, *, level_layouts=(),
 def transformer_params_from_numpy(params: dict, cfg, *,
                                   device: torch.device | str) -> dict:
     """The port's transformer parameters from the JAX package's, given as
-    a dict of numpy arrays (``{k: np.asarray(v) for k, v in p.items()}``;
-    bf16 arrives as ``ml_dtypes.bfloat16`` and goes through float32).
-    Each keeps its dtype and shape; names and shapes must be those of
-    ``models.transformer.init_params`` for ``cfg``."""
+    a dict of numpy arrays (``{k: np.asarray(v) ...}``; an MoE config's
+    ``"moe"`` entry a dict of them too; bf16 arrives as
+    ``ml_dtypes.bfloat16`` and goes through float32).  Each keeps its
+    dtype and shape, but the MoE router is float32 whatever it arrives
+    as (the JAX package computes its logits in float32); names and
+    shapes must be those of ``models.transformer.init_params`` for
+    ``cfg``, at both levels."""
     from .models.transformer import param_shapes
-    shapes = param_shapes(cfg)
-    if set(params) != set(shapes):
-        raise ValueError(f"parameter names {sorted(params)} != "
-                         f"{sorted(shapes)}")
-    out = {}
-    for name, a in params.items():
-        a = np.asarray(a)
-        if tuple(a.shape) != shapes[name]:
-            raise ValueError(f"{name}: shape {a.shape} != {shapes[name]}")
-        bf16 = a.dtype.name == "bfloat16"
-        t = torch.from_numpy(np.array(a, dtype=np.float32 if bf16 else a.dtype))
-        out[name] = t.to(device=device,
-                         dtype=torch.bfloat16 if bf16 else t.dtype)
-    return out
+
+    def convert(tree: dict, shapes: dict, where: str) -> dict:
+        if set(tree) != set(shapes):
+            raise ValueError(f"{where}parameter names {sorted(tree)} != "
+                             f"{sorted(shapes)}")
+        out = {}
+        for name, a in tree.items():
+            if isinstance(shapes[name], dict):
+                if not isinstance(a, dict):
+                    raise ValueError(f"{where}{name}: a dict of arrays "
+                                     "expected")
+                out[name] = convert(a, shapes[name], f"{where}{name}/")
+                continue
+            a = np.asarray(a)
+            if tuple(a.shape) != shapes[name]:
+                raise ValueError(f"{where}{name}: shape {a.shape} != "
+                                 f"{shapes[name]}")
+            bf16 = a.dtype.name == "bfloat16"
+            t = torch.from_numpy(
+                np.array(a, dtype=np.float32 if bf16 else a.dtype))
+            dtype = (torch.float32 if name == "router" else
+                     torch.bfloat16 if bf16 else t.dtype)
+            out[name] = t.to(device=device, dtype=dtype)
+        return out
+
+    return convert(params, param_shapes(cfg), "")

@@ -12,10 +12,31 @@ from __future__ import annotations
 import numpy as np
 
 from .device_graph import GraphDB
-from .plan import GraphStats, JoinPlan
+from .plan import GraphStats, HybridPlan, JoinPlan
 from .query import Query
 from .vlftj import VLFTJ
 from .yannakakis import CountingYannakakis
+
+
+class HybridDecomposition:
+    """The JAX package's view over :func:`core.planner.decompose_hybrid`:
+    the tree query, the cyclic core, the attachment variable and the
+    core's variables; ``applicable`` is False when the shape is not
+    supported (no decomposition)."""
+
+    def __init__(self, query: Query, plan: HybridPlan | None = None):
+        self.query = query
+        if plan is None:
+            from .planner import decompose_hybrid
+            plan = decompose_hybrid(query)
+        self.plan = plan
+        self.applicable = plan is not None
+        if plan is not None:
+            self.tree_query = plan.tree_query
+            self.core_query = plan.core_query
+            self.attachment = plan.attachment
+            self.core_vars = sorted(
+                {v for a in plan.core_query.atoms for v in a.vars})
 
 
 class HybridJoin:
@@ -29,6 +50,7 @@ class HybridJoin:
         self.query = query
         self.gdb = gdb
         self.join_plan = plan
+        self.decomp = HybridDecomposition(query, plan=plan.decomposition)
         self.vlftj_kw = vlftj_kw
         # the core (or fallback) executor plan, built once so repeated
         # executions of one hybrid plan never re-enter the planner; the

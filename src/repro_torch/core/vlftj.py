@@ -45,13 +45,17 @@ from .query import Query
 
 CHECK_MODES = ("bsearch", "bsearch2", "tile", "auto")
 
+#: the JAX package's older name of the per-level compiler, which lives
+#: in ``core.plan`` so the planner and the engine share one definition
+compile_plan = compile_levels
+
 
 def _expand_level(indptr, indices, bitmaps, frontier, mult, row_valid, *,
                   probe_cols, n_unary, lower_cols, upper_cols, width, n_iter,
-                  count_only, needs_degree, check_mode="bsearch",
+                  count_only, needs_degree, unroll=False, check_mode="bsearch",
                   check_width=0, rotate_checks=False, summary=None,
                   summary_stride=128, n_iter2=9, rep_tag=None,
-                  bitset_words=None):
+                  bitset_words=None, clamp_ids=True):
     """One GAO level for a frontier chunk.
 
     frontier: (C, n_bound) int32; mult: (C,) int64; row_valid: (C,) bool,
@@ -70,12 +74,27 @@ def _expand_level(indptr, indices, bitmaps, frontier, mult, row_valid, *,
     ``'bsearch2'``: a first search over ``summary`` (every
     ``summary_stride``-th index, ``n_iter`` rounds), then ``n_iter2``
     rounds in the window it leaves.
+
+    ``unroll`` is the JAX package's loop-unrolling switch, accepted and
+    ignored (eager PyTorch has no loop to unroll).  ``clamp_ids`` gathers
+    ``indptr`` at frontier ids clamped to [-L, L-1] (L = len(indptr)):
+    JAX wraps a negative index once and clamps the rest, where PyTorch
+    raises, so an id outside the graph reads what it reads in JAX.
+    ``VLFTJ``, whose frontiers hold only vertex ids, turns it off.
     """
     m = indices.shape[0]
     dev = frontier.device
+    if clamp_ids:
+        n_ptr = indptr.shape[0]
+
+        def at(ids):
+            return indptr[ids.clamp(-n_ptr, n_ptr - 1)]
+    else:
+        def at(ids):
+            return indptr[ids]
     xs = frontier[:, list(probe_cols)]                        # (C, P)
-    starts = indptr[xs]
-    degs = indptr[xs + 1] - starts                            # (C, P)
+    starts = at(xs)
+    degs = at(xs + 1) - starts                                # (C, P)
     p = torch.argmin(degs, dim=1)                             # (C,)
 
     def sel(a):
@@ -109,8 +128,8 @@ def _expand_level(indptr, indices, bitmaps, frontier, mult, row_valid, *,
             found = kops.bitset_member_mask(bitset_words, rep_tag[y], cand,
                                             lane_len)
         else:
-            lo = indptr[y][:, None]
-            hi = indptr[y + 1][:, None]
+            lo = at(y)[:, None]
+            hi = at(y + 1)[:, None]
             if check_mode == "tile":
                 found = kops.tile_member_mask(indices, lo, hi, cand,
                                               check_width, lane_len)
@@ -450,7 +469,7 @@ class VLFTJ:
                   n_iter=self.n_iter, needs_degree=lp.needs_degree,
                   check_mode=mode,
                   check_width=self.tile_width if mode == "tile" else 0,
-                  rotate_checks=self.rotate_checks)
+                  rotate_checks=self.rotate_checks, clamp_ids=False)
         if mode == "bsearch2":
             kw.update(n_iter=self.n_iter1, n_iter2=self.n_iter2,
                       summary=self.gdb.dev(f"summary:{self.summary_stride}"),

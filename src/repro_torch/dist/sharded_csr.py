@@ -434,10 +434,12 @@ def spmd_sharded_join_step(group, level_kw: dict, sgdb: ShardedGraphDB,
                 * width)[:, None]
         for ci in range(len(probe_cols)):
             # each row's check segment sits sorted at [ci, :deg) of its
-            # tile: one segmented binary search over the flat tiles
+            # tile, cut at the tile's width as the JAX step's whole-tile
+            # search cuts it: one segmented binary search over the flat
+            # tiles, never past a row's own tile
+            end = base + degs[:, ci:ci + 1].clamp(max=width)
             _, found = kops.searchsorted_segments(
-                tiles[:, ci].reshape(-1), base, base + degs[:, ci:ci + 1],
-                cand, n_iter)
+                tiles[:, ci].reshape(-1), base, end, cand, n_iter)
             keep &= found | (p == ci)[:, None]
         for col in lower_cols:
             keep &= cand > f[:, col][:, None]

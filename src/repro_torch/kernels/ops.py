@@ -30,9 +30,12 @@ def _on_cpu(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel for tensors on {t.device}")
 
 
-def searchsorted_segments(values, lo, hi, queries, n_iter: int):
+def searchsorted_segments(values, lo, hi, queries, n_iter: int,
+                          unroll: bool = False):
     """``(pos, found)`` of segmented lower bounds; see
-    :func:`kernels.ref.searchsorted_segments_ref`."""
+    :func:`kernels.ref.searchsorted_segments_ref`.  ``unroll`` is the JAX
+    package's loop-unrolling switch, accepted and ignored (eager PyTorch
+    has no loop to unroll)."""
     if _on_cpu(values):
         return _ref.searchsorted_segments_ref(values, lo, hi, queries,
                                               n_iter=n_iter)

@@ -13,7 +13,7 @@ import torch
 
 def searchsorted_segments_ref(values: torch.Tensor, lo: torch.Tensor,
                               hi: torch.Tensor, queries: torch.Tensor,
-                              n_iter: int
+                              n_iter: int, unroll: bool = False
                               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Branchless lower bound of ``queries`` within ``values[lo:hi)``.
 
@@ -21,7 +21,8 @@ def searchsorted_segments_ref(values: torch.Tensor, lo: torch.Tensor,
     broadcastable to queries' shape; n_iter >= ceil(log2(max segment
     length)) + 1 rounds, run exactly.  Returns ``(pos, found)``: ``pos``
     the first index in [lo, hi) with ``values[pos] >= q`` (``hi`` if
-    none), ``found`` whether ``q`` is present.
+    none), ``found`` whether ``q`` is present.  ``unroll`` (the JAX
+    package's ``fori_loop`` switch) is accepted and changes nothing.
     """
     m = values.shape[0]
     if m == 0:
@@ -47,6 +48,7 @@ def searchsorted_segments_2level_ref(values: torch.Tensor,
                                      lo: torch.Tensor, hi: torch.Tensor,
                                      queries: torch.Tensor, stride: int,
                                      n1: int, n2: int,
+                                     unroll: bool = False,
                                      search=searchsorted_segments_ref
                                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Two-level segmented lower bound.
@@ -55,7 +57,8 @@ def searchsorted_segments_2level_ref(values: torch.Tensor,
     summary over the segment's full blocks, the second a window of at
     most ``2 * stride + 1`` values of ``values``.  Same ``(pos, found)``
     contract as :func:`searchsorted_segments_ref`; ``search`` runs both
-    levels (``kernels.ops`` passes the CUDA kernel).  The bounds are
+    levels (``kernels.ops`` passes the CUDA kernel); ``unroll`` is
+    accepted and ignored.  The bounds are
     non-negative, so floor division is plain integer division.
     """
     q = queries

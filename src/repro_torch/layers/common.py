@@ -23,6 +23,51 @@ def normal_init(generator: torch.Generator, shape, stddev: float = 0.02,
     return (x * stddev).to(dtype)
 
 
+def normal_init_layers(generator: torch.Generator, shape,
+                       stddev: float = 0.02,
+                       dtype: torch.dtype = torch.float32,
+                       device: torch.device | str | None = None
+                       ) -> torch.Tensor:
+    """:func:`normal_init` of a stacked ``(L, ...)`` tensor, drawn one
+    layer at a time into a tensor of ``dtype``, so the float32 draws
+    never exceed one layer (a whole (48, 64, 2048, 1408) expert stack
+    drawn at once would take two 35 GB float32 temporaries).  The
+    numbers are not those of one :func:`normal_init` of the whole shape,
+    nor the JAX package's."""
+    dev = device if device is not None else generator.device
+    out = torch.empty(tuple(shape), dtype=dtype, device=dev)
+    for i in range(out.shape[0]):
+        out[i] = normal_init(generator, out.shape[1:], stddev, dtype, dev)
+    return out
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor,
+           out_dtype: torch.dtype) -> torch.Tensor:
+    """``einsum(x, w, preferred_element_type=f32).astype(out_dtype)``: a
+    product over the last axis of ``x`` with float32 accumulation.  A
+    bf16 product asked for a float32 result keeps it unrounded
+    (``torch.mm``'s ``out_dtype`` on the card; float32 operands on the
+    CPU)."""
+    if out_dtype == torch.float32 and x.dtype != torch.float32:
+        if x.is_cuda:
+            y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=out_dtype)
+            return y.reshape(*x.shape[:-1], w.shape[-1])
+        return torch.matmul(x.float(), w.float())
+    return torch.matmul(x, w).to(out_dtype)
+
+
+def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched ``a @ b`` with a float32 result, as
+    ``einsum("ecd,edf->ecf", ..., preferred_element_type=f32)``: bf16
+    operands on the card give an unrounded float32 result (``torch.bmm``'s
+    ``out_dtype``), float32 operands on the CPU the same products."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-5) -> torch.Tensor:
     xf = x.float()

@@ -1,4 +1,5 @@
-"""Decoder-only dense transformer: forward, prefill and KV-cache decode.
+"""Decoder-only transformer (dense and MoE): forward, prefill and KV-cache
+decode.
 
 The PyTorch version of ``repro.models.transformer`` for one card, with
 the same config fields, parameter names and stacked ``(L, ...)`` layout,
@@ -13,6 +14,13 @@ so the JAX package's parameters carry across unchanged
   leaves them to XLA, outside any kernel), with float32 accumulation;
   the gate and up projections keep their float32 results up to the
   activation, as the JAX package does;
+* an MoE config (``moe=MoEConfig(...)``) replaces the dense FFN with
+  ``layers.moe``'s routed experts in every layer, on one card the JAX
+  package's no-mesh path (``_moe_ffn_local``: every expert, ``e_off``
+  0, the capacity from the call's own ``B * S`` tokens, so decode at
+  batch B drops what the JAX package drops); its parameters are the
+  nested ``params["moe"]`` dict of stacked ``(L, ...)`` tensors, and
+  ``forward`` returns the mean of the layers' load-balance losses;
 * ``decode_step`` attends over the KV cache with the plain
   ``_cached_attention`` (plain jnp in the JAX package too).  It writes the
   new token's K and V into the cache tensors **in place** (the JAX
@@ -26,8 +34,8 @@ and the decode write position is clamped to ``max_len - 1``
 
 The mesh options (``fsdp``, ``seq_shard``, ``attn_head_shard``) and
 ``remat`` are fields for parity and do nothing here: one card has no
-mesh, and remat is a training concern.  MoE configs wait for
-``layers/moe.py``.
+mesh, and remat is a training concern.  ``layers.moe.moe_ffn`` is the
+MoE layer over a process group.
 """
 from __future__ import annotations
 
@@ -38,9 +46,9 @@ import torch
 from ..device import resolve_device
 from ..kernels import ops as kops
 from ..layers.common import act_fn, apply_rope, make_norm, normal_init
-
-#: the ROADMAP item that ports ``layers/moe.py``
-MOE_ITEM = "ROADMAP Queue 1 item 11b (layers/moe.py and the MoE configs)"
+from ..layers.common import matmul as _matmul
+from ..layers.moe import (MoEConfig, _dispatch_compute, capacity_of,
+                          init_moe_params, moe_param_shapes, shared_experts)
 
 
 @dataclass(frozen=True)
@@ -59,7 +67,7 @@ class TransformerConfig:
     norm: str = "rmsnorm"
     use_bias: bool = False
     tie_embeddings: bool = True
-    moe: object | None = None
+    moe: MoEConfig | None = None
     dtype: torch.dtype = torch.bfloat16
     remat: bool = True
     fsdp: bool = False
@@ -67,11 +75,6 @@ class TransformerConfig:
     attn_head_shard: bool = True
     loss_seq_chunk: int = 0
     max_cache_len: int = 32768
-
-    def __post_init__(self):
-        if self.moe is not None:
-            raise NotImplementedError(
-                f"{self.name}: MoE blocks are not ported yet ({MOE_ITEM})")
 
     @property
     def head_dim(self) -> int:
@@ -89,14 +92,28 @@ class TransformerConfig:
         d, l, v = self.d_model, self.n_layers, self.vocab_size
         hq, hkv, dh = self.n_heads, self.n_kv_heads, self.head_dim
         attn = d * hq * dh * 2 + d * hkv * dh * 2
-        ffn = 3 * d * self.d_ff
+        if self.moe is None:
+            ffn = 3 * d * self.d_ff
+        else:
+            ffn = (3 * d * self.moe.d_ff_expert * self.moe.n_experts
+                   + d * self.moe.n_experts
+                   + 3 * d * self.moe.d_ff_expert * self.moe.n_shared_experts)
         emb = v * d * (1 if self.tie_embeddings else 2)
         return l * (attn + ffn + 2 * d) + emb + d
 
     @property
     def n_active_params(self) -> int:
-        """Active params per token: all of them in a dense model."""
-        return self.n_params
+        """Active params per token (MoE: top_k + shared experts only)."""
+        if self.moe is None:
+            return self.n_params
+        d, l = self.d_model, self.n_layers
+        hq, hkv, dh = self.n_heads, self.n_kv_heads, self.head_dim
+        attn = d * hq * dh * 2 + d * hkv * dh * 2
+        ffn = (3 * d * self.moe.d_ff_expert
+               * (self.moe.top_k + self.moe.n_shared_experts)
+               + d * self.moe.n_experts)
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return l * (attn + ffn + 2 * d) + emb + d
 
 
 # ---------------------------------------------------------------------------
@@ -110,25 +127,41 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator | None = None
                 device: torch.device | str = "cuda") -> dict:
     """Random parameters with the JAX package's names and stacked shapes:
     normal(0, 0.02) weights in ``cfg.dtype`` from ``generator`` (a fresh
-    one seeded 0 on ``device`` when omitted), float32 norm scales of 1."""
+    one seeded 0 on ``device`` when omitted), float32 norm scales of 1;
+    an MoE config's nested ``"moe"`` dict from
+    :func:`~repro_torch.layers.moe.init_moe_params` (router in float32,
+    each stacked tensor drawn one layer at a time).  The numbers are
+    not the JAX package's for any seed."""
     dev = resolve_device(device, "init_params")
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    return {name: (torch.ones(shape, dtype=torch.float32, device=dev)
-                   if name in _NORMS else
-                   normal_init(generator, shape, dtype=cfg.dtype, device=dev))
-            for name, shape in param_shapes(cfg).items()}
+    params = {}
+    for name, shape in param_shapes(cfg).items():
+        if name == "moe":
+            params[name] = init_moe_params(generator, cfg.d_model, cfg.moe,
+                                           cfg.n_layers, dtype=cfg.dtype,
+                                           device=dev)
+        elif name in _NORMS:
+            params[name] = torch.ones(shape, dtype=torch.float32, device=dev)
+        else:
+            params[name] = normal_init(generator, shape, dtype=cfg.dtype,
+                                       device=dev)
+    return params
 
 
 def param_shapes(cfg: TransformerConfig) -> dict:
-    """Parameter name -> shape, as :func:`init_params` makes them."""
+    """Parameter name -> shape, as :func:`init_params` makes them; an MoE
+    config's ``"moe"`` maps to a dict of its own names and shapes."""
     l, d, v = cfg.n_layers, cfg.d_model, cfg.padded_vocab
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     shapes = {"embed": (v, d), "ln1": (l, d), "wq": (l, d, hq * dh),
               "wk": (l, d, hkv * dh), "wv": (l, d, hkv * dh),
-              "wo": (l, hq * dh, d), "ln2": (l, d), "ln_f": (d,),
-              "w_gate": (l, d, cfg.d_ff), "w_up": (l, d, cfg.d_ff),
-              "w_down": (l, cfg.d_ff, d)}
+              "wo": (l, hq * dh, d), "ln2": (l, d), "ln_f": (d,)}
+    if cfg.moe is None:
+        shapes.update(w_gate=(l, d, cfg.d_ff), w_up=(l, d, cfg.d_ff),
+                      w_down=(l, cfg.d_ff, d))
+    else:
+        shapes["moe"] = moe_param_shapes(d, cfg.moe, l)
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (d, v)
     return shapes
@@ -137,20 +170,6 @@ def param_shapes(cfg: TransformerConfig) -> dict:
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
-
-def _matmul(x: torch.Tensor, w: torch.Tensor,
-            out_dtype: torch.dtype) -> torch.Tensor:
-    """``einsum(x, w, preferred_element_type=f32).astype(out_dtype)``: a
-    product with float32 accumulation.  A bf16 product asked for a
-    float32 result keeps it unrounded (``torch.mm``'s ``out_dtype`` on the
-    card; float32 operands on the CPU)."""
-    if out_dtype == torch.float32 and x.dtype != torch.float32:
-        if x.is_cuda:
-            y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=out_dtype)
-            return y.reshape(*x.shape[:-1], w.shape[-1])
-        return torch.matmul(x.float(), w.float())
-    return torch.matmul(x, w).to(out_dtype)
-
 
 def _embed(params: dict, tokens: torch.Tensor, cfg: TransformerConfig):
     """``params["embed"][tokens]`` with JAX's gather semantics: a negative
@@ -185,21 +204,49 @@ def _dense_ffn(x, lp, cfg: TransformerConfig):
     return _matmul(h, lp["w_down"], cfg.dtype)
 
 
+def _moe_ffn_local(x, lp, cfg: TransformerConfig):
+    """The MoE FFN on one card (the JAX package's no-mesh path): every
+    expert, the capacity from this call's ``B * S`` tokens."""
+    b, s, d = x.shape
+    t = b * s
+    out, aux = _dispatch_compute(
+        x.reshape(t, d), lp["router"], lp["w_gate"], lp["w_up"],
+        lp["w_down"], cfg=cfg.moe, e_off=0,
+        n_total_experts=cfg.moe.n_experts, act=cfg.act,
+        capacity=capacity_of(cfg.moe, t))
+    y = out.reshape(b, s, d).to(cfg.dtype)
+    if cfg.moe.n_shared_experts:
+        y = y + shared_experts(x, lp, cfg.act).to(y.dtype)
+    return y, aux
+
+
+def _ffn(x, lp, cfg: TransformerConfig):
+    """The layer's FFN and its aux loss (None for a dense layer)."""
+    if cfg.moe is None:
+        return _dense_ffn(x, lp, cfg), None
+    return _moe_ffn_local(x, lp["moe"], cfg)
+
+
 def _layer(x, lp, cfg: TransformerConfig, positions):
     norm = make_norm(cfg.norm)
     attn_out, kv = _attention(norm(x, {"scale": lp["ln1"]}), lp, cfg,
                               positions)
     x = x + attn_out
-    x = x + _dense_ffn(norm(x, {"scale": lp["ln2"]}), lp, cfg)
-    return x, kv
+    ff, aux = _ffn(norm(x, {"scale": lp["ln2"]}), lp, cfg)
+    return x + ff, kv, aux
 
 
-_LAYER_KEYS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "w_gate", "w_up",
-               "w_down")
+_LAYER_KEYS = ("ln1", "wq", "wk", "wv", "wo", "ln2")
+_DENSE_KEYS = ("w_gate", "w_up", "w_down")
 
 
 def _layer_params(params: dict, i: int) -> dict:
-    return {k: params[k][i] for k in _LAYER_KEYS}
+    lp = {k: params[k][i] for k in _LAYER_KEYS}
+    if "moe" in params:
+        lp["moe"] = {k: v[i] for k, v in params["moe"].items()}
+    else:
+        lp.update({k: params[k][i] for k in _DENSE_KEYS})
+    return lp
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -207,15 +254,19 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig):
-    """Token ids (B, S) -> final hidden states (B, S, d) and the mean aux
-    loss (0 for a dense model)."""
+    """Token ids (B, S) -> final hidden states (B, S, d) and the mean of
+    the layers' aux losses (0 for a dense model)."""
     b, s = tokens.shape
     x = _embed(params, tokens, cfg)
     positions = _positions(b, s, x.device)
+    auxs = []
     for i in range(cfg.n_layers):
-        x, _ = _layer(x, _layer_params(params, i), cfg, positions)
+        x, _, aux = _layer(x, _layer_params(params, i), cfg, positions)
+        auxs.append(aux)
     x = make_norm(cfg.norm)(x, {"scale": params["ln_f"]})
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.moe is None:
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, torch.stack(auxs).mean()
 
 
 def _lm_logits(x, params: dict, cfg: TransformerConfig) -> torch.Tensor:
@@ -247,7 +298,7 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
     ks = torch.zeros(shape, dtype=cfg.dtype, device=x.device)
     vs = torch.zeros(shape, dtype=cfg.dtype, device=x.device)
     for i in range(cfg.n_layers):
-        x, (k, v) = _layer(x, _layer_params(params, i), cfg, positions)
+        x, (k, v), _ = _layer(x, _layer_params(params, i), cfg, positions)
         ks[i, :, :, :s] = k
         vs[i, :, :, :s] = v
     x = make_norm(cfg.norm)(x, {"scale": params["ln_f"]})
@@ -299,7 +350,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
         o = _cached_attention(q.transpose(1, 2), kc, vc, n + 1, cfg)
         o = o.transpose(1, 2).reshape(b, 1, hq * dh)
         x = x + _matmul(o, lp["wo"], cfg.dtype)
-        x = x + _dense_ffn(norm(x, {"scale": lp["ln2"]}), lp, cfg)
+        x = x + _ffn(norm(x, {"scale": lp["ln2"]}), lp, cfg)[0]
     x = make_norm(cfg.norm)(x, {"scale": params["ln_f"]})
     logits = _lm_logits(x, params, cfg)
     return logits, {"k": cache["k"], "v": cache["v"], "len": n + 1}

@@ -601,6 +601,67 @@ def test_spmd_sharded_join_step_one_rank(gloo1, tri, needs_degree):
         assert want == ref
 
 
+#: the JAX package's sharded-CSR counts of the triangle level at tile
+#: widths below the graph's max degree (85 and 35): its step searches
+#: the whole sentinel-padded tile, so a segment longer than the tile is
+#: cut at it
+SHARDED_NARROW = {((400, 5, 1), 8): 56, ((400, 5, 1), 32): 680,
+                  ((400, 5, 1), 64): 1003, ((400, 5, 1), 128): 1070,
+                  ((100, 3, 0), 8): 41}
+
+
+@pytest.mark.parametrize("graph,width", sorted(SHARDED_NARROW),
+                         ids=[f"plc{g[0]}-w{w}" for g, w in
+                              sorted(SHARDED_NARROW)])
+@pytest.mark.parametrize("needs_degree", [False, True])
+def test_spmd_sharded_join_step_width_below_degree(gloo1, graph, width,
+                                                   needs_degree):
+    """A check segment longer than the tile width is searched within its
+    own row's tile, as the JAX step searches it, not into the next
+    row's tile."""
+    import jax
+    from repro.dist.sharded_csr import \
+        spmd_sharded_join_step as j_sharded_step
+    g = j_powerlaw_cluster(graph[0], graph[1], seed=graph[2])
+    csr = _port_csr(g)
+    fr = _edge_frontier(csr)
+    ones = np.ones(len(fr), np.int64)
+    kw = dict(probe_cols=(0, 1), n_unary=0, lower_cols=(1,), upper_cols=(),
+              width=width, n_iter=int(math.ceil(math.log2(width))) + 1,
+              needs_degree=needs_degree)
+    want = int(j_sharded_step(jax.make_mesh((1,), ("data",)), kw,
+                              JShardedGraphDB(g, 1))(fr, ones))
+    got = spmd_sharded_join_step(gloo1, kw, ShardedGraphDB(csr, 1),
+                                 device="cpu")(fr, ones)
+    assert got == want == SHARDED_NARROW[(graph, width)]
+
+
+@pytest.mark.parametrize("extra", [[5, 121], [5, -1], [-2, 7]],
+                         ids=lambda e: f"{e[0]},{e[1]}")
+@pytest.mark.parametrize("unroll", [False, True])
+def test_spmd_join_step_takes_what_the_jax_step_takes(gloo1, extra, unroll):
+    """A frontier row with an id outside the graph (JAX clamps the
+    gather, the port clamps it the same way) and the JAX package's
+    ``unroll`` keyword in the level keywords: the same count as the JAX
+    step, 314 on this graph for the row ``[5, 121]`` as without it."""
+    import jax
+    g = j_powerlaw_cluster(120, 4, seed=2)
+    csr = _port_csr(g)
+    fr = np.concatenate([_edge_frontier(csr),
+                         np.asarray([extra], np.int32)])
+    ones = np.ones(len(fr), np.int64)
+    db = T.GraphDB(csr, {}, device="cpu")
+    kw = _tri_kw(db, unroll=unroll)
+    got = int(spmd_join_step(gloo1, kw, device="cpu")(
+        db.dev("indptr"), db.dev("indices"), fr, ones))
+    jdb = JGraphDB(g, {})
+    want = int(j_spmd_join_step(jax.make_mesh((1,), ("data",)), kw)(
+        jdb.dev("indptr"), jdb.dev("indices"), fr, ones))
+    assert got == want
+    if extra == [5, 121]:
+        assert got == 314
+
+
 def test_spmd_steps_refuse_wrong_inputs(gloo1, tri, monkeypatch):
     tw, fr, kw, _ = tri
     with pytest.raises(ValueError, match="sharded 2 ways"):

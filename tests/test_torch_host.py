@@ -13,6 +13,7 @@ import pytest
 import repro  # noqa: F401  (x64 for the reference)
 from repro.analysis.__main__ import STATS_PROFILES, TIER1_SHAPES
 from repro.core.planner import plan_query as j_plan_query
+from repro.core.query import PAPER_QUERIES as J_PAPER_QUERIES
 from repro.core.query import get_query as j_get_query
 from repro.core.yannakakis import NotTreeShaped as JNotTreeShaped
 from repro.graphs import generators as j_gen
@@ -112,3 +113,30 @@ def test_plan_query_matches(engine, shape, profile):
         return
     t_plan = plan_query(get_query(shape), t_stats, engine=engine)
     assert _fields(t_plan) == _fields(j_plan)
+
+
+@pytest.mark.parametrize("shape", sorted(J_PAPER_QUERIES))
+def test_hybrid_decomposition_matches_reference(shape):
+    """``core.hybrid.HybridDecomposition``, the JAX package's view over
+    ``decompose_hybrid``: the same applicability, tree and core queries,
+    attachment variable and core variables; and ``vlftj.compile_plan``
+    is ``compile_levels`` under its older name."""
+    from repro.core.hybrid import HybridDecomposition as JDecomposition
+    from repro.core.vlftj import compile_plan as j_compile_plan
+
+    from repro_torch.core.hybrid import HybridDecomposition
+    from repro_torch.core.plan import compile_levels
+    from repro_torch.core.vlftj import compile_plan
+    want = JDecomposition(j_get_query(shape))
+    got = HybridDecomposition(get_query(shape))
+    assert got.applicable == want.applicable
+    if want.applicable:
+        assert (str(got.tree_query), str(got.core_query), got.attachment,
+                got.core_vars) == (str(want.tree_query),
+                                   str(want.core_query), want.attachment,
+                                   want.core_vars)
+    assert compile_plan is compile_levels
+    gao = tuple(get_query(shape).variables)
+    assert [dataclasses.astuple(lv) for lv in compile_plan(
+        get_query(shape), gao)] == [dataclasses.astuple(lv) for lv in
+                                    j_compile_plan(j_get_query(shape), gao)]

@@ -34,8 +34,11 @@ def test_importing_every_port_module_imports_no_jax():
             "repro_torch.kernels.flash_attention",
             "repro_torch.kernels.segment_outer",
             "repro_torch.layers.common", "repro_torch.models.transformer",
+            "repro_torch.layers.moe",
             "repro_torch.configs.common", "repro_torch.configs.chatglm3_6b",
             "repro_torch.configs.stablelm_3b",
+            "repro_torch.configs.granite_moe_3b_a800m",
+            "repro_torch.configs.moonshot_v1_16b_a3b",
             "repro_torch.core.relation", "repro_torch.core.lftj_ref",
             "repro_torch.core.minesweeper_ref",
             "repro_torch.core.binary_join", "repro_torch.graphs.io",
@@ -132,6 +135,27 @@ def test_default_device_is_the_card_for_the_transformer(monkeypatch):
         init_params(cfg, torch.Generator().manual_seed(0))
     p = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     assert p["embed"].device.type == "cpu"
+
+
+def test_default_device_is_the_card_for_moe(monkeypatch):
+    """The MoE parameters, alone or in an MoE config's model, are made on
+    the card unless the caller asks for the CPU."""
+    import torch
+    from repro_torch.configs import GRANITE_MOE_3B_A800M, reduced_cfg
+    from repro_torch.layers.moe import init_moe_params
+    from repro_torch.models.transformer import init_params
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced_cfg(GRANITE_MOE_3B_A800M)
+    for build in (lambda: init_moe_params(None, 64, cfg.moe, 2),
+                  lambda: init_moe_params(torch.Generator().manual_seed(0),
+                                          64, cfg.moe, 2),
+                  lambda: init_params(cfg)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+    p = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    assert p["moe"]["w_gate"].device.type == "cpu"
+    assert init_moe_params(None, 64, cfg.moe, 2, device="cpu")[
+        "router"].device.type == "cpu"
 
 
 def test_default_device_is_the_card_for_dist(monkeypatch):

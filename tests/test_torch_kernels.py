@@ -725,3 +725,112 @@ def test_bitset_intersect_count_plain_matches_pallas(seed, rows, tile):
                                np.append(y, 31) if i % 2 == 0 else y))
             for i, (x, y) in enumerate(zip(a_sets, b_sets))]
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+# --- inputs the JAX functions take and the port once refused --------------
+
+def _triangle_level(extra_rows):
+    """A 3-clique level (probe ``(0, 1)``, lower ``(1,)``) on
+    ``powerlaw_cluster(120, 4, seed=2)``: the ``a < b`` edges as the
+    frontier, then ``extra_rows``, as (indptr, indices, frontier) numpy
+    arrays and the level keywords."""
+    from repro.graphs import powerlaw_cluster as j_powerlaw_cluster
+    g = j_powerlaw_cluster(120, 4, seed=2)
+    src = np.repeat(np.arange(g.n_nodes), np.diff(g.indptr))
+    edges = np.stack([src, g.indices], axis=1)
+    fr = edges[edges[:, 0] < edges[:, 1]]
+    fr = np.concatenate([fr, np.asarray(extra_rows, np.int64).reshape(-1, 2)])
+    kw = dict(probe_cols=(0, 1), n_unary=0, lower_cols=(1,), upper_cols=(),
+              width=64, n_iter=7, needs_degree=False)
+    return (np.asarray(g.indptr, np.int32), np.asarray(g.indices, np.int32),
+            fr.astype(np.int32), kw)
+
+
+def _level_both(indptr, indices, fr, count_only, **kw):
+    n = fr.shape[0]
+    mult, valid = np.ones(n, np.int64), np.ones(n, bool)
+    want = j_expand_level(*map(jnp.asarray, (indptr, indices)), (),
+                          *map(jnp.asarray, (fr, mult, valid)),
+                          count_only=count_only, **kw)
+    got = t_expand_level(*map(torch.from_numpy, (indptr, indices)), (),
+                         *map(torch.from_numpy, (fr, mult, valid)),
+                         count_only=count_only, **kw)
+    return got, want
+
+
+@pytest.mark.parametrize("extra", [[5, 121], [5, -1], [-2, 7], [-1, -2],
+                                   [300, -500], [121, 120]],
+                         ids=lambda e: f"{e[0]},{e[1]}")
+def test_level_step_reads_ids_outside_the_graph_as_jax(extra):
+    """A frontier id outside [-(n+1), n] reads ``indptr`` where JAX's
+    gather reads it (a negative index wraps once, then the index is
+    clamped), where a plain PyTorch gather would raise.  The 3-clique
+    level with the extra row ``[5, 121]`` counts 314 in both packages,
+    what it counts without the row; every row's count and every lane's
+    candidate and mask are equal."""
+    indptr, indices, fr, kw = _triangle_level([extra])
+    for count_only in (True, False):
+        got, want = _level_both(indptr, indices, fr, count_only, **kw)
+        if count_only:
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        else:
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    if extra == [5, 121]:
+        assert int(got[1].sum()) == 314 == int(np.asarray(want[1]).sum())
+
+
+def test_level_step_clamp_is_a_switch_the_engine_turns_off():
+    """``clamp_ids=False`` gathers as PyTorch does (an id past the graph
+    raises); ``VLFTJ``, whose frontiers hold vertex ids only, passes it,
+    so its level loop makes no extra call per chunk."""
+    from repro_torch.core import VLFTJ, get_query
+    from repro_torch.core.device_graph import GraphDB
+    from repro_torch.graphs import powerlaw_cluster
+    indptr, indices, fr, kw = _triangle_level([[5, 121]])
+    n = fr.shape[0]
+    args = (*map(torch.from_numpy, (indptr, indices)), (),
+            *map(torch.from_numpy, (fr, np.ones(n, np.int64),
+                                    np.ones(n, bool))))
+    with pytest.raises(IndexError):
+        t_expand_level(*args, count_only=True, clamp_ids=False, **kw)
+    ex = VLFTJ(get_query("3-clique"),
+               GraphDB(powerlaw_cluster(120, 4, seed=2), device="cpu"))
+    assert ex._level_kw(ex.plan[1], 0, "bsearch")["clamp_ids"] is False
+
+
+def test_searchsorted_unroll_changes_nothing():
+    """The port's mirror of the JAX package's
+    ``test_searchsorted_unroll_matches_loop``: ``unroll`` is accepted by
+    the plain version, the router and the two-level search, and changes
+    no result (eager PyTorch has no loop to unroll)."""
+    rng = np.random.default_rng(21)
+    vals = torch.from_numpy(np.sort(rng.integers(0, 100, 64)).astype(np.int32))
+    q = torch.from_numpy(rng.integers(0, 100, (8, 128)).astype(np.int32))
+    lo = torch.zeros((8, 1), dtype=torch.int32)
+    hi = torch.full((8, 1), 64, dtype=torch.int32)
+    a = ref.searchsorted_segments_ref(vals, lo, hi, q, n_iter=8, unroll=False)
+    b = ref.searchsorted_segments_ref(vals, lo, hi, q, n_iter=8, unroll=True)
+    c = ops.searchsorted_segments(vals, lo, hi, q, 8, unroll=True)
+    want = j_ss_ref(*map(jnp.asarray, (vals.numpy(), lo.numpy(), hi.numpy(),
+                                       q.numpy())), n_iter=8, unroll=True)
+    for got in (b, c):
+        for g, w, o in zip(got, want, a):
+            assert torch.equal(g, o)
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    summary = vals[::4].contiguous()
+    two = [ref.searchsorted_segments_2level_ref(vals, summary, lo, hi, q, 4,
+                                                5, 5, unroll=u)
+           for u in (False, True)]
+    assert all(torch.equal(x, y) for x, y in zip(*two))
+
+
+def test_level_step_accepts_unroll():
+    """``_expand_level(unroll=True)`` as the JAX package's level keywords
+    pass it: the same 314 triangles as without it, lane for lane."""
+    indptr, indices, fr, kw = _triangle_level([[5, 121]])
+    got, want = _level_both(indptr, indices, fr, True, unroll=True, **kw)
+    base, _ = _level_both(indptr, indices, fr, True, **kw)
+    assert torch.equal(got, base)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert int(got.sum()) == 314

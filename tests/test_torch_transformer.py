@@ -21,6 +21,8 @@ from numpy.testing import assert_allclose
 
 import repro  # noqa: F401  (x64, as the JAX package's own tests run)
 from repro.configs.chatglm3_6b import ARCH as J_CHATGLM
+from repro.configs.granite_moe_3b_a800m import ARCH as J_GRANITE
+from repro.configs.moonshot_v1_16b_a3b import ARCH as J_MOONSHOT
 from repro.configs.stablelm_3b import ARCH as J_STABLELM
 from repro.layers import common as jl
 from repro.models import transformer as jt
@@ -34,6 +36,12 @@ torch.set_num_threads(1)
 
 ARCHS = {"stablelm-3b": (J_STABLELM, tconfigs.STABLELM_3B),
          "chatglm3-6b": (J_CHATGLM, tconfigs.CHATGLM3_6B)}
+#: the MoE configs, whose fields and counts are held here and whose
+#: layers and serving slice ``tests/test_torch_moe.py`` holds
+MOE_ARCHS = {"granite-moe-3b-a800m": (J_GRANITE,
+                                      tconfigs.GRANITE_MOE_3B_A800M),
+             "moonshot-v1-16b-a3b": (J_MOONSHOT,
+                                     tconfigs.MOONSHOT_V1_16B_A3B)}
 TOL = dict(atol=2e-4, rtol=2e-4)
 
 
@@ -42,10 +50,10 @@ def _dtype_name(dt) -> str:
         else jnp.dtype(dt).name
 
 
-@pytest.mark.parametrize("arch", sorted(ARCHS))
+@pytest.mark.parametrize("arch", sorted(ARCHS) + sorted(MOE_ARCHS))
 @pytest.mark.parametrize("reduced", [False, True])
 def test_config_fields_match(arch, reduced):
-    jarch, tcfg = ARCHS[arch]
+    jarch, tcfg = {**ARCHS, **MOE_ARCHS}[arch]
     jcfg = jarch.reduced_cfg() if reduced else jarch.cfg
     if reduced:
         tcfg = tconfigs.reduced_cfg(tcfg)
@@ -55,6 +63,8 @@ def test_config_fields_match(arch, reduced):
     for name, jv in jf.items():
         if name == "dtype":
             assert _dtype_name(tf[name]) == _dtype_name(jv)
+        elif name == "moe" and jv is not None:
+            assert dataclasses.asdict(tf[name]) == dataclasses.asdict(jv)
         else:
             assert tf[name] == jv, name
     for prop in ("n_params", "n_active_params", "padded_vocab", "head_dim"):
@@ -63,15 +73,24 @@ def test_config_fields_match(arch, reduced):
 
 def test_full_size_counts():
     """chatglm3-6b: 6.24 B parameters, GQA group 16; stablelm-3b's
-    vocab pads 50304 -> 50432."""
+    vocab pads 50304 -> 50432; granite-moe-3b-a800m: 3.30 B parameters
+    (0.88 B active), heads of 64 in GQA groups of 3; moonshot-v1-16b-a3b:
+    28.55 B (4.47 B active), heads of 128."""
     g = tconfigs.CHATGLM3_6B
     assert g.n_params == 6_243_454_976 and g.n_heads // g.n_kv_heads == 16
     assert tconfigs.STABLELM_3B.padded_vocab == 50432
-
-
-def test_moe_config_raises():
-    with pytest.raises(NotImplementedError, match="layers/moe.py"):
-        dataclasses.replace(tconfigs.CHATGLM3_6B, moe=object())
+    gr, mo = tconfigs.GRANITE_MOE_3B_A800M, tconfigs.MOONSHOT_V1_16B_A3B
+    assert (gr.n_params, gr.n_active_params) == (3_298_793_472, 882_874_368)
+    assert gr.head_dim == 64 and gr.n_heads // gr.n_kv_heads == 3
+    assert (mo.n_params, mo.n_active_params) == (28_552_923_136,
+                                                 4_469_229_568)
+    assert mo.head_dim == 128 and mo.padded_vocab == 163840
+    for arch, (jarch, tcfg) in MOE_ARCHS.items():
+        assert tcfg.n_params == jarch.cfg.n_params, arch
+        assert tcfg.n_active_params == jarch.cfg.n_active_params, arch
+        red = tconfigs.reduced_cfg(tcfg)
+        assert red.n_params == jarch.reduced_cfg().n_params, arch
+        assert (red.moe.n_experts, red.moe.d_ff_expert) == (8, 64)
 
 
 # --- layers --------------------------------------------------------------
