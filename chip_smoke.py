@@ -18,7 +18,8 @@ lane and ``lane_len`` (the live lanes the level step passes), and held
 exactly on their own edge cases.  Flash attention has two kernels,
 routed by dtype and head dim: bf16 with D a multiple of 16 up to 128 on
 wgmma (``flash_attention_tc``: chatglm3-6b's and stablelm-3b's prefill
-shapes and granite-moe-3b-a800m's (D 64, GQA group 3), the mma.sync
+shapes, granite-moe-3b-a800m's (D 64, GQA group 3) and
+moonshot-v1-16b-a3b's (D 128, group 1), the mma.sync
 kernel and SDPA on the same tensors, and a bf16 sweep over D 16-128,
 GQA groups, causal offsets, short and ragged streams and strided
 views) and the rest on mma.sync (``flash_attention_mma``: f32 in
@@ -110,16 +111,21 @@ kernels' launch counters set to 0 just before it and read just after:
   one prefill profiled; an MoE model's line adds its parameter and
   active-parameter counts, its capacities at prefill and decode, the
   picks each layer's prefill drops and the experts' least and greatest
-  load, and a second profile names the MoE dispatch's share of the
-  prefill's device time; each model at full width with 2 layers in f32
+  load (each layer's input recorded in one more prefill and routed
+  again), and a second profile, replayed on those inputs, names the MoE
+  dispatch's share of the prefill's device time; each model at full
+  width with 2 layers in f32
   (``lm parity``, on the mma.sync flash kernel): the card's prefill and
   decode logits against the port's CPU path (1e-3; an MoE model's router
   picks equal first, at its own capacity factor) and decode against
   ``forward`` over the concatenated stream (2e-4; an MoE model at
-  ``capacity_factor = n_experts / top_k``, where nothing drops); and
+  ``capacity_factor = n_experts / top_k``, where nothing drops); and on
+  one layer of each MoE model at a prefill's 4 x 2048 tokens in bf16,
+  the one-card MoE FFN against the same layer in float32 on upcast
+  copies (router picks equal first, then 2^-7), and
   ``layers.moe.moe_ffn`` over a world-size-1 NCCL group against the
-  one-card MoE FFN in ``ep`` and ``tp`` mode, on one layer of each MoE
-  model at a prefill's 4 x 2048 tokens (one bf16 rounding step).
+  one-card MoE FFN in ``ep`` and ``tp`` mode (2^-8, one bf16 rounding
+  step).
 
 The counts are checked against counts made on the host with scipy and
 numpy alone (the cliques, 3-path and lollipops), across the two dbs
@@ -190,10 +196,17 @@ PARITY_LAYERS, PARITY_PROMPT, PARITY_STEPS = 2, 256, 4
 #: tokens, lengths the flash kernel takes (the Pallas kernel's contract
 #: asks T % min(128, T) == 0, so 257..259 are refused)
 PARITY_FORWARD_PROMPT = 124
-#: ``moe_ffn`` over NCCL against the one-card MoE FFN, both in bf16: one
-#: bf16 rounding step (8 significant bits, so neighbouring values differ
-#: by at most 2^-7 of their magnitude), relative and absolute
-MOE_FFN_TOL = 2.0 ** -7
+#: ``moe_ffn`` over NCCL against the one-card MoE FFN, both in bf16, as
+#: absolute and relative tolerance: one bf16 rounding step of the output
+#: (8 significant bits) fits within it at every |value| below 2, and the
+#: line prints the largest |value| beside the error
+MOE_FFN_TOL = 2.0 ** -8
+#: the one-card MoE FFN in bf16 against the same layer in float32 on
+#: upcast copies of its input and weights (TF32 off), absolute and
+#: relative: the bf16 path rounds the experts' hidden activations, the
+#: routed and the shared outputs and their sum to bf16, four roundings of
+#: at most 2^-9 of their magnitudes each
+MOE_BF16_TOL = 2.0 ** -7
 #: the segment-outer line at MACE's widths (d_hidden 128, l_max 2 -> 9
 #: basis functions) on 131,072 nodes at ogb_products' mean directed degree
 #: (123,718,280 / 2,449,029), in node blocks of 8 and edge tiles of 128
@@ -1088,37 +1101,39 @@ def flash_mma_sweep(randn) -> list:
     return rows
 
 
-def flash_granite_shape(randn) -> dict:
-    """The wgmma kernel's D 64 instance at granite-moe-3b-a800m's prefill
-    shape, the first model path at GQA group 3: 24 query and 8 KV heads
-    of 64 dims, 4 requests of 2048 tokens, bf16, causal, as prefill
-    passes them; against its plain version (2e-2) and timed beside
-    SDPA."""
+def flash_model_shape(cfg, randn) -> dict:
+    """The wgmma kernel at an MoE model's prefill shape: ``cfg``'s query
+    and KV heads, 4 requests of 2048 tokens, bf16, causal, as prefill
+    passes them (granite-moe-3b-a800m: 24 and 8 heads of 64, the D 64
+    instance at GQA group 3; moonshot-v1-16b-a3b: 16 and 16 of 128);
+    against its plain version (2e-2) and timed beside SDPA."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels.flash_attention import route
     bf = torch.bfloat16
-    b, hq, hkv, t, d = LM_BATCH, 24, 8, LM_PROMPT, 64
+    b, hq, hkv, t, d = (LM_BATCH, cfg.n_heads, cfg.n_kv_heads, LM_PROMPT,
+                        cfg.head_dim)
     q, k, v = (randn(b, t, h_, d, dtype=bf).transpose(1, 2)
                for h_ in (hq, hkv, hkv))
-    need(route(q.device, q.dtype, d) == "tc", "flash route of granite's "
+    need(route(q.device, q.dtype, d) == "tc", f"flash route of {cfg.name}'s "
          "bf16 heads is not the tensor-core kernel")
     build.reset_launches()
     o = ops.flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
     need(build.LAUNCHES["flash_attention_tc"] == 1
          and build.LAUNCHES["flash_attention_mma"] == 0,
-         f"granite's shape did not launch flash_attention_tc: "
+         f"{cfg.name}'s shape did not launch flash_attention_tc: "
          f"{build.LAUNCHES}")
     err, ok = allclose_err(o, ref.flash_attention_ref(q, k, v), 2e-2)
-    need(ok, f"flash_attention_tc (bf16, granite's shape) disagrees with "
-         f"its plain version beyond 2e-2 (max abs err {err})")
+    need(ok, f"flash_attention_tc (bf16, {cfg.name}'s shape) disagrees "
+         f"with its plain version beyond 2e-2 (max abs err {err})")
     qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
     line = bound(dict(
         shape=f"q ({b}, {hq}, {t}, {d}) bf16 as a transposed (B, T, H, D) "
               f"view, k, v ({b}, {hkv}, {t}, {d}), causal",
-        instance="D 64", max_abs_err=err, tolerance=2e-2,
+        instance=f"D {d}", gqa_group=hq // hkv, max_abs_err=err,
+        tolerance=2e-2,
         ms=device_ms(lambda: ops.flash_attention(q, k, v), 20,
                      "flash_attention_tc_kernel"),
         event_ms=cuda_ms(lambda: ops.flash_attention(q, k, v), 20),
@@ -1139,6 +1154,7 @@ def kernel_phase_lm():
     with the library call where PyTorch has one."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.configs import GRANITE_MOE_3B_A800M, MOONSHOT_V1_16B_A3B
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels.flash_attention import _launch_mma, route
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1197,7 +1213,9 @@ def kernel_phase_lm():
     tc_stablelm["achieved_tflop_s"] = work["flops"] / tc_stablelm["ms"] / 1e9
     del q, k, v, qc, kc, vc, o
 
-    tc_granite = flash_granite_shape(randn)
+    moe_shapes = {m.name.replace("-", "_").replace(".", "_"):
+                  flash_model_shape(m, randn)
+                  for m in (GRANITE_MOE_3B_A800M, MOONSHOT_V1_16B_A3B)}
 
     # the mma.sync kernel in bf16 at head dims off the multiples of 16, at
     # stablelm-3b's prefill shape otherwise: D 72 (an off-grid width near
@@ -1306,7 +1324,7 @@ def kernel_phase_lm():
         flops_model="4 B Hq T^2 D / 2 (QK^T and PV, causal half)",
         flops=flops, flops_type="bf16",
         bytes=q.nbytes + k.nbytes + v.nbytes + o.nbytes,
-        stablelm_3b=tc_stablelm, granite_moe_3b_a800m=tc_granite,
+        stablelm_3b=tc_stablelm, **moe_shapes,
         hgmma=sass_counts("HGMMA"))
     tc["achieved_tflop_s"] = flops / tc["ms"] / 1e9
     out["flash_attention_tc"] = tc
@@ -1651,55 +1669,9 @@ def recorded_routes(calls: list):
         moe.route = real
 
 
-def moe_routing(params, tokens, cfg, ml: int) -> dict:
-    """One more prefill with the routes recorded: each layer's picks per
-    expert, and the picks the capacity drops (an expert keeps its first
-    ``capacity`` picks)."""
-    import torch
-    from repro_torch.layers.moe import capacity_of
-    from repro_torch.models import transformer as tfm
-    calls = []
-    with recorded_routes(calls):
-        tfm.prefill(params, tokens, cfg, max_len=ml)
-    need(len(calls) == cfg.n_layers, f"lm serve: {len(calls)} MoE routes "
-         f"in a prefill of {cfg.n_layers} layers")
-    cap = capacity_of(cfg.moe, tokens.numel())
-    loads = torch.stack([torch.bincount(idx.reshape(-1),
-                                        minlength=cfg.moe.n_experts)
-                         for _, idx, _ in calls]).cpu()
-    dropped = (loads - cap).clamp(min=0).sum(dim=1)
-    return dict(capacity_prefill=cap,
-                capacity_decode=capacity_of(cfg.moe, LM_BATCH),
-                picks_per_layer=tokens.numel() * cfg.moe.top_k,
-                dropped_per_layer=dropped.tolist(),
-                dropped_share=float(dropped.sum()) / (
-                    cfg.n_layers * tokens.numel() * cfg.moe.top_k),
-                expert_load_min=int(loads.min()),
-                expert_load_max=int(loads.max()))
-
-
-def is_gemm(kernel: str) -> bool:
-    """Whether a device kernel's name is a matrix product's (cuBLAS,
-    CUTLASS)."""
-    key = kernel.lower()
-    return any(w in key for w in ("gemm", "xmma", "nvjet", "cutlass",
-                                  "matmul"))
-
-
-def moe_profile(params, tokens, cfg, ml: int, prefill_busy_s: float) -> dict:
-    """The MoE layers' parts of one prefill's device time: each MoE
-    layer's input recorded in one prefill, then every layer's
-    ``_dispatch_compute`` and shared experts replayed on those inputs
-    under ``torch.profiler`` (device only: the prefill's kernels on the
-    prefill's tensors).  ``dispatch`` is ``_dispatch_compute``'s kernels
-    but its matrix products (routing, the sorts, the slot arithmetic,
-    both scatters); ``expert_gemms`` its matrix products (the three
-    expert products and the router's logits); each over
-    ``prefill_busy_s``, the prefill's device time in the ``profile``
-    line."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.layers.moe import capacity_of
+def moe_inputs(params, tokens, cfg, ml: int) -> list:
+    """Each MoE layer's input in one more prefill (``_moe_ffn_local``
+    wrapped to record it)."""
     from repro_torch.models import transformer as tfm
     inputs = []
     real = tfm._moe_ffn_local
@@ -1713,10 +1685,61 @@ def moe_profile(params, tokens, cfg, ml: int, prefill_busy_s: float) -> dict:
         tfm.prefill(params, tokens, cfg, max_len=ml)
     finally:
         tfm._moe_ffn_local = real
-    need(len(inputs) == cfg.n_layers, f"moe profile: {len(inputs)} MoE "
+    need(len(inputs) == cfg.n_layers, f"lm serve: {len(inputs)} MoE "
          f"inputs in a prefill of {cfg.n_layers} layers")
+    return inputs
+
+
+def moe_routing(params, inputs, cfg) -> dict:
+    """Each layer's picks per expert, from ``layers.moe.route`` on the
+    layer's recorded prefill input, and the picks the capacity drops (an
+    expert keeps its first ``capacity`` picks)."""
+    import torch
+    from repro_torch.layers.moe import capacity_of, route
+    from repro_torch.models import transformer as tfm
+    n_tokens = inputs[0].shape[0] * inputs[0].shape[1]
+    cap = capacity_of(cfg.moe, n_tokens)
+    loads = torch.stack([
+        torch.bincount(route(x.reshape(-1, cfg.d_model),
+                             tfm._layer_params(params, i)["moe"]["router"],
+                             cfg.moe.top_k)[1].reshape(-1),
+                       minlength=cfg.moe.n_experts)
+        for i, x in enumerate(inputs)]).cpu()
+    dropped = (loads - cap).clamp(min=0).sum(dim=1)
+    return dict(capacity_prefill=cap,
+                capacity_decode=capacity_of(cfg.moe, LM_BATCH),
+                picks_per_layer=n_tokens * cfg.moe.top_k,
+                dropped_per_layer=dropped.tolist(),
+                dropped_share=float(dropped.sum()) / (
+                    cfg.n_layers * n_tokens * cfg.moe.top_k),
+                expert_load_min=int(loads.min()),
+                expert_load_max=int(loads.max()))
+
+
+def is_gemm(kernel: str) -> bool:
+    """Whether a device kernel's name is a matrix product's (cuBLAS,
+    CUTLASS)."""
+    key = kernel.lower()
+    return any(w in key for w in ("gemm", "xmma", "nvjet", "cutlass",
+                                  "matmul"))
+
+
+def moe_profile(params, inputs, cfg, prefill_busy_s: float) -> dict:
+    """The MoE layers' parts of one prefill's device time: every layer's
+    ``_dispatch_compute`` and shared experts replayed on its recorded
+    prefill input (``moe_inputs``) under ``torch.profiler`` (device
+    only: the prefill's kernels on the prefill's tensors).  ``dispatch``
+    is ``_dispatch_compute``'s kernels but its matrix products (routing,
+    the sorts, the slot arithmetic, both scatters); ``expert_gemms`` its
+    matrix products (the three expert products and the router's logits);
+    each over ``prefill_busy_s``, the prefill's device time in the
+    ``profile`` line."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.layers.moe import capacity_of
+    from repro_torch.models import transformer as tfm
     moe = cfg.moe
-    cap = capacity_of(moe, tokens.numel())
+    cap = capacity_of(moe, inputs[0].shape[0] * inputs[0].shape[1])
     layers = [tfm._layer_params(params, i)["moe"]
               for i in range(cfg.n_layers)]
 
@@ -1765,9 +1788,9 @@ def lm_serve(cfg):
     layer must launch the wgmma flash kernel once and the mma.sync one
     never.  Then one prefill is profiled; an MoE model's line adds its
     capacities, the picks each layer's prefill drops and the experts'
-    loads (from one more prefill with its routes recorded), and
-    ``moe_profile`` names the MoE dispatch's share of the prefill's
-    device time."""
+    loads (routed again from each layer's input, recorded in one more
+    prefill), and ``moe_profile`` names the MoE dispatch's share of the
+    prefill's device time, replayed on the same inputs."""
     import torch
     from repro_torch.kernels import build
     from repro_torch.models import transformer as tfm
@@ -1829,9 +1852,11 @@ def lm_serve(cfg):
         decode_tokens_s=LM_BATCH * LM_DECODE / decode_s,
         peak_allocated_bytes=peak, launches=launches,
         first_ids=ids[:, :8].tolist())
+    inputs = None
     if cfg.moe is not None:
         t0 = time.perf_counter()
-        line["moe"] = moe_routing(params, tokens, cfg, ml)
+        inputs = moe_inputs(params, tokens, cfg, ml)
+        line["moe"] = moe_routing(params, inputs, cfg)
         line["moe"]["routing_s"] = time.perf_counter() - t0
     log(json.dumps(line))
     prof = gpu_profile(lambda: tfm.prefill(params, tokens, cfg, max_len=ml),
@@ -1839,10 +1864,10 @@ def lm_serve(cfg):
     log(json.dumps(prof))
     if cfg.moe is not None:
         t0 = time.perf_counter()
-        parts = moe_profile(params, tokens, cfg, ml, prof["device_busy_s"])
+        parts = moe_profile(params, inputs, cfg, prof["device_busy_s"])
         parts["wall_s"] = time.perf_counter() - t0
         log(json.dumps(parts))
-    del params
+    del params, inputs
     torch.cuda.empty_cache()
     return launches, prefill_s
 
@@ -1961,19 +1986,25 @@ def lm_parity(model):
 
 
 def lm_moe_ffn(model) -> None:
-    """``layers.moe.moe_ffn`` over a world-size-1 NCCL group (an in-memory
-    store, destroyed at the end) against the transformer's one-card
-    ``_moe_ffn_local``, in ``ep`` and ``tp`` mode, on one layer of the
-    model's full-width parameters in bf16 and a prefill's 4 x 2048
-    tokens: equal within bf16 rounding (``MOE_FFN_TOL``: the experts'
-    float32 sums are added in the order of ``index_add_``'s atomics, so
-    a rounding to bf16 may differ by one step); both timed."""
+    """The MoE FFN on one layer of the model's full-width parameters in
+    bf16 and a prefill's 4 x 2048 tokens: the one-card
+    ``_moe_ffn_local`` against the same layer in float32 on upcast copies
+    of the input and the weights (TF32 off; the router picks held equal
+    first, then ``MOE_BF16_TOL``), which holds the bf16 path's own
+    arithmetic (``bmm_f32``'s bf16 products with float32 results, the
+    bf16 buffer fill); then ``layers.moe.moe_ffn`` over a world-size-1
+    NCCL group (an in-memory store, destroyed at the end) against
+    ``_moe_ffn_local``, in ``ep`` and ``tp`` mode: equal within bf16
+    rounding (``MOE_FFN_TOL``: the experts' float32 sums are added in
+    the order of ``index_add_``'s atomics, so a rounding to bf16 may
+    differ by one step); all timed."""
     from dataclasses import replace
     import torch
     import torch.distributed as dist
-    from repro_torch.layers.moe import (init_moe_params, moe_ffn,
+    from repro_torch.layers.moe import (init_moe_params, moe_ffn, route,
                                         shard_moe_params)
     from repro_torch.models import transformer as tfm
+    torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     stacked = init_moe_params(g, model.d_model, model.moe, 1,
                               dtype=model.dtype, device="cuda")
@@ -1981,10 +2012,29 @@ def lm_moe_ffn(model) -> None:
                     device="cuda").to(model.dtype)
     lp = {k: v[0] for k, v in stacked.items()}
     want, want_aux = tfm._moe_ffn_local(x, lp, model)
+    # the same layer in float32: the same routes, then no bf16 rounding
+    x32, lp32 = x.float(), {k: v.float() for k, v in lp.items()}
+    k = model.moe.top_k
+    need(torch.equal(route(x.reshape(-1, model.d_model), lp["router"], k)[1],
+                     route(x32.reshape(-1, model.d_model), lp32["router"],
+                           k)[1]),
+         f"lm moe_ffn: bf16 and f32 router picks differ ({model.name})")
+    f32, f32_aux = tfm._moe_ffn_local(
+        x32, lp32, replace(model, dtype=torch.float32))
+    err32, ok = allclose_err(want, f32, MOE_BF16_TOL)
+    need(ok and want.dtype == model.dtype,
+         f"lm moe_ffn: bf16 vs f32 {model.name} beyond {MOE_BF16_TOL} (max "
+         f"abs err {err32}, largest |f32| {float(f32.abs().max())})")
     out = dict(path="lm moe_ffn", model=model.name, world_size=1,
                backend="nccl", tokens=LM_BATCH * LM_PROMPT,
-               tolerance=MOE_FFN_TOL,
+               bf16_vs_f32=dict(max_abs_err=err32, tolerance=MOE_BF16_TOL,
+                                max_abs_f32=float(f32.abs().max()),
+                                aux_err=abs(float(want_aux)
+                                            - float(f32_aux)),
+                                router_picks_equal=True),
+               tolerance=MOE_FFN_TOL, max_abs_want=float(want.abs().max()),
                local_ms=cuda_ms(lambda: tfm._moe_ffn_local(x, lp, model), 3))
+    del x32, lp32, f32
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
                             world_size=1)
     try:
@@ -1998,7 +2048,8 @@ def lm_moe_ffn(model) -> None:
             err, ok = allclose_err(got, want, MOE_FFN_TOL)
             need(ok and got.dtype == want.dtype,
                  f"moe_ffn {mode} over NCCL vs _moe_ffn_local beyond "
-                 f"{MOE_FFN_TOL} (max abs err {err})")
+                 f"{MOE_FFN_TOL} (max abs err {err}, largest |want| "
+                 f"{out['max_abs_want']})")
             need(float(aux) == float(want_aux),
                  f"moe_ffn {mode}: aux {float(aux)} != {float(want_aux)}")
             out[mode] = dict(max_abs_err=err, aux=float(aux), ms=cuda_ms(
@@ -3412,8 +3463,9 @@ def main(argv=None) -> int:
                          "of join alone (default: all; the kernels "
                          "line and the last line come only from a run of "
                          "all); lm serves the two dense and the two MoE "
-                         "models, checks their parity and runs moe_ffn "
-                         "over NCCL")
+                         "models, checks their parity, holds the bf16 "
+                         "MoE FFN against float32 and runs moe_ffn over "
+                         "NCCL")
     phases = ap.parse_args(argv).phases.split(",")
     if not set(phases) <= set(PHASES + ("oracles",)):
         ap.error(f"--phases takes {', '.join(PHASES)} or oracles (the "

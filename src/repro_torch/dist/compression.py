@@ -14,7 +14,7 @@ import torch
 import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
-from .overlap import check_group_device
+from ..device import check_group_device
 
 
 def compressed_psum_leaf(x: torch.Tensor, err: torch.Tensor, group=None

@@ -25,18 +25,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-#: the process-group backend each device type's collectives run on
-BACKEND_FOR = {"cuda": "nccl", "cpu": "gloo"}
-
-
-def check_group_device(group, device: torch.device, what: str) -> None:
-    """Raise unless ``group``'s backend serves tensors on ``device``."""
-    backend = str(dist.get_backend(group))
-    want = BACKEND_FOR.get(torch.device(device).type)
-    if backend != want:
-        raise ValueError(
-            f"{what}: tensors on {device} need a {want or 'supported'} "
-            f"process group, this one is {backend!r}")
+from ..device import check_group_device
 
 
 def ring_schedule(group=None) -> tuple[int, list[tuple[int, int]]]:

@@ -39,9 +39,10 @@ import torch.distributed as dist
 from ..core.plan import (GraphStats, JoinPlan, compile_levels,
                          executor_geometry)
 from ..core.query import Query
+from ..device import check_group_device
 from ..graphs.csr import CSRGraph, degrees_from_indptr
 from ..kernels import ops as kops
-from .overlap import check_group_device, ring_hop, ring_schedule
+from .overlap import ring_hop, ring_schedule
 from .sharded_join import _on, _pad_block, _step_device
 
 

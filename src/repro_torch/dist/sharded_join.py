@@ -48,9 +48,8 @@ from ..core.device_graph import GraphDB
 from ..core.plan import JoinPlan, executor_geometry, partition_first_level
 from ..core.query import Query
 from ..core.vlftj import VLFTJ, _expand_level
-from ..device import resolve_device
+from ..device import check_group_device, resolve_device
 from ..train.stragglers import reassign_shards
-from .overlap import check_group_device
 from .pool import WorkerPool
 
 

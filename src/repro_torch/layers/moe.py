@@ -45,7 +45,7 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
-from ..device import resolve_device
+from ..device import check_group_device, resolve_device
 from .common import act_fn, bmm_f32, matmul, normal_init_layers
 
 
@@ -156,10 +156,10 @@ def route(x: torch.Tensor, router: torch.Tensor, top_k: int):
 def _slots(idx, gates, *, n_total_experts: int, e_off: int, e_loc: int,
            capacity: int):
     """Where each of the ``T * k`` picks goes: the picks stably sorted by
-    expert, as ``(st, sg, pos, local, slot_e, slot_c)``: the token and
-    gate of each sorted pick, its position in its expert's group, whether
-    it is one of this rank's experts within capacity, and its buffer
-    slot (``(0, 0)`` where it is not)."""
+    expert, as ``(st, sg, local, slot_e, slot_c)``: the token and gate of
+    each sorted pick, whether it is one of this rank's experts within
+    capacity (its position in its expert's group below ``capacity``),
+    and its buffer slot (``(0, 0)`` where it is not)."""
     t, k = idx.shape
     dev = idx.device
     eflat = idx.reshape(-1)                                    # (T*k,)
@@ -172,7 +172,7 @@ def _slots(idx, gates, *, n_total_experts: int, e_off: int, e_loc: int,
     local = (se >= e_off) & (se < e_off + e_loc) & (pos < capacity)
     slot_e = torch.where(local, se - e_off, 0)
     slot_c = torch.where(local, pos, 0)
-    return st, sg, pos, local, slot_e, slot_c
+    return st, sg, local, slot_e, slot_c
 
 
 def _dispatch_compute(x, router, w_gate, w_up, w_down, *, cfg: MoEConfig,
@@ -193,7 +193,7 @@ def _dispatch_compute(x, router, w_gate, w_up, w_down, *, cfg: MoEConfig,
     frac = (idx[:, :1] == experts).float().mean(dim=0)
     aux = n_total_experts * torch.sum(frac * probs.mean(dim=0))
 
-    st, sg, _, local, slot_e, slot_c = _slots(
+    st, sg, local, slot_e, slot_c = _slots(
         idx, gates, n_total_experts=n_total_experts, e_off=e_off,
         e_loc=e_loc, capacity=capacity)
     xg = torch.where(local[:, None], x[st], 0).to(x.dtype)
@@ -231,7 +231,6 @@ def moe_ffn(x: torch.Tensor, params_layer: dict, cfg: MoEConfig,
     shard of one layer's parameters (:func:`shard_moe_params`, then the
     layer).  Returns ``(y (B, S, d) in dtype, aux)``, the same on every
     rank of ``group`` (None: the default group)."""
-    from ..dist.overlap import check_group_device
     check_group_device(group, x.device, "moe_ffn")
     world = dist.get_world_size(group)
     rank = dist.get_rank(group)

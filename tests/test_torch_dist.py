@@ -65,7 +65,7 @@ from repro_torch.dist import (AdaptiveJoin, FrontierRebalancer,
                               ring_all_reduce, ring_schedule, sharded_count,
                               spmd_join_step, spmd_sharded_join_step,
                               spmd_spmv_step)
-from repro_torch.dist.overlap import check_group_device
+from repro_torch.device import check_group_device
 from repro_torch.dist.rebalance import (cost_skew, rebalance_rows,
                                         row_extension_costs)
 from repro_torch.dist.sharded_join import _on

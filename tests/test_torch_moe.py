@@ -97,12 +97,21 @@ def _j_slots(x, router, k, n_total, e_off, e_loc, capacity):
 
 
 def _t_slots(x, router, k, n_total, e_off, e_loc, capacity):
+    """The port's routing and slots; ``pos``, each sorted pick's place in
+    its expert's group, from numpy on the port's picks, and the port's
+    buffer slot held to it wherever the pick is kept."""
     _, idx, gate_vals = tmoe.route(x, router, k)
-    st, sg, pos, local, slot_e, slot_c = tmoe._slots(
+    st, sg, local, slot_e, slot_c = tmoe._slots(
         idx, torch.softmax(gate_vals, dim=-1), n_total_experts=n_total,
         e_off=e_off, e_loc=e_loc, capacity=capacity)
-    return dict(idx=idx, st=st, sg=sg, pos=pos, local=local, slot_e=slot_e,
-                slot_c=slot_c)
+    se = np.sort(idx.numpy().reshape(-1), kind="stable")
+    pos = np.arange(se.size) - np.searchsorted(se, se, side="left")
+    kept = local.numpy()
+    np.testing.assert_array_equal(slot_c.numpy()[kept], pos[kept])
+    np.testing.assert_array_equal(kept, ((se >= e_off) & (se < e_off + e_loc)
+                                         & (pos < capacity)))
+    return dict(idx=idx, st=st, sg=sg, pos=torch.from_numpy(pos),
+                local=local, slot_e=slot_e, slot_c=slot_c)
 
 
 def _hold_slots(got: dict, want: dict) -> None:
