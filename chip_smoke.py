@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases kernels,join,serve,dist,lm]
+    python3 chip_smoke.py [--phases kernels,join,serve,dist,lm,train]
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
 kernel against its plain PyTorch version at the main path's shapes
@@ -27,7 +27,15 @@ views) and the rest on mma.sync (``flash_attention_mma``: f32 in
 stablelm-3b's shape, and a sweep of off-grid head dims in both dtypes,
 strided and offset views among them).  The two lines count the
 ``HGMMA`` and ``HMMA`` instructions in the built library's SASS where
-``cuobjdump`` exists.  The segment outer
+``cuobjdump`` exists.  The flash backward kernel
+(``flash_attention_bwd``, the gradient of both) runs at the four
+models' heads at B 1 x T 4096 in bf16, each of dq, dk and dv held
+against its plain version relative to its largest |want| (2e-2), timed
+beside its bound and SDPA's backward on the same tensors; on a
+1,000-case sweep of f32 (2e-5) and bf16, head dims 8-128, GQA groups
+1-4 and 16, causal offsets, rows that see no key, strided views; and
+through ``torch.autograd.grad`` of ``ops.flash_attention``, one launch a
+backward.  The segment outer
 product runs at MACE's widths (131,072 nodes, 6,621,401 edges, C 128,
 M 9) on uniform and powerlaw destinations, in float32 and bf16 (each
 held at 2e-4 on the same tensors: bf16 products round alike), two calls
@@ -125,7 +133,25 @@ kernels' launch counters set to 0 just before it and read just after:
   copies (router picks equal first, then 2^-7), and
   ``layers.moe.moe_ffn`` over a world-size-1 NCCL group against the
   one-card MoE FFN in ``ep`` and ``tp`` mode (2^-8, one bf16 rounding
-  step).
+  step);
+* ``train``: stablelm-3b trained at full width and depth in bf16 through
+  ``Trainer.run`` (6 steps of 4 x 4096 tokens in 2 microbatches, remat
+  on, from ``LMTokenPipeline`` over a token file with a learnable
+  pattern): the loss finite and falling, the gradient norms finite, 4
+  launches of the wgmma flash kernel and 2 of the backward kernel a
+  layer a step, none of the mma.sync one; one more step profiled (every
+  gradient leaf finite; device time of the GEMMs, the flash forward and
+  backward, the optimizer and the rest, and the idle share); a 2-layer
+  run checkpointed every 2 steps, restored bit for bit, its newest
+  checkpoint corrupted and skipped, and resumed to the straight run's
+  losses; one float32 train step of stablelm-3b and granite-moe-3b-a800m
+  at full width and 2 layers on the card against the CPU path (router
+  picks equal, loss and gradient norm within 1e-4, parameters within 3
+  learning rates); one bf16 layer's gradients against float32 on upcast
+  copies (stablelm-3b's dense layer, granite's MoE FFN; 2^-5 of each
+  leaf's largest gradient); and the data-parallel and compressed train
+  steps over a world-size-1 NCCL group on the tiny model of
+  ``tests/test_fault_tolerance.py``, to its convergence criteria.
 
 The counts are checked against counts made on the host with scipy and
 numpy alone (the cliques, 3-path and lollipops), across the two dbs
@@ -146,7 +172,7 @@ kernels against their plain versions, the join paths, the LM paths, or
 ``oracles``, the last part of the join paths alone) and then prints
 neither the ``kernels`` line nor the last line (``--phases serve`` runs
 the query server's phase alone, ``--phases dist`` distributed
-execution's).
+execution's, ``--phases train`` training's).
 """
 from __future__ import annotations
 
@@ -245,8 +271,8 @@ OUTER_KERNELS = ("segment_outer_kernel", "segment_outer_merge_kernel",
 
 #: what a run drives, in order: the kernels against their plain versions,
 #: the join paths, the query server and its scheduler, distributed
-#: execution, the LM paths
-PHASES = ("kernels", "join", "serve", "dist", "lm")
+#: execution, the LM serving paths, LM training
+PHASES = ("kernels", "join", "serve", "dist", "lm", "train")
 #: the join path's kernel functions, reported by name in count profiles
 PORT_JOIN_KERNELS = ("searchsorted_segments_kernel", "tile_member_mask_kernel",
                      "bitset_member_mask_kernel")
@@ -1381,6 +1407,229 @@ def kernel_phase_lm():
                    else bound(k)) for name, k in out.items()}
 
 
+#: the flash backward's lines: B 1 x T 4096 in bf16 (``train_4k``'s
+#: sequence) with each model's heads, and its tolerance relative to the
+#: largest |want| of each of dq, dk and dv: the forward's (2e-2 bf16,
+#: 2e-5 f32)
+FLASH_BWD_T = 4096
+FLASH_BWD_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+FLASH_BWD_KERNELS = ("flash_attention_bwd_dq_kernel",
+                     "flash_attention_bwd_dkdv_kernel")
+
+
+def rel_err(got, want) -> float:
+    """Max abs error of ``got`` against ``want`` over the largest |want|."""
+    want = want.float()
+    return float((got.float() - want).abs().max()
+                 / want.abs().max().clamp(min=1e-30))
+
+
+def visible_pairs(tq: int, tk: int, causal: bool) -> int:
+    """The (query, key) pairs attention computes for one head: every pair,
+    or under the causal mask the keys at or before each query's position
+    ``tk - tq + i``."""
+    if not causal:
+        return tq * tk
+    pos = np.arange(tq) + (tk - tq)
+    return int(np.clip(pos + 1, 0, tk).sum())
+
+
+def device_total_ms(fn, reps: int) -> float:
+    """Device time of every kernel ``fn`` launches, per call, from
+    ``torch.profiler`` over ``reps`` calls (after one unprofiled call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(device_us(e) for e in prof.key_averages()) / 1e3 / reps
+
+
+def flash_bwd_errs(q, k, v, o, do, causal: bool = True) -> list:
+    """The backward kernel and its plain version on the same tensors:
+    each of dq, dk, dv's error relative to its largest |want|."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    got = flash_attention_bwd_cuda(q, k, v, o, do, causal)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, causal)
+    for g, w in zip(got, want):
+        need(g.shape == w.shape and g.dtype == w.dtype
+             and bool(torch.isfinite(g).all()),
+             f"flash_attention_bwd: output {tuple(g.shape)} {g.dtype} "
+             "is not the plain version's shape and type, or not finite")
+    return [rel_err(g, w) for g, w in zip(got, want)]
+
+
+def flash_bwd_model_line(cfg, randn) -> dict:
+    """The backward kernel at a model's heads, B 1 x T 4096, bf16, causal,
+    q, k, v as the transposed (B, T, H, D) views the transformer passes:
+    held against its plain version, timed (``ms``: both kernels' device
+    time), beside its bound (five causal Tq.Tk.D products, S, dP, dV, dK,
+    dQ, at the bf16 rate, or the bytes of q, k, v, o, do and dq, dk, dv),
+    its plain version and SDPA's backward on the same tensors (k and v
+    expanded to the query heads)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    bf, t = torch.bfloat16, FLASH_BWD_T
+    b, hq, hkv, d = 1, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = (randn(b, t, h_, d, dtype=bf).transpose(1, 2)
+               for h_ in (hq, hkv, hkv))
+    o = ops.flash_attention(q, k, v)
+    do = randn(b, hq, t, d, dtype=bf)
+    errs = flash_bwd_errs(q, k, v, o, do)
+    tol = FLASH_BWD_TOL["bfloat16"]
+    need(max(errs) <= tol, f"flash_attention_bwd at {cfg.name}'s shape: "
+         f"dq, dk, dv errors {errs} beyond {tol}")
+    group = hq // hkv
+    qe = q.detach().contiguous().requires_grad_()
+    ke, ve = (x.repeat_interleave(group, dim=1).contiguous().requires_grad_()
+              for x in (k, v))
+    out = F.scaled_dot_product_attention(qe, ke, ve, is_causal=True)
+    library_ms = device_total_ms(lambda: torch.autograd.grad(
+        out, (qe, ke, ve), do, retain_graph=True), 5)
+    pairs = visible_pairs(t, t, True)
+    line = bound(dict(
+        model=cfg.name, shape=f"q ({b}, {hq}, {t}, {d}) bf16 as a transposed "
+        f"(B, T, H, D) view, k, v ({b}, {hkv}, {t}, {d}), causal",
+        gqa_group=group, max_abs_err=max(errs), dq_dk_dv_rel_err=errs,
+        tolerance=tol,
+        ms=device_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, do), 5,
+                     *FLASH_BWD_KERNELS),
+        plain_ms=cuda_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, o, do),
+                         1),
+        library_ms=library_ms,
+        library_call="torch.autograd.grad of scaled_dot_product_attention("
+                     "q, k, v, is_causal=True), k and v repeated to the "
+                     "query heads, contiguous",
+        flops_model="5 x 2 B Hq D x the causal (query, key) pairs (S, dP, "
+                    "dV, dK, dQ)",
+        flops=5 * 2 * b * hq * pairs * d, flops_type="bf16",
+        bytes=3 * q.nbytes + k.nbytes + v.nbytes + o.nbytes + do.nbytes))
+    line["achieved_tflop_s"] = line["flops"] / line["ms"] / 1e9
+    line["vs_library"] = line["ms"] / library_ms
+    del q, k, v, o, do, qe, ke, ve, out
+    torch.cuda.empty_cache()
+    return line
+
+
+def flash_bwd_sweep(randn) -> list:
+    """The backward kernel against its plain version in f32 (2e-5) and
+    bf16 (2e-2), each error relative to the largest |want| of its output:
+    D 16-128 in steps of 16 and the off-grid 72, 40 and 8; GQA groups 1
+    and 4 at every D, 16 at D 128, 3 at D 64, 2 at D 80; Tq = Tk 256, Tq
+    64 of Tk 256 (the causal offset), a ragged 100, Tq 1 of 128, and Tq
+    128 of Tk 64 (the first 64 rows see no key under the causal mask and
+    carry no gradient); causal and not; contiguous and as transposed
+    (B, T, H, D) views.  Returns [dtype, D, Hq, Hkv, Tq, Tk, causal,
+    strided, max rel err]."""
+    import torch
+    from repro_torch.kernels import build, ops
+    rows = []
+    build.reset_launches()
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for d in (16, 32, 48, 64, 80, 96, 112, 128, 72, 40, 8):
+            groups = (1, 4) + {128: (16,), 64: (3,), 80: (2,)}.get(d, ())
+            for group in groups:
+                hkv = 2
+                hq = hkv * group
+                for tq, tk in ((256, 256), (64, 256), (100, 100), (1, 128),
+                               (128, 64)):
+                    for causal in (True, False):
+                        for strided in (False, True):
+                            if strided:
+                                q, k, v = (randn(1, t_, h_, d, dtype=dtype
+                                                 ).transpose(1, 2)
+                                           for h_, t_ in ((hq, tq),
+                                                          (hkv, tk),
+                                                          (hkv, tk)))
+                            else:
+                                q, k, v = (randn(2, h_, t_, d, dtype=dtype)
+                                           for h_, t_ in ((hq, tq),
+                                                          (hkv, tk),
+                                                          (hkv, tk)))
+                            o = ops.flash_attention(q, k, v, causal)
+                            do = randn(*o.shape, dtype=dtype)
+                            e = max(flash_bwd_errs(q, k, v, o, do, causal))
+                            need(e <= FLASH_BWD_TOL[name],
+                                 f"flash_attention_bwd {name} D {d} "
+                                 f"{hq}/{hkv} Tq {tq} Tk {tk} causal="
+                                 f"{causal} strided={strided}: beyond "
+                                 f"{FLASH_BWD_TOL[name]} (rel err {e})")
+                            rows.append([name, d, hq, hkv, tq, tk, causal,
+                                         strided, e])
+    need(build.LAUNCHES["flash_attention_bwd"] == len(rows),
+         f"the backward sweep's launches {build.LAUNCHES}")
+    return rows
+
+
+def flash_bwd_autograd(randn) -> dict:
+    """``torch.autograd.grad`` through ``ops.flash_attention`` on the card
+    at stablelm-3b's heads (B 1 x T 4096, bf16), q, k, v leaves of shape
+    (B, T, H, D) passed as transposed views: exactly one
+    ``flash_attention_bwd`` launch for the backward, and the gradients of
+    the plain version (2e-2)."""
+    import torch
+    from repro_torch.kernels import build, ops, ref
+    bf, t = torch.bfloat16, FLASH_BWD_T
+    leaves = [randn(1, t, 32, 80, dtype=bf).requires_grad_() for _ in "qkv"]
+    views = [x.transpose(1, 2) for x in leaves]
+    o = ops.flash_attention(*views)
+    do = randn(*o.shape, dtype=bf)
+    build.reset_launches()
+    grads = torch.autograd.grad(o, leaves, do)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    need(launches["flash_attention_bwd"] == 1
+         and sum(launches.values()) == 1,
+         f"one backward through ops.flash_attention launched {launches}")
+    with torch.no_grad():
+        want = ref.flash_attention_bwd_ref(*views, o, do)
+    errs = [rel_err(g.transpose(1, 2), w) for g, w in zip(grads, want)]
+    need(max(errs) <= FLASH_BWD_TOL["bfloat16"],
+         f"autograd through ops.flash_attention: errors {errs}")
+    return dict(launches_per_backward=launches["flash_attention_bwd"],
+                dq_dk_dv_rel_err=errs)
+
+
+def kernel_phase_flash_bwd():
+    """The flash backward kernel at the four models' heads, on its sweep
+    and through autograd, against its plain version."""
+    import torch
+    from repro_torch.configs import (CHATGLM3_6B, GRANITE_MOE_3B_A800M,
+                                     MOONSHOT_V1_16B_A3B, STABLELM_3B)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    models = {c.name: flash_bwd_model_line(c, randn)
+              for c in (STABLELM_3B, CHATGLM3_6B, GRANITE_MOE_3B_A800M,
+                        MOONSHOT_V1_16B_A3B)}
+    sweep = flash_bwd_sweep(randn)
+    line = dict(models.pop(STABLELM_3B.name))
+    line.update(
+        source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention.py:81 (the gradient of "
+                 "flash_attention_pallas; the JAX package has no backward "
+                 "kernel and differentiates its plain attention)",
+        max_abs_err=max([line["max_abs_err"]]
+                        + [m["max_abs_err"] for m in models.values()]),
+        error_note="max_abs_err: the largest error of dq, dk or dv relative "
+                   "to its largest |want|, over the four models' shapes",
+        other_models=models, autograd=flash_bwd_autograd(randn),
+        sweep_cases=len(sweep),
+        sweep_max_rel_err={dt: max(r[-1] for r in sweep if r[0] == dt)
+                           for dt in ("float32", "bfloat16")})
+    return {"flash_attention_bwd": line}
+
+
 def outer_dst(g, dist: str, n: int, e_real: int, e: int):
     """dst of the segment-outer line: ``e_real`` edges on ``n`` nodes,
     uniform (n u) or powerlaw (n u^3), sorted and padded with ``n`` to
@@ -1645,8 +1894,8 @@ def leaves(params: dict):
 
 def params_to(params: dict, device: str) -> dict:
     """A copy of ``params`` on ``device``, nested dicts included."""
-    return {k: params_to(v, device) if isinstance(v, dict) else v.to(device)
-            for k, v in params.items()}
+    return {k: params_to(v, device) if isinstance(v, dict)
+            else v.to(device, copy=True) for k, v in params.items()}
 
 
 @contextlib.contextmanager
@@ -1699,9 +1948,10 @@ def moe_routing(params, inputs, cfg) -> dict:
     from repro_torch.models import transformer as tfm
     n_tokens = inputs[0].shape[0] * inputs[0].shape[1]
     cap = capacity_of(cfg.moe, n_tokens)
+    layers = tfm._layer_stack(params)
     loads = torch.stack([
         torch.bincount(route(x.reshape(-1, cfg.d_model),
-                             tfm._layer_params(params, i)["moe"]["router"],
+                             layers[i]["moe"]["router"],
                              cfg.moe.top_k)[1].reshape(-1),
                        minlength=cfg.moe.n_experts)
         for i, x in enumerate(inputs)]).cpu()
@@ -1740,8 +1990,7 @@ def moe_profile(params, inputs, cfg, prefill_busy_s: float) -> dict:
     from repro_torch.models import transformer as tfm
     moe = cfg.moe
     cap = capacity_of(moe, inputs[0].shape[0] * inputs[0].shape[1])
-    layers = [tfm._layer_params(params, i)["moe"]
-              for i in range(cfg.n_layers)]
+    layers = [lp["moe"] for lp in tfm._layer_stack(params)]
 
     def dispatch():
         for x, lp in zip(inputs, layers):
@@ -2060,6 +2309,496 @@ def lm_moe_ffn(model) -> None:
     log(json.dumps(out))
     del stacked, lp, x, want
     torch.cuda.empty_cache()
+
+
+#: the ``train`` phase: stablelm-3b at full width and depth, bf16,
+#: ``train_4k``'s sequence (``src/repro/configs/common.py:67``) cut in
+#: batch to 4 x 4096 tokens in 2 microbatches, 6 steps through
+#: ``Trainer.run``; the optimizer's learning rate raised so that a few
+#: steps move the loss
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 4, 4096, 2, 6
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=100)
+#: (b) resume at full width with 2 layers; (c) card vs CPU in float32 at
+#: full width with 2 layers on a batch of 2 x 256 tokens; (d) one layer in
+#: bf16 against float32 on upcast copies at 4 x 2048 tokens
+RESUME_LAYERS, RESUME_STEPS = 2, 4
+TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ, TRAIN_PARITY_LR = 2, 256, 1e-4
+#: (c): loss and grad_norm, card against CPU, as absolute and relative
+#: tolerance (float32 paths that sum in other orders: 3xTF32 attention,
+#: cuBLAS, the CPU's BLAS); the updated parameters within 3 learning rates
+#: (Adam turns a gradient element near zero, where the two sums differ in
+#: sign, into an update of about lr)
+TRAIN_PARITY_TOL = 1e-4
+GRAD_BATCH, GRAD_SEQ = 4, 2048
+#: (d): bf16 gradients against float32 ones, each leaf's max abs error
+#: over its largest |f32 grad|: the bf16 layer rounds its activations and
+#: every gradient it passes on to bf16 (2^-9 each), a few times a layer
+BF16_GRAD_TOL = 2.0 ** -5
+#: (e): ``tests/test_fault_tolerance.py``'s tiny model and its criteria
+COMPRESSED_STEPS = 25
+
+
+def learnable_token_file(path: Path, vocab: int, rows: int, seq: int) -> None:
+    """An int32 token file of ``rows`` chains of ``seq + 1`` tokens, each
+    from a seeded random start by ``x -> (3x + 7) % vocab``, so every
+    label is ``(token * 3 + 7) % vocab`` (the pattern of
+    ``tests/test_fault_tolerance.py``).  ``LMTokenPipeline`` reads a
+    batch's rows as consecutive chains."""
+    rng = np.random.default_rng(SEED)
+    toks = np.empty((rows, seq + 1), np.int64)
+    toks[:, 0] = rng.integers(0, vocab, rows)
+    for i in range(seq):
+        toks[:, i + 1] = (toks[:, i] * 3 + 7) % vocab
+    toks.astype(np.int32).tofile(path)
+
+
+def device_groups(prof, classify) -> dict:
+    """Device seconds of a profile's kernels, summed by ``classify(name)``."""
+    out = {}
+    for e in prof.key_averages():
+        if device_us(e):
+            key = classify(e.key)
+            out[key] = out.get(key, 0.0) + device_us(e) / 1e6
+    return out
+
+
+def train_kernel_group(name: str) -> str:
+    low = name.lower()
+    if "flash_attention_bwd" in low:
+        return "flash_backward"
+    if "flash_attention" in low:
+        return "flash_forward"
+    return "gemm" if is_gemm(name) else "other"
+
+
+def train_main(tmp: Path) -> dict:
+    """(a) stablelm-3b at full width and depth, bf16, seeded weights,
+    through ``Trainer.run``: ``TRAIN_STEPS`` steps of 4 x 4096 tokens in 2
+    microbatches, remat on, from ``LMTokenPipeline`` over a learnable
+    token file.  Holds finite losses falling from the first step to the
+    last, finite gradient norms, and the launches of the path: 4 of
+    ``flash_attention_tc`` a layer a step (2 microbatches x forward and
+    remat's recompute), 2 of ``flash_attention_bwd``, none of
+    ``flash_attention_mma``.  Then one more step by hand, profiled in two
+    windows (the microbatches' forward and backward; the AdamW update),
+    every gradient leaf held finite, and the device time by part."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import STABLELM_3B
+    from repro_torch.data import LMTokenPipeline
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import (OptimizerConfig, Trainer, adamw_update,
+                                   value_and_grad)
+    from repro_torch.train.tree import tree_map, unflatten
+    cfg = STABLELM_3B
+    path = tmp / "tokens.bin"
+    learnable_token_file(path, cfg.vocab_size,
+                         TRAIN_BATCH * (TRAIN_STEPS + 3), TRAIN_SEQ)
+    pipe = LMTokenPipeline(TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size,
+                           token_file=str(path))
+    lf = lambda p, b: tfm.loss_fn(p, b, cfg)
+    opt = OptimizerConfig(**TRAIN_OPT)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(lf, tfm.init_params(cfg, g, device="cuda"), opt,
+                      pipe.get_batch, microbatches=TRAIN_MICRO,
+                      device="cuda")
+    build.reset_launches()
+    hist = trainer.run(TRAIN_STEPS, log_every=1, resume="none")
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    walls = [h["wall"] for h in hist]
+    step_s = [b - a for a, b in zip([0.0] + walls, walls)]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    losses = [h["loss"] for h in hist]
+    need(all(np.isfinite(x) for x in losses)
+         and all(np.isfinite(h["grad_norm"]) for h in hist),
+         f"train: a loss or gradient norm is not finite: {hist}")
+    need(losses[-1] < losses[0],
+         f"train: the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    layers = cfg.n_layers * TRAIN_STEPS
+    need(launches["flash_attention_tc"] == 2 * TRAIN_MICRO * layers
+         and launches["flash_attention_bwd"] == TRAIN_MICRO * layers
+         and launches["flash_attention_mma"] == 0,
+         f"train: launches {launches}, want flash_attention_tc "
+         f"{2 * TRAIN_MICRO * layers}, flash_attention_bwd "
+         f"{TRAIN_MICRO * layers}, flash_attention_mma 0")
+
+    # one more step by hand, profiled: make_train_step's work in two windows
+    batch = tree_map(lambda x: torch.as_tensor(np.array(x), device="cuda"),
+                     pipe.get_batch(TRAIN_STEPS))
+    rows = TRAIN_BATCH // TRAIN_MICRO
+    grads_finite = True
+    with profile(activities=[ProfilerActivity.CUDA]) as prof_grad:
+        gsum = None
+        for i in range(TRAIN_MICRO):
+            mb = tree_map(lambda x: x[i * rows:(i + 1) * rows], batch)
+            _, grads = value_and_grad(lf, trainer.params, mb)
+            grads_finite &= all(bool(torch.isfinite(x).all()) for x in grads)
+            if gsum is None:
+                gsum = [x.float() for x in grads]
+            else:
+                for acc, x in zip(gsum, grads):
+                    acc.add_(x.float())
+            del grads
+        for acc in gsum:
+            acc.div_(TRAIN_MICRO)
+        torch.cuda.synchronize()
+    need(grads_finite, "train: a gradient leaf is not finite")
+    mean = unflatten(trainer.params, gsum)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof_opt:
+        adamw_update(trainer.params, mean, trainer.opt_state, opt)
+        torch.cuda.synchronize()
+    parts = device_groups(prof_grad, train_kernel_group)
+    parts["optimizer"] = sum(device_groups(prof_opt, lambda _: "o").values())
+    busy = sum(parts.values())
+    steady = float(np.median(step_s[1:]))
+    out = dict(
+        path="train", model=cfg.name, n_layers=cfg.n_layers,
+        n_params=cfg.n_params, dtype="bfloat16", remat=cfg.remat,
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, microbatches=TRAIN_MICRO,
+        loss_seq_chunk=cfg.loss_seq_chunk, optimizer=TRAIN_OPT,
+        loss=losses, grad_norm=[h["grad_norm"] for h in hist],
+        lr=[h["lr"] for h in hist], wall_s=walls, step_s=step_s,
+        tokens_per_s=[tokens / s for s in step_s],
+        steady_step_s=steady, steady_tokens_per_s=tokens / steady,
+        peak_bytes=peak, peak_gb=peak / 1e9, launches=launches,
+        profile=dict(device_busy_s=busy, device_s=parts,
+                     share={k: v / busy for k, v in parts.items()},
+                     idle_share=1 - busy / steady,
+                     idle_note="1 - the profiled step's device time over "
+                               "the median unprofiled step"),
+        every_gradient_leaf_finite=grads_finite)
+    log(json.dumps(out))
+    del trainer, batch, gsum, mean, prof_grad, prof_opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_resume(tmp: Path) -> dict:
+    """(b) stablelm-3b at full width with 2 layers, bf16: 4 steps straight;
+    4 steps with ``ckpt_every=2`` (checkpoints 2 and 4), checkpoint 4
+    restored bit-identical to the trainer's state; then checkpoint 4
+    corrupted, and a fresh ``Trainer`` with ``resume="auto"`` falls back
+    to checkpoint 2 and takes steps 3 and 4, their losses equal to the
+    straight run's (a relative 1e-5; ``bitwise`` says whether they are
+    identical, as they are where every kernel of the step is
+    deterministic)."""
+    from dataclasses import replace
+    import torch
+    from repro_torch.configs import STABLELM_3B
+    from repro_torch.data import LMTokenPipeline
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import CheckpointManager, OptimizerConfig, Trainer
+    from repro_torch.train.tree import leaves, tree_map
+    cfg = replace(STABLELM_3B, n_layers=RESUME_LAYERS)
+    pipe = LMTokenPipeline(TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size,
+                           token_file=str(tmp / "tokens.bin"))
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    p0 = tfm.init_params(cfg, g, device="cuda")
+    ckpt = tmp / "ckpt"
+    t0 = time.perf_counter()
+
+    def trainer(ckpt_dir):
+        return Trainer(lambda p, b: tfm.loss_fn(p, b, cfg),
+                       tree_map(torch.clone, p0),
+                       OptimizerConfig(**TRAIN_OPT), pipe.get_batch,
+                       ckpt_dir=ckpt_dir, ckpt_every=2,
+                       microbatches=TRAIN_MICRO, device="cuda")
+
+    straight = trainer(None)
+    hs = straight.run(RESUME_STEPS, log_every=1)
+    saving = trainer(str(ckpt))
+    hc = saving.run(RESUME_STEPS, log_every=1)
+    cm = CheckpointManager(str(ckpt))
+    need(cm.steps() == [2, 4], f"train resume: checkpoints {cm.steps()}")
+    state = {"params": saving.params, "opt": saving.opt_state}
+    restored = cm.restore(4, state)
+    need(all(a.dtype == b.dtype and torch.equal(a, b)
+             for a, b in zip(leaves(restored), leaves(state))),
+         "train resume: checkpoint 4 is not the trainer's state bit for bit")
+    del restored
+    victim = ckpt / "step-00000004" / "leaf-00003.npy"
+    with open(victim, "r+b") as f:
+        f.seek(200)
+        f.write(b"\xde\xad\xbe\xef")
+    need(not cm.verify(4) and cm.latest_step() == 2,
+         "train resume: the corrupted checkpoint 4 was not skipped")
+    resumed = trainer(str(ckpt))
+    hr = resumed.run(RESUME_STEPS - 2, log_every=1)
+    need(resumed.start_step == 2 and [h["step"] for h in hr] == [3, 4],
+         f"train resume: resumed at {resumed.start_step}, steps "
+         f"{[h['step'] for h in hr]}")
+    want = [h["loss"] for h in hs[2:]]
+    got = [h["loss"] for h in hr]
+    diff = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    need(diff <= 1e-5, f"train resume: losses of steps 3-4 {got} vs the "
+         f"straight run's {want}")
+    out = dict(path="train resume", model=cfg.name, n_layers=cfg.n_layers,
+               straight_loss=[h["loss"] for h in hs],
+               checkpointed_loss=[h["loss"] for h in hc],
+               resumed_loss=got, resumed_from=2, max_rel_diff=diff,
+               bitwise=got == want,
+               params_bitwise=all(torch.equal(a, b) for a, b in zip(
+                   leaves(resumed.params), leaves(straight.params))),
+               restored_bit_identical=True, corrupted_skipped=True,
+               wall_s=time.perf_counter() - t0)
+    log(json.dumps(out))
+    del straight, saving, resumed, p0, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_parity(model) -> dict:
+    """(c) ``model`` at full width with 2 layers in float32 (TF32 off): one
+    ``make_train_step`` on the card (the mma.sync forward, the f32
+    backward kernel) against the port's CPU path on the same weights and
+    batch.  Holds an MoE model's router picks equal first, then loss and
+    ``grad_norm`` (``TRAIN_PARITY_TOL``) and every updated parameter
+    (3 learning rates)."""
+    from dataclasses import replace
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import (OptimizerConfig, init_opt_state,
+                                   make_train_step)
+    from repro_torch.train.tree import flatten_with_paths
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = replace(model, n_layers=PARITY_LAYERS, dtype=torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    params = {"card": tfm.init_params(cfg, g, device="cuda")}
+    params["host"] = params_to(params["card"], "cpu")
+    rng = np.random.default_rng(SEED)
+    toks = rng.integers(0, cfg.vocab_size, (TRAIN_PARITY_BATCH,
+                                            TRAIN_PARITY_SEQ), dtype=np.int32)
+    batch = {"tokens": toks, "labels": (toks * 3 + 7) % cfg.vocab_size}
+    opt = OptimizerConfig(lr=TRAIN_PARITY_LR, warmup_steps=1, total_steps=10)
+    step = make_train_step(lambda p, b: tfm.loss_fn(p, b, cfg), opt)
+    t0 = time.perf_counter()
+    metrics, routes = {}, {}
+    build.reset_launches()
+    for where, dev in (("card", "cuda"), ("host", "cpu")):
+        p = params[where]
+        with recorded_routes(routes.setdefault(where, [])):
+            p, _, m = step(p, init_opt_state(p), {
+                k: torch.as_tensor(v, device=dev) for k, v in batch.items()})
+        params[where] = p
+        metrics[where] = {k: float(v) for k, v in m.items()}
+        if where == "card":
+            launches = dict(build.LAUNCHES)
+    extra = {}
+    if cfg.moe is not None:
+        k = cfg.moe.top_k
+        need(len(routes["card"]) == len(routes["host"]) > 0,
+             f"train parity: {len(routes['card'])} and "
+             f"{len(routes['host'])} MoE routes")
+        with torch.no_grad():
+            for i, ((_, a, _), (lg, b, _)) in enumerate(zip(
+                    routes["card"], routes["host"])):
+                need(torch.equal(a.cpu(), b),
+                     f"train parity: router picks differ between card and "
+                     f"CPU at route {i}; smallest k-th/(k+1)-th logit gap "
+                     f"{topk_gap(lg, k)}")
+            extra = dict(router_picks_equal=len(routes["host"]),
+                         min_topk_gap=min(topk_gap(lg, k)
+                                          for lg, _, _ in routes["host"]))
+    del routes
+    errs = {}
+    for key in ("loss", "grad_norm", "lr"):
+        a, b = metrics["card"][key], metrics["host"][key]
+        errs[key] = abs(a - b)
+        need(abs(a - b) <= TRAIN_PARITY_TOL * (1 + abs(b)),
+             f"train parity {cfg.name}: {key} card {a} vs CPU {b}")
+    paths, card = flatten_with_paths(params["card"])
+    _, cpu = flatten_with_paths(params["host"])
+    worst = max((float((a.cpu() - b).abs().max()), p)
+                for p, a, b in zip(paths, card, cpu))
+    need(worst[0] <= 3 * TRAIN_PARITY_LR,
+         f"train parity {cfg.name}: parameter {worst[1]} differs by "
+         f"{worst[0]} after one step (lr {TRAIN_PARITY_LR})")
+    need(launches["flash_attention_mma"] == 2 * cfg.n_layers
+         and launches["flash_attention_bwd"] == cfg.n_layers
+         and launches["flash_attention_tc"] == 0,
+         f"train parity {cfg.name}: launches {launches}")
+    out = dict(path="train parity", model=cfg.name, n_layers=cfg.n_layers,
+               dtype="float32", batch=TRAIN_PARITY_BATCH,
+               seq=TRAIN_PARITY_SEQ, card=metrics["card"],
+               cpu=metrics["host"], abs_err=errs,
+               tolerance=TRAIN_PARITY_TOL,
+               max_param_diff=worst[0], max_param_diff_leaf=worst[1],
+               param_tolerance=3 * TRAIN_PARITY_LR, launches=launches,
+               wall_s=time.perf_counter() - t0, **extra)
+    log(json.dumps(out))
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_bf16_grads(model) -> dict:
+    """(d) one full-width layer of ``model`` in bf16 at 4 x 2048 tokens —
+    stablelm-3b's whole dense layer (the flash kernels and the dense FFN's
+    float32-result products), granite's ``_moe_ffn_local`` (the experts'
+    ``bmm_f32``) — against the same layer in float32 on upcast copies of
+    its input and weights (TF32 off): the loss is ``sum(y * r)`` for a
+    fixed random float32 ``r``.  An MoE layer's router picks are held
+    equal first; then each gradient leaf (the input's and every
+    parameter's) within ``BF16_GRAD_TOL`` of its largest |f32 grad|."""
+    from dataclasses import replace
+    import torch
+    from repro_torch.layers.moe import init_moe_params, route
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.tree import flatten_with_paths, tree_map, unflatten
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    cfg = replace(model, n_layers=1)
+    if cfg.moe is None:
+        lp = tfm._layer_stack(tfm.init_params(cfg, g, device="cuda"))[0]
+        pos = torch.arange(GRAD_SEQ, dtype=torch.int32,
+                           device="cuda").expand(GRAD_BATCH, GRAD_SEQ)
+        layer = lambda x, p, c: tfm._layer(x, p, c, pos)[0]
+        what = "_layer (attention and the dense FFN)"
+    else:
+        lp = {k: v[0] for k, v in init_moe_params(
+            g, cfg.d_model, cfg.moe, 1, dtype=cfg.dtype,
+            device="cuda").items()}
+        layer = lambda x, p, c: tfm._moe_ffn_local(x, p, c)[0]
+        what = "_moe_ffn_local"
+    x = torch.randn((GRAD_BATCH, GRAD_SEQ, cfg.d_model), generator=g,
+                    device="cuda").to(cfg.dtype)
+    r = torch.randn(x.shape, generator=g, device="cuda")
+    if cfg.moe is not None:
+        k = cfg.moe.top_k
+        need(torch.equal(route(x.reshape(-1, cfg.d_model), lp["router"],
+                               k)[1],
+                         route(x.float().reshape(-1, cfg.d_model),
+                               lp["router"].float(), k)[1]),
+             f"train bf16 grads: bf16 and f32 router picks differ "
+             f"({cfg.name})")
+    grads = {}
+    for name, c, xin, p in (
+            ("bf16", cfg, x, lp),
+            ("f32", replace(cfg, dtype=torch.float32), x.float(),
+             tree_map(lambda t: t.float(), lp))):
+        paths, flat = flatten_with_paths(p)
+        req = [xin.detach().requires_grad_()] + [
+            t.detach().requires_grad_() for t in flat]
+        y = layer(req[0], unflatten(p, req[1:]), c)
+        grads[name] = torch.autograd.grad((y.float() * r).sum(), req)
+    errs = {}
+    for path, a, b in zip(["x"] + paths, grads["bf16"], grads["f32"]):
+        errs[path] = rel_err(a, b)
+    worst = max(errs, key=errs.get)
+    need(errs[worst] <= BF16_GRAD_TOL,
+         f"train bf16 grads {cfg.name}: {worst}'s bf16 gradient differs "
+         f"from float32 by {errs[worst]} of its largest |grad|")
+    out = dict(path="train bf16 grads", model=cfg.name, layer=what,
+               tokens=GRAD_BATCH * GRAD_SEQ, rel_err=errs,
+               tolerance=BF16_GRAD_TOL,
+               router_picks_equal=True if cfg.moe else None)
+    log(json.dumps(out))
+    del grads, lp, x, r
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_compressed() -> dict:
+    """(e) ``make_dp_train_step`` and ``make_compressed_train_step`` over a
+    world-size-1 NCCL group (an in-memory store, destroyed at the end) on
+    ``tests/test_fault_tolerance.py``'s tiny model (2 layers, d_model 64,
+    float32) for 25 steps each, from the same seeded weights: the
+    compressed run's last loss below 0.8 x its first, and within 0.35 x
+    the first of the uncompressed run."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist import (init_compressed_state,
+                                  make_compressed_train_step,
+                                  make_dp_train_step)
+    from repro_torch.kernels import build
+    from repro_torch.models.transformer import (TransformerConfig,
+                                                init_params, loss_fn)
+    from repro_torch.train import OptimizerConfig, init_opt_state
+    from repro_torch.train.tree import tree_map
+    cfg = TransformerConfig(name="t", n_layers=2, d_model=64, n_heads=4,
+                            n_kv_heads=2, d_ff=128, vocab_size=256,
+                            dtype=torch.float32, remat=False)
+    lf = lambda p, b: loss_fn(p, b, cfg)
+    oc = OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=30)
+    p0 = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                     device="cuda")
+
+    def batch(s):
+        rng = np.random.default_rng(s)
+        toks = rng.integers(0, 64, (16, 32), dtype=np.int32)
+        return {"tokens": torch.as_tensor(toks, device="cuda"),
+                "labels": torch.as_tensor((toks * 3 + 7) % 256,
+                                          device="cuda")}
+
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        curves = {}
+        build.reset_launches()
+        for name in ("compressed", "uncompressed"):
+            p = tree_map(torch.clone, p0)
+            opt, err = init_opt_state(p), init_compressed_state(p)
+            step_c = make_compressed_train_step(lf, oc)
+            step_u = make_dp_train_step(lf, oc)
+            losses = []
+            for s in range(COMPRESSED_STEPS):
+                if name == "compressed":
+                    p, opt, err, m = step_c(p, opt, err, batch(s))
+                else:
+                    p, opt, m = step_u(p, opt, batch(s))
+                losses.append(float(m["loss"]))
+            curves[name] = losses
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+    finally:
+        dist.destroy_process_group()
+    lc, lu = curves["compressed"], curves["uncompressed"]
+    need(lc[-1] < 0.8 * lc[0], f"train compressed: the compressed run did "
+         f"not learn: {lc[0]} -> {lc[-1]}")
+    need(abs(lc[-1] - lu[-1]) < 0.35 * lu[0],
+         f"train compressed: {lc[-1]} vs uncompressed {lu[-1]}")
+    need(launches["flash_attention_bwd"] == 2 * cfg.n_layers
+         * COMPRESSED_STEPS, f"train compressed: launches {launches}")
+    out = dict(path="train compressed", world_size=1, backend="nccl",
+               steps=COMPRESSED_STEPS, compressed=lc, uncompressed=lu,
+               launches=launches, wall_s=time.perf_counter() - t0)
+    log(json.dumps(out))
+    return out
+
+
+def train_phase() -> dict:
+    """(a)-(e) of the ``train`` phase, in a temporary directory for the
+    token file and the checkpoints; returns (a)'s launches."""
+    import tempfile
+    from repro_torch.configs import GRANITE_MOE_3B_A800M, STABLELM_3B
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        main = train_main(tmp)
+        log(f"train main: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        train_resume(tmp)
+        log(f"train resume: {time.perf_counter() - t0:.2f} s")
+    for model in (STABLELM_3B, GRANITE_MOE_3B_A800M):
+        t0 = time.perf_counter()
+        train_parity(model)
+        log(f"train parity {model.name}: {time.perf_counter() - t0:.2f} s")
+    for model in (STABLELM_3B, GRANITE_MOE_3B_A800M):
+        t0 = time.perf_counter()
+        train_bf16_grads(model)
+        log(f"train bf16 grads {model.name}: "
+            f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    train_compressed()
+    log(f"train compressed: {time.perf_counter() - t0:.2f} s")
+    return main["launches"]
 
 
 def main_path(T, dbs):
@@ -3465,7 +4204,9 @@ def main(argv=None) -> int:
                          "all); lm serves the two dense and the two MoE "
                          "models, checks their parity, holds the bf16 "
                          "MoE FFN against float32 and runs moe_ffn over "
-                         "NCCL")
+                         "NCCL; train trains stablelm-3b at full width "
+                         "and depth and runs the resume, parity, bf16 "
+                         "gradient and compressed-step checks")
     phases = ap.parse_args(argv).phases.split(",")
     if not set(phases) <= set(PHASES + ("oracles",)):
         ap.error(f"--phases takes {', '.join(PHASES)} or oracles (the "
@@ -3528,7 +4269,8 @@ def run_phases(T, phases, smi: str, workers: dict) -> int:
     if "kernels" in phases:
         for phase in (lambda: kernel_phase(T, db, hdb),
                       lambda: kernel_phase_intersect(T, db, hdb),
-                      kernel_phase_lm, kernel_phase_outer):
+                      kernel_phase_lm, kernel_phase_flash_bwd,
+                      kernel_phase_outer):
             lines = phase()
             for name, k in lines.items():
                 log(f"kernel {name}: {json.dumps(k)}")
@@ -3616,6 +4358,12 @@ def run_phases(T, phases, smi: str, workers: dict) -> int:
             lm_moe_ffn(cfg)
             log(f"lm moe_ffn {cfg.name}: {time.perf_counter() - t0:.2f} s")
 
+    if "train" in phases:
+        t0 = time.perf_counter()
+        train_launches = train_phase()
+        log(f"train: {time.perf_counter() - t0:.2f} s, launches of the "
+            f"main path {train_launches}")
+
     if phases != list(PHASES):
         log(f"partial run of {phases}: every check passed")
         return 0
@@ -3625,8 +4373,9 @@ def run_phases(T, phases, smi: str, workers: dict) -> int:
     # the "kernel intersect_count" line above), the LM serving paths of
     # the four models for the wgmma flash kernel, their f32 parity paths for
     # the mma.sync one (both replace flash_attention_pallas, split by
-    # dtype and head dim); no path runs the bitset AND-popcount or the
-    # segment outer product, which only the kernel router reaches
+    # dtype and head dim), the training main path for the flash backward;
+    # no path runs the bitset AND-popcount or the segment outer product,
+    # which only the kernel router reaches
     entries = (("searchsorted_segments", "searchsorted_segments",
                 launches["searchsorted_segments"]),
                ("bitset_member", "bitset_member",
@@ -3639,6 +4388,8 @@ def run_phases(T, phases, smi: str, workers: dict) -> int:
                 lm_launches["flash_attention_tc"]),
                ("flash_attention_mma", "flash_attention_mma",
                 parity_launches["flash_attention_mma"]),
+               ("flash_attention_bwd", "flash_attention_bwd",
+                train_launches["flash_attention_bwd"]),
                ("segment_outer", "segment_outer",
                 lm_launches["segment_outer"]))
     keys = ("source", "replaces", "max_abs_err", "ms", "plain_ms",

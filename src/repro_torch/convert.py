@@ -116,3 +116,16 @@ def transformer_params_from_numpy(params: dict, cfg, *,
         return out
 
     return convert(params, param_shapes(cfg), "")
+
+
+def opt_state_from_numpy(state: dict, cfg, *, device: torch.device | str
+                         ) -> dict:
+    """The port's optimizer state (``train.optimizer.init_opt_state``'s
+    layout) from the JAX package's, given as numpy arrays: ``m`` and
+    ``v`` trees of the parameters' names and shapes for ``cfg`` (float32,
+    kept as they are), and the int32 ``step``."""
+    moments = {key: transformer_params_from_numpy(state[key], cfg,
+                                                  device=device)
+               for key in ("m", "v")}
+    return {**moments, "step": torch.tensor(
+        int(np.asarray(state["step"])), dtype=torch.int32, device=device)}

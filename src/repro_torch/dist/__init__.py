@@ -30,12 +30,14 @@ the port, over ``torch.distributed`` where the JAX package uses a mesh:
 
 ``overlap`` and ``compression`` serve the training side: a ring
 all-reduce, chunked reduce/apply overlap, and int8-quantized all-reduce
-with per-rank error feedback.  The JAX package's ``compressed_step``,
-which wires them into a data-parallel train step, comes with LM
-training.
+with per-rank error feedback, wired into a data-parallel train step by
+``compressed_step``.
 """
-from . import (compression, overlap, pool, rebalance, sharded_csr,
-               sharded_join)
+from . import (compressed_step, compression, overlap, pool, rebalance,
+               sharded_csr, sharded_join)
+from .compressed_step import (init_compressed_state,
+                              make_compressed_train_step,
+                              make_dp_train_step, resize_compressed_state)
 from .compression import compressed_psum_leaf, compressed_psum_tree
 from .overlap import overlapped_reduce_apply, ring_all_reduce, ring_schedule
 from .pool import WorkerPool, pick_backend
@@ -45,7 +47,9 @@ from .sharded_csr import (ShardedGraphDB, sharded_count,
 from .sharded_join import PartitionedJoin, spmd_join_step, spmd_spmv_step
 
 __all__ = [
-    "compression", "overlap", "pool", "rebalance", "sharded_csr",
+    "compressed_step", "init_compressed_state",
+    "make_compressed_train_step", "make_dp_train_step",
+    "resize_compressed_state", "compression", "overlap", "pool", "rebalance", "sharded_csr",
     "sharded_join", "compressed_psum_leaf", "compressed_psum_tree",
     "overlapped_reduce_apply", "ring_all_reduce", "ring_schedule",
     "WorkerPool", "pick_backend", "AdaptiveJoin", "FrontierRebalancer",

@@ -56,6 +56,8 @@ SIGNATURES = {
         _P, _P, _P, _P, *(_I64,) * 15, ctypes.c_float, _I32, _I32, _I32, _P),
     "flash_attention_tc_launch": (
         _P, _P, _P, _P, *(_I64,) * 15, ctypes.c_float, _I32, _P),
+    "flash_attention_bwd_launch": (
+        *(_P,) * 10, *(_I64,) * 21, ctypes.c_float, _I32, _I32, _P),
     "segment_outer_plan": (_I64, _I64, _I64, _I32, _P),
     "segment_outer_launch": (_P, _P, _P, *(_I64,) * 7, _I32, _P, _P, _P,
                              _P),
@@ -66,7 +68,7 @@ LAUNCHES = {"searchsorted_segments": 0, "bitset_member_mask": 0,
             "bitset_member_count": 0, "tile_member_mask": 0,
             "intersect_count": 0, "bitset_intersect_count": 0,
             "flash_attention_tc": 0, "flash_attention_mma": 0,
-            "segment_outer": 0}
+            "flash_attention_bwd": 0, "segment_outer": 0}
 
 _lock = threading.Lock()
 _launch_lock = threading.Lock()

@@ -15,6 +15,13 @@ of the Tk stream), chosen by dtype and head dim (:func:`route`):
 See the sources for the designs.  Each launch counts under its own name,
 ``flash_attention_tc`` or ``flash_attention_mma``.  The plain PyTorch
 version is ``kernels.ref.flash_attention_ref``, run for CPU tensors.
+
+The gradient is a third hand-written kernel, ``csrc/flash_attention_bwd.cu``
+(:func:`flash_attention_bwd_cuda`, counted as ``flash_attention_bwd``: one
+count a backward call, for its two launches), which the JAX package does
+not have: it differentiates its plain attention.  :class:`FlashAttention`
+is the ``torch.autograd.Function`` that pairs the routed forward kernel
+with it; its plain version is ``kernels.ref.flash_attention_bwd_ref``.
 """
 from __future__ import annotations
 
@@ -188,3 +195,77 @@ def _launch_mma(q, k, v, causal: bool, scale: float) -> torch.Tensor:
     build.check(rc, "flash_attention_mma")
     build.count_launch("flash_attention_mma")
     return out
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             do: torch.Tensor, causal: bool = True,
+                             scale: float | None = None
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """``(dq, dk, dv)`` of :func:`flash_attention_cuda` for the output
+    cotangent ``do`` (B, Hq, Tq, D), given the forward's output ``o``:
+    the kernel of ``csrc/flash_attention_bwd.cu``, in float32 math, for
+    the forward's contract (f32 or bf16, all five tensors alike, D <=
+    128, any strides with a contiguous last dim).  Returns contiguous
+    tensors in q's dtype; raises where the kernel cannot launch."""
+    name = "flash_attention_bwd"
+    check_shapes(q, k, v)
+    if not q.is_cuda:
+        raise ValueError(f"{name}: tensors must lie on a CUDA device")
+    for arg, t in (("k", k), ("v", v), ("o", o), ("do", do)):
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"{name}: {arg} must match q's device and dtype")
+    for arg, t in (("o", o), ("do", do)):
+        if t.shape != q.shape:
+            raise ValueError(f"{name}: {arg} must have q's shape")
+    if q.dtype not in DTYPES:
+        raise ValueError(f"{name}: dtype {q.dtype} (the kernel takes "
+                         "float32 and bfloat16)")
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {d} > {MAX_HEAD_DIM}")
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    q, k, v, o, do = (t if t.stride(3) == 1 else t.contiguous()
+                      for t in (q, k, v, o, do))
+    dq = torch.empty((b, hq, tq, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, hkv, tk, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    lse = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    lib = build.library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), b, hq, hkv, tq, tk, d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+        *do.stride()[:3], float(scale), int(bool(causal)), DTYPES[q.dtype],
+        stream)
+    build.check(rc, name)
+    build.count_launch(name)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention on the card with its gradient: the forward kernel
+    :func:`route` picks (``tc`` or ``mma``), and
+    :func:`flash_attention_bwd_cuda` as the backward.  The JAX package
+    differentiates its plain attention instead (it has no backward
+    kernel); the gradient is that of the same function."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale):
+        o = flash_attention_cuda(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o, do, ctx.causal,
+                                              ctx.scale)
+        return dq, dk, dv, None, None

@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from . import ref as _ref
-from .flash_attention import flash_attention_cuda
+from .flash_attention import FlashAttention
 from .flash_attention import route as _flash_route
 from .intersect import intersect_count_cuda, tile_member_mask_cuda
 from .intersect_bitset import (bitset_intersect_count_cuda,
@@ -107,10 +107,13 @@ def flash_attention(q, k, v, causal: bool = True, scale=None):
     the plain path takes any shape and the kernel path raises where
     ``flash_attention_pallas`` asserts
     (:func:`kernels.flash_attention.check_shapes`: Tq and Tk multiples of
-    min(128, T))."""
+    min(128, T)).  On the card the result carries its gradient through
+    :class:`kernels.flash_attention.FlashAttention`, whose backward is the
+    hand-written ``flash_attention_bwd`` kernel; on the CPU autograd
+    differentiates the plain version."""
     if _flash_route(q.device, q.dtype, q.shape[-1]) == "plain":
         return _ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
-    return flash_attention_cuda(q, k, v, causal=causal, scale=scale)
+    return FlashAttention.apply(q, k, v, causal, scale)
 
 
 def segment_outer(msg, basis, dst, block_tile0, n_nodes: int, n_tiles: int,

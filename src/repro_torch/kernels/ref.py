@@ -239,6 +239,48 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, hq, tq, d).to(q.dtype)
 
 
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            do: torch.Tensor, causal: bool = True,
+                            scale: float | None = None
+                            ) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """The gradient of :func:`flash_attention_ref`: ``(dq, dk, dv)`` for
+    the output cotangent ``do``, in float32 math, each returned in its
+    input's dtype (the plain version of ``csrc/flash_attention_bwd.cu``).
+
+    ``o`` is the forward's output; ``Delta = rowsum(do * o)`` stands in
+    for ``rowsum(P * dP)``, as the kernel computes it.  A query row that
+    sees no key (causal with Tq > Tk) carries no gradient: the kernels'
+    forward gives it 0, where ``flash_attention_ref``'s softmax gives NaN
+    and autograd spreads the NaN into dk and dv."""
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    qg = q.reshape(b, hkv, group, tq, d).float()
+    dog = do.reshape(b, hkv, group, tq, d).float()
+    kf, vf = k.float(), v.float()
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, kf) * scale
+    if causal:
+        qpos = torch.arange(tq, device=q.device) + (tk - tq)
+        mask = qpos[:, None] >= torch.arange(tk, device=q.device)[None, :]
+        logits = logits.masked_fill(~mask, float("-inf"))
+    lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+    seen = torch.isfinite(lse)
+    p = torch.where(seen, torch.exp(logits - lse), 0.0)
+    delta = (dog * o.reshape(b, hkv, group, tq, d).float()).sum(
+        -1, keepdim=True)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", dog, vf)
+    ds = torch.where(seen, p * (dp - delta), 0.0)
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf) * scale
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qg) * scale
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dog)
+    return (dq.reshape(b, hq, tq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
 def segment_outer_ref(msg: torch.Tensor, basis: torch.Tensor,
                       dst: torch.Tensor, n_nodes: int,
                       chunk_bytes: int = 1 << 28) -> torch.Tensor:

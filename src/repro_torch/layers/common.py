@@ -1,4 +1,5 @@
-"""Shared layer primitives: norms, RoPE, activations, initializers.
+"""Shared layer primitives: norms, RoPE, activations, initializers, the
+float32-accumulating products and the cross-entropy.
 
 PyTorch versions of ``repro.layers.common`` with the same arithmetic and
 explicit dtypes: norms and rotary math in float32, results cast back to
@@ -41,16 +42,41 @@ def normal_init_layers(generator: torch.Generator, shape,
     return out
 
 
+class _WideProduct(torch.autograd.Function):
+    """``a @ b`` of low-precision operands with an unrounded float32
+    result on the card (``torch.mm``/``torch.bmm`` with ``out_dtype``,
+    which have no derivative of their own), differentiated as JAX
+    transposes a ``dot_general`` with ``preferred_element_type=f32``: the
+    float32 cotangent times the other operand, summed in float32, rounded
+    once to the operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        op = torch.mm if a.dim() == 2 else torch.bmm
+        return op(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = torch.matmul(g, b.float().transpose(-1, -2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = torch.matmul(a.float().transpose(-1, -2), g).to(b.dtype)
+        return da, db
+
+
 def matmul(x: torch.Tensor, w: torch.Tensor,
            out_dtype: torch.dtype) -> torch.Tensor:
     """``einsum(x, w, preferred_element_type=f32).astype(out_dtype)``: a
     product over the last axis of ``x`` with float32 accumulation.  A
     bf16 product asked for a float32 result keeps it unrounded
-    (``torch.mm``'s ``out_dtype`` on the card; float32 operands on the
-    CPU)."""
+    (``torch.mm``'s ``out_dtype`` on the card, whose gradient is JAX's,
+    see :class:`_WideProduct`; float32 operands on the CPU)."""
     if out_dtype == torch.float32 and x.dtype != torch.float32:
         if x.is_cuda:
-            y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=out_dtype)
+            y = _WideProduct.apply(x.reshape(-1, x.shape[-1]), w)
             return y.reshape(*x.shape[:-1], w.shape[-1])
         return torch.matmul(x.float(), w.float())
     return torch.matmul(x, w).to(out_dtype)
@@ -60,12 +86,29 @@ def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched ``a @ b`` with a float32 result, as
     ``einsum("ecd,edf->ecf", ..., preferred_element_type=f32)``: bf16
     operands on the card give an unrounded float32 result (``torch.bmm``'s
-    ``out_dtype``), float32 operands on the CPU the same products."""
+    ``out_dtype``, differentiated as :class:`_WideProduct` says), float32
+    operands on the CPU the same products."""
     if a.dtype == torch.float32 and b.dtype == torch.float32:
         return torch.bmm(a, b)
     if a.is_cuda:
-        return torch.bmm(a, b, out_dtype=torch.float32)
+        return _WideProduct.apply(a, b)
     return torch.bmm(a.float(), b.float())
+
+
+def cross_entropy_from_logits(logits: torch.Tensor, labels: torch.Tensor,
+                              vocab: int) -> torch.Tensor:
+    """Per-token cross-entropy without a one-hot: the float32
+    log-sum-exp over the last axis minus the label's logit (a gather).
+    A label outside the last axis picks nothing (0), as the JAX
+    package's iota compare does.  ``vocab`` is unused there too: padded
+    logits are already masked to -1e30."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    n = lf.shape[-1]
+    lab = labels.long()
+    inside = (lab >= 0) & (lab < n)
+    lbl = lf.gather(-1, lab.clamp(0, n - 1)[..., None])[..., 0]
+    return lse - torch.where(inside, lbl, 0.0)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,

@@ -1,5 +1,5 @@
-"""Decoder-only transformer (dense and MoE): forward, prefill and KV-cache
-decode.
+"""Decoder-only transformer (dense and MoE): forward, the training loss,
+prefill and KV-cache decode.
 
 The PyTorch version of ``repro.models.transformer`` for one card, with
 the same config fields, parameter names and stacked ``(L, ...)`` layout,
@@ -32,20 +32,32 @@ the embedding table (JAX clamps an out-of-range gather, PyTorch raises),
 and the decode write position is clamped to ``max_len - 1``
 (``jax.lax.dynamic_update_slice`` clamps its start).
 
-The mesh options (``fsdp``, ``seq_shard``, ``attn_head_shard``) and
-``remat`` are fields for parity and do nothing here: one card has no
-mesh, and remat is a training concern.  ``layers.moe.moe_ffn`` is the
-MoE layer over a process group.
+``loss_fn`` is the JAX package's: the LM head chunked over the sequence
+by ``loss_seq_chunk``, the mean cross-entropy plus 0.01 times the aux
+loss, in float32.  With ``remat`` (and grad enabled) every layer of
+``forward`` runs under ``torch.utils.checkpoint`` (non-reentrant), as
+``jax.checkpoint`` wraps it: the backward recomputes the layer, so the
+flash forward kernel runs twice a layer.  On the card the gradient of
+attention is the hand-written ``flash_attention_bwd`` kernel
+(``kernels.flash_attention.FlashAttention``), and the float32-result
+products differentiate as JAX transposes them
+(``layers.common._WideProduct``).
+
+The mesh options (``fsdp``, ``seq_shard``, ``attn_head_shard``) are
+fields for parity and do nothing here: one card has no mesh.
+``layers.moe.moe_ffn`` is the MoE layer over a process group.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..kernels import ops as kops
-from ..layers.common import act_fn, apply_rope, make_norm, normal_init
+from ..layers.common import (act_fn, apply_rope, cross_entropy_from_logits,
+                             make_norm, normal_init)
 from ..layers.common import matmul as _matmul
 from ..layers.moe import (MoEConfig, _dispatch_compute, capacity_of,
                           init_moe_params, moe_param_shapes, shared_experts)
@@ -240,13 +252,22 @@ _LAYER_KEYS = ("ln1", "wq", "wk", "wv", "wo", "ln2")
 _DENSE_KEYS = ("w_gate", "w_up", "w_down")
 
 
-def _layer_params(params: dict, i: int) -> dict:
-    lp = {k: params[k][i] for k in _LAYER_KEYS}
+def _layer_stack(params: dict) -> list:
+    """Each layer's parameters, sliced by one ``unbind`` a stacked tensor:
+    the backward of ``params[k][i]`` would build a zero tensor of the
+    whole ``(L, ...)`` stack for every layer; that of ``unbind`` stacks
+    the layers' gradients once."""
+    stacks = {k: params[k].unbind(0) for k in _LAYER_KEYS}
     if "moe" in params:
-        lp["moe"] = {k: v[i] for k, v in params["moe"].items()}
+        moe = {k: v.unbind(0) for k, v in params["moe"].items()}
     else:
-        lp.update({k: params[k][i] for k in _DENSE_KEYS})
-    return lp
+        stacks.update({k: params[k].unbind(0) for k in _DENSE_KEYS})
+    n = len(stacks["wq"])
+    layers = [{k: v[i] for k, v in stacks.items()} for i in range(n)]
+    if "moe" in params:
+        for i, lp in enumerate(layers):
+            lp["moe"] = {k: v[i] for k, v in moe.items()}
+    return layers
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -259,9 +280,18 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig):
     b, s = tokens.shape
     x = _embed(params, tokens, cfg)
     positions = _positions(b, s, x.device)
+
+    def layer(x, lp):
+        x, _, aux = _layer(x, lp, cfg, positions)
+        return x, aux
+
+    remat = cfg.remat and torch.is_grad_enabled()
     auxs = []
-    for i in range(cfg.n_layers):
-        x, _, aux = _layer(x, _layer_params(params, i), cfg, positions)
+    for lp in _layer_stack(params):
+        if remat:
+            x, aux = checkpoint(layer, x, lp, use_reentrant=False)
+        else:
+            x, aux = layer(x, lp)
         auxs.append(aux)
     x = make_norm(cfg.norm)(x, {"scale": params["ln_f"]})
     if cfg.moe is None:
@@ -277,6 +307,32 @@ def _lm_logits(x, params: dict, cfg: TransformerConfig) -> torch.Tensor:
     if cfg.padded_vocab != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = -1e30
     return logits
+
+
+def loss_fn(params: dict, batch: dict, cfg: TransformerConfig
+            ) -> torch.Tensor:
+    """The training loss of ``batch`` (``tokens`` and ``labels``, (B, S)
+    integer tensors): the mean per-token cross-entropy plus 0.01 times
+    the aux loss, a float32 scalar.  With ``loss_seq_chunk`` the LM head
+    runs over the sequence a chunk at a time (S must be a multiple of
+    it when it is shorter than S, as the JAX package's reshape asks)."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    x, aux = forward(params, tokens, cfg)
+    s = x.shape[1]
+    chunk = cfg.loss_seq_chunk or s
+    n_chunks = max(1, s // chunk)
+    if n_chunks > 1:
+        if s % chunk:
+            raise ValueError(f"loss_fn: sequence {s} is not a multiple of "
+                             f"loss_seq_chunk {chunk}")
+        ce = torch.cat([cross_entropy_from_logits(
+            _lm_logits(x[:, i:i + chunk], params, cfg),
+            labels[:, i:i + chunk], cfg.vocab_size)
+            for i in range(0, s, chunk)], dim=1)
+    else:
+        ce = cross_entropy_from_logits(_lm_logits(x, params, cfg), labels,
+                                       cfg.vocab_size)
+    return (ce.mean() + 0.01 * aux).float()
 
 
 # ---------------------------------------------------------------------------
@@ -297,8 +353,8 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
     shape = (cfg.n_layers, b, cfg.n_kv_heads, ml, cfg.head_dim)
     ks = torch.zeros(shape, dtype=cfg.dtype, device=x.device)
     vs = torch.zeros(shape, dtype=cfg.dtype, device=x.device)
-    for i in range(cfg.n_layers):
-        x, (k, v), _ = _layer(x, _layer_params(params, i), cfg, positions)
+    for i, lp in enumerate(_layer_stack(params)):
+        x, (k, v), _ = _layer(x, lp, cfg, positions)
         ks[i, :, :, :s] = k
         vs[i, :, :, :s] = v
     x = make_norm(cfg.norm)(x, {"scale": params["ln_f"]})
@@ -336,8 +392,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     norm = make_norm(cfg.norm)
     x = _embed(params, tokens, cfg)
     pos = torch.full((b, 1), n, dtype=torch.int32, device=x.device)
-    for i in range(cfg.n_layers):
-        lp = _layer_params(params, i)
+    for i, lp in enumerate(_layer_stack(params)):
         kc, vc = cache["k"][i], cache["v"][i]
         h = norm(x, {"scale": lp["ln1"]})
         q = _matmul(h, lp["wq"], cfg.dtype).reshape(b, 1, hq, dh)

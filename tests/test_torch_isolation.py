@@ -56,7 +56,11 @@ def test_importing_every_port_module_imports_no_jax():
             "repro_torch.dist.overlap", "repro_torch.dist.compression",
             "repro_torch.dist.sharded_join", "repro_torch.dist.rebalance",
             "repro_torch.dist.sharded_csr",
-            "repro_torch.train", "repro_torch.train.stragglers"} <= set(mods)
+            "repro_torch.train", "repro_torch.train.stragglers",
+            "repro_torch.train.optimizer", "repro_torch.train.loop",
+            "repro_torch.train.checkpoint", "repro_torch.train.tree",
+            "repro_torch.data", "repro_torch.data.pipeline",
+            "repro_torch.dist.compressed_step"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -182,3 +186,27 @@ def test_default_device_is_the_card_for_dist(monkeypatch):
         PartitionedJoin(get_query("3-clique"), GraphDB(g))
     pj = PartitionedJoin(get_query("3-clique"), GraphDB(g, device="cpu"))
     assert pj.executor.gdb.dev("indices").device.type == "cpu"
+
+
+def test_default_device_is_the_card_for_training(monkeypatch):
+    """``Trainer`` runs on the card unless the caller asks for the CPU:
+    without one it raises at construction, before any step; with
+    ``device='cpu'`` its parameters, optimizer state and batches are on
+    the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import STABLELM_3B, reduced_cfg
+    from repro_torch.models.transformer import init_params, loss_fn
+    from repro_torch.train import OptimizerConfig, Trainer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced_cfg(STABLELM_3B)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    lf = lambda p, b: loss_fn(p, b, cfg)
+    batch = lambda step: {"tokens": np.zeros((2, 8), np.int32),
+                          "labels": np.ones((2, 8), np.int32)}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(lf, params, OptimizerConfig(), batch)
+    tr = Trainer(lf, params, OptimizerConfig(), batch, device="cpu")
+    hist = tr.run(1, log_every=1)
+    assert hist[0]["step"] == 1 and np.isfinite(hist[0]["loss"])
+    assert tr.opt_state["m"]["wq"].device.type == "cpu"
