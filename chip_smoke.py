@@ -27,15 +27,20 @@ views) and the rest on mma.sync (``flash_attention_mma``: f32 in
 stablelm-3b's shape, and a sweep of off-grid head dims in both dtypes,
 strided and offset views among them).  The two lines count the
 ``HGMMA`` and ``HMMA`` instructions in the built library's SASS where
-``cuobjdump`` exists.  The flash backward kernel
-(``flash_attention_bwd``, the gradient of both) runs at the four
-models' heads at B 1 x T 4096 in bf16, each of dq, dk and dv held
-against its plain version relative to its largest |want| (2e-2), timed
-beside its bound and SDPA's backward on the same tensors; on a
-1,000-case sweep of f32 (2e-5) and bf16, head dims 8-128, GQA groups
-1-4 and 16, causal offsets, rows that see no key, strided views; and
-through ``torch.autograd.grad`` of ``ops.flash_attention``, one launch a
-backward.  The segment outer
+``cuobjdump`` exists.  The flash backward has two kernels, routed
+as the forward is: bf16 with D a multiple of 16 on the tensor cores
+(``flash_attention_bwd_tc``, given the log-sum-exp the wgmma forward
+saves) and the rest on FFMA (``flash_attention_bwd``).  The first runs
+at the four models' heads at B 1 x T 4096 in bf16, each of dq, dk and dv
+held against its plain version relative to its largest |want| (2e-2),
+two calls bitwise equal, timed beside its bound, SDPA's backward and
+the FFMA kernel forced on the same tensors; the forward's lse is held
+against its plain version there (1e-3 in log2 units; +inf on rows that
+see no key) with ``o`` bitwise unchanged by it; both run a 1,000-case
+sweep through their routes (f32 at 2e-5 and bf16, head dims 8-128, GQA
+groups 1-4 and 16, causal offsets, rows that see no key, strided
+views); and ``torch.autograd.grad`` of ``ops.flash_attention`` launches
+the tensor-core one once a backward.  The segment outer
 product runs at MACE's widths (131,072 nodes, 6,621,401 edges, C 128,
 M 9) on uniform and powerlaw destinations, in float32 and bf16 (each
 held at 2e-4 on the same tensors: bf16 products round alike), two calls
@@ -138,10 +143,11 @@ kernels' launch counters set to 0 just before it and read just after:
   ``Trainer.run`` (6 steps of 4 x 4096 tokens in 2 microbatches, remat
   on, from ``LMTokenPipeline`` over a token file with a learnable
   pattern): the loss finite and falling, the gradient norms finite, 4
-  launches of the wgmma flash kernel and 2 of the backward kernel a
-  layer a step, none of the mma.sync one; one more step profiled (every
-  gradient leaf finite; device time of the GEMMs, the flash forward and
-  backward, the optimizer and the rest, and the idle share); a 2-layer
+  launches of the wgmma flash kernel and 2 of the tensor-core backward
+  a layer a step, none of the mma.sync one or the FFMA backward; one
+  more step profiled (every gradient leaf finite; device time of the
+  bf16 and the float32 GEMMs, the flash forward and backward, the
+  optimizer and the rest, and the idle share); a 2-layer
   run checkpointed every 2 steps, restored bit for bit, its newest
   checkpoint corrupted and skipped, and resumed to the straight run's
   losses; one float32 train step of stablelm-3b and granite-moe-3b-a800m
@@ -1413,8 +1419,18 @@ def kernel_phase_lm():
 #: 2e-5 f32)
 FLASH_BWD_T = 4096
 FLASH_BWD_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+#: the FFMA backward's kernels (f32, and bf16 off the multiples of 16)
 FLASH_BWD_KERNELS = ("flash_attention_bwd_dq_kernel",
                      "flash_attention_bwd_dkdv_kernel")
+#: the tensor-core backward's (bf16, D a multiple of 16; the reduce kernel
+#: runs where the dk/dv kernel splits a GQA group's heads)
+FLASH_BWD_TC_KERNELS = ("flash_attention_bwd_tc_dq_kernel",
+                        "flash_attention_bwd_tc_dkdv_kernel",
+                        "flash_attention_bwd_tc_reduce_kernel")
+#: the tensor-core forward's log-sum-exp against its plain version,
+#: absolute in log2 units: an error e scales P by 2^e, and 1e-3 is a third
+#: of one bf16 rounding of P (2^-9)
+FLASH_LSE_TOL = 1e-3
 
 
 def rel_err(got, want) -> float:
@@ -1422,6 +1438,13 @@ def rel_err(got, want) -> float:
     want = want.float()
     return float((got.float() - want).abs().max()
                  / want.abs().max().clamp(min=1e-30))
+
+
+def same_bits(a, b) -> bool:
+    """Whether two bf16 tensors hold the same bits (NaN included)."""
+    import torch
+    return a.shape == b.shape and torch.equal(a.view(torch.int16),
+                                              b.view(torch.int16))
 
 
 def visible_pairs(tq: int, tk: int, causal: bool) -> int:
@@ -1448,44 +1471,89 @@ def device_total_ms(fn, reps: int) -> float:
     return sum(device_us(e) for e in prof.key_averages()) / 1e3 / reps
 
 
-def flash_bwd_errs(q, k, v, o, do, causal: bool = True) -> list:
-    """The backward kernel and its plain version on the same tensors:
-    each of dq, dk, dv's error relative to its largest |want|."""
+def bwd_errs(got, want) -> list:
+    """Each of a backward's dq, dk, dv against the plain version's, relative
+    to its largest |want|, after holding its shape, type and finiteness."""
     import torch
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
-    got = flash_attention_bwd_cuda(q, k, v, o, do, causal)
-    want = ref.flash_attention_bwd_ref(q, k, v, o, do, causal)
     for g, w in zip(got, want):
         need(g.shape == w.shape and g.dtype == w.dtype
              and bool(torch.isfinite(g).all()),
-             f"flash_attention_bwd: output {tuple(g.shape)} {g.dtype} "
-             "is not the plain version's shape and type, or not finite")
+             f"flash backward: output {tuple(g.shape)} {g.dtype} is not "
+             "the plain version's shape and type, or not finite")
     return [rel_err(g, w) for g, w in zip(got, want)]
 
 
+def flash_bwd_errs(q, k, v, o, do, causal: bool = True, lse=None) -> list:
+    """The backward of the forward's route and its plain version (which
+    recomputes the log-sum-exp) on the same tensors: each of dq, dk, dv's
+    error relative to its largest |want|."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    return bwd_errs(flash_attention_bwd_cuda(q, k, v, o, do, causal,
+                                             lse=lse),
+                    ref.flash_attention_bwd_ref(q, k, v, o, do, causal))
+
+
+def flash_forward_lse(q, k, v, causal: bool = True) -> tuple:
+    """The tensor-core forward with the log-sum-exp on and off on the same
+    inputs: ``o`` must keep its bits, and the lse must hold
+    ``flash_attention_lse_ref`` (``FLASH_LSE_TOL``; +inf exactly on the rows
+    that see no key).  Returns o, lse and a dict of the numbers."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    plain_o = flash_attention_cuda(q, k, v, causal)
+    o, lse = flash_attention_cuda(q, k, v, causal, return_lse=True)
+    want = ref.flash_attention_lse_ref(q, k, causal)
+    seen = torch.isfinite(want)
+    blind_ok = torch.equal(torch.isposinf(lse), ~seen)
+    err = float((lse[seen] - want[seen]).abs().max()) if seen.any() else 0.0
+    what = f"q {tuple(q.shape)} k {tuple(k.shape)} causal={causal}"
+    need(same_bits(o, plain_o), f"flash_attention_tc at {what}: o with the "
+         "lse on is not bitwise o with it off")
+    need(blind_ok and err <= FLASH_LSE_TOL,
+         f"flash_attention_tc's lse at {what}: max abs err {err} "
+         f"(tolerance {FLASH_LSE_TOL}), +inf exactly on the rows that see "
+         f"no key: {blind_ok}")
+    return o, lse, dict(lse_max_abs_err=err,
+                        rows_without_key=int((~seen).sum()))
+
+
 def flash_bwd_model_line(cfg, randn) -> dict:
-    """The backward kernel at a model's heads, B 1 x T 4096, bf16, causal,
-    q, k, v as the transposed (B, T, H, D) views the transformer passes:
-    held against its plain version, timed (``ms``: both kernels' device
-    time), beside its bound (five causal Tq.Tk.D products, S, dP, dV, dK,
-    dQ, at the bf16 rate, or the bytes of q, k, v, o, do and dq, dk, dv),
-    its plain version and SDPA's backward on the same tensors (k and v
-    expanded to the query heads)."""
+    """The tensor-core backward at a model's heads, B 1 x T 4096, bf16,
+    causal, q, k, v as the transposed (B, T, H, D) views the transformer
+    passes, given the forward's lse (held first: ``flash_forward_lse``):
+    held against its plain version, two calls bitwise equal, timed
+    (``ms``: its kernels' device time), beside its bound (five causal
+    Tq.Tk.D products, S, dP, dV, dK, dQ, at the bf16 rate, or the bytes of
+    q, k, v, o, do and dq, dk, dv), its plain version, SDPA's backward on
+    the same tensors (k and v expanded to the query heads) and the FFMA
+    kernel forced on the same bf16 tensors (the earlier design)."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import flash_attention as fa
     bf, t = torch.bfloat16, FLASH_BWD_T
     b, hq, hkv, d = 1, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = (randn(b, t, h_, d, dtype=bf).transpose(1, 2)
                for h_ in (hq, hkv, hkv))
-    o = ops.flash_attention(q, k, v)
+    o, lse, fwd = flash_forward_lse(q, k, v)
     do = randn(b, hq, t, d, dtype=bf)
-    errs = flash_bwd_errs(q, k, v, o, do)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do)
+    run = lambda: fa.flash_attention_bwd_cuda(q, k, v, o, do, lse=lse)
+    first = run()
+    errs = bwd_errs(first, want)
     tol = FLASH_BWD_TOL["bfloat16"]
-    need(max(errs) <= tol, f"flash_attention_bwd at {cfg.name}'s shape: "
+    need(max(errs) <= tol, f"flash_attention_bwd_tc at {cfg.name}'s shape: "
          f"dq, dk, dv errors {errs} beyond {tol}")
+    deterministic = all(torch.equal(a, b_) for a, b_ in zip(first, run()))
+    need(deterministic, f"flash_attention_bwd_tc at {cfg.name}'s shape: two "
+         "calls on the same inputs differ")
+    ffma = lambda: fa._launch_bwd_ffma(q, k, v, o, do, True, 1.0 / d ** 0.5)
+    ffma_errs = bwd_errs(ffma(), want)
+    need(max(ffma_errs) <= tol, f"flash_attention_bwd (FFMA, forced) at "
+         f"{cfg.name}'s shape: errors {ffma_errs} beyond {tol}")
+    del first, want
     group = hq // hkv
     qe = q.detach().contiguous().requires_grad_()
     ke, ve = (x.repeat_interleave(group, dim=1).contiguous().requires_grad_()
@@ -1497,10 +1565,14 @@ def flash_bwd_model_line(cfg, randn) -> dict:
     line = bound(dict(
         model=cfg.name, shape=f"q ({b}, {hq}, {t}, {d}) bf16 as a transposed "
         f"(B, T, H, D) view, k, v ({b}, {hkv}, {t}, {d}), causal",
-        gqa_group=group, max_abs_err=max(errs), dq_dk_dv_rel_err=errs,
-        tolerance=tol,
-        ms=device_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, do), 5,
-                     *FLASH_BWD_KERNELS),
+        gqa_group=group, head_split=fa.bwd_split(
+            b, hkv, t, group, torch.cuda.get_device_properties(
+                0).multi_processor_count),
+        max_abs_err=max(errs), dq_dk_dv_rel_err=errs, tolerance=tol,
+        deterministic=deterministic, forward_lse=fwd,
+        ms=device_ms(run, 5, *FLASH_BWD_TC_KERNELS),
+        ffma_ms=device_ms(ffma, 3, *FLASH_BWD_KERNELS),
+        ffma_rel_err=ffma_errs,
         plain_ms=cuda_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, o, do),
                          1),
         library_ms=library_ms,
@@ -1513,29 +1585,34 @@ def flash_bwd_model_line(cfg, randn) -> dict:
         bytes=3 * q.nbytes + k.nbytes + v.nbytes + o.nbytes + do.nbytes))
     line["achieved_tflop_s"] = line["flops"] / line["ms"] / 1e9
     line["vs_library"] = line["ms"] / library_ms
-    del q, k, v, o, do, qe, ke, ve, out
+    line["ffma_over_tc"] = line["ffma_ms"] / line["ms"]
+    del q, k, v, o, do, lse, qe, ke, ve, out
     torch.cuda.empty_cache()
     return line
 
 
 def flash_bwd_sweep(randn) -> list:
-    """The backward kernel against its plain version in f32 (2e-5) and
-    bf16 (2e-2), each error relative to the largest |want| of its output:
-    D 16-128 in steps of 16 and the off-grid 72, 40 and 8; GQA groups 1
-    and 4 at every D, 16 at D 128, 3 at D 64, 2 at D 80; Tq = Tk 256, Tq
-    64 of Tk 256 (the causal offset), a ragged 100, Tq 1 of 128, and Tq
-    128 of Tk 64 (the first 64 rows see no key under the causal mask and
-    carry no gradient); causal and not; contiguous and as transposed
-    (B, T, H, D) views.  Returns [dtype, D, Hq, Hkv, Tq, Tk, causal,
-    strided, max rel err]."""
+    """Each backward through its route against its plain version in f32
+    (2e-5) and bf16 (2e-2), each error relative to the largest |want| of
+    its output: D 16-128 in steps of 16 (bf16 on the tensor-core kernel,
+    given the forward's lse) and the off-grid 72, 40 and 8 (the FFMA
+    kernel, as is all f32); GQA groups 1 and 4 at every D, 16 at D 128, 3
+    at D 64, 2 at D 80; Tq = Tk 256, Tq 64 of Tk 256 (the causal offset),
+    a ragged 100, Tq 1 of 128, and Tq 128 of Tk 64 (the first 64 rows see
+    no key under the causal mask and carry no gradient); causal and not;
+    contiguous and as transposed (B, T, H, D) views.  Both launch counters
+    must equal the cases of their route.  Returns [dtype, D, Hq, Hkv, Tq,
+    Tk, causal, strided, kernel, max rel err]."""
     import torch
-    from repro_torch.kernels import build, ops
-    rows = []
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    rows, n = [], dict.fromkeys(fa.BWD_KERNELS.values(), 0)
     build.reset_launches()
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         for d in (16, 32, 48, 64, 80, 96, 112, 128, 72, 40, 8):
             groups = (1, 4) + {128: (16,), 64: (3,), 80: (2,)}.get(d, ())
+            kernel = fa.bwd_kernel("cuda", dtype, d)
             for group in groups:
                 hkv = 2
                 hq = hkv * group
@@ -1554,27 +1631,34 @@ def flash_bwd_sweep(randn) -> list:
                                            for h_, t_ in ((hq, tq),
                                                           (hkv, tk),
                                                           (hkv, tk)))
-                            o = ops.flash_attention(q, k, v, causal)
+                            lse = None
+                            if kernel == fa.BWD_KERNELS["tc"]:
+                                o, lse = fa.flash_attention_cuda(
+                                    q, k, v, causal, return_lse=True)
+                            else:
+                                o = fa.flash_attention_cuda(q, k, v, causal)
                             do = randn(*o.shape, dtype=dtype)
-                            e = max(flash_bwd_errs(q, k, v, o, do, causal))
+                            e = max(flash_bwd_errs(q, k, v, o, do, causal,
+                                                   lse))
                             need(e <= FLASH_BWD_TOL[name],
-                                 f"flash_attention_bwd {name} D {d} "
-                                 f"{hq}/{hkv} Tq {tq} Tk {tk} causal="
-                                 f"{causal} strided={strided}: beyond "
-                                 f"{FLASH_BWD_TOL[name]} (rel err {e})")
+                                 f"{kernel} {name} D {d} {hq}/{hkv} Tq "
+                                 f"{tq} Tk {tk} causal={causal} strided="
+                                 f"{strided}: beyond {FLASH_BWD_TOL[name]} "
+                                 f"(rel err {e})")
+                            n[kernel] += 1
                             rows.append([name, d, hq, hkv, tq, tk, causal,
-                                         strided, e])
-    need(build.LAUNCHES["flash_attention_bwd"] == len(rows),
-         f"the backward sweep's launches {build.LAUNCHES}")
+                                         strided, kernel, e])
+    need(all(build.LAUNCHES[k] == c for k, c in n.items()),
+         f"the backward sweep's launches {build.LAUNCHES}, want {n}")
     return rows
 
 
 def flash_bwd_autograd(randn) -> dict:
     """``torch.autograd.grad`` through ``ops.flash_attention`` on the card
     at stablelm-3b's heads (B 1 x T 4096, bf16), q, k, v leaves of shape
-    (B, T, H, D) passed as transposed views: exactly one
-    ``flash_attention_bwd`` launch for the backward, and the gradients of
-    the plain version (2e-2)."""
+    (B, T, H, D) passed as transposed views: the forward saves its lse,
+    exactly one ``flash_attention_bwd_tc`` launch for the backward, and
+    the gradients of the plain version (2e-2)."""
     import torch
     from repro_torch.kernels import build, ops, ref
     bf, t = torch.bfloat16, FLASH_BWD_T
@@ -1586,7 +1670,7 @@ def flash_bwd_autograd(randn) -> dict:
     grads = torch.autograd.grad(o, leaves, do)
     torch.cuda.synchronize()
     launches = dict(build.LAUNCHES)
-    need(launches["flash_attention_bwd"] == 1
+    need(launches["flash_attention_bwd_tc"] == 1
          and sum(launches.values()) == 1,
          f"one backward through ops.flash_attention launched {launches}")
     with torch.no_grad():
@@ -1594,13 +1678,16 @@ def flash_bwd_autograd(randn) -> dict:
     errs = [rel_err(g.transpose(1, 2), w) for g, w in zip(grads, want)]
     need(max(errs) <= FLASH_BWD_TOL["bfloat16"],
          f"autograd through ops.flash_attention: errors {errs}")
-    return dict(launches_per_backward=launches["flash_attention_bwd"],
+    return dict(launches_per_backward=launches["flash_attention_bwd_tc"],
                 dq_dk_dv_rel_err=errs)
 
 
 def kernel_phase_flash_bwd():
-    """The flash backward kernel at the four models' heads, on its sweep
-    and through autograd, against its plain version."""
+    """The flash backward kernels at the four models' heads (the
+    tensor-core kernel, and the FFMA one forced on the same tensors), the
+    forward's lse beside them and on rows that see no key, both kernels on
+    the sweep through their routes, and autograd, against their plain
+    versions."""
     import torch
     from repro_torch.configs import (CHATGLM3_6B, GRANITE_MOE_3B_A800M,
                                      MOONSHOT_V1_16B_A3B, STABLELM_3B)
@@ -1612,22 +1699,40 @@ def kernel_phase_flash_bwd():
     models = {c.name: flash_bwd_model_line(c, randn)
               for c in (STABLELM_3B, CHATGLM3_6B, GRANITE_MOE_3B_A800M,
                         MOONSHOT_V1_16B_A3B)}
+    # causal Tq 128 of Tk 64: the first 64 rows see no key (lse +inf)
+    blind = flash_forward_lse(*(randn(1, h_, t_, 64, dtype=torch.bfloat16)
+                                for h_, t_ in ((4, 128), (2, 64), (2, 64))))[2]
     sweep = flash_bwd_sweep(randn)
     line = dict(models.pop(STABLELM_3B.name))
-    line.update(
+    replaces = ("src/repro/kernels/flash_attention.py:81 (the gradient of "
+                "flash_attention_pallas; the JAX package has no backward "
+                "kernel and differentiates its plain attention)")
+    sweep_err = {(dt, k): max(r[-1] for r in sweep
+                              if r[0] == dt and r[8] == k)
+                 for dt, k in {(r[0], r[8]) for r in sweep}}
+    ffma = dict(
+        model=line["model"], shape=line["shape"], timed="forced on bf16 "
+        "(it serves float32, and bf16 off the multiples of 16)",
         source="src/repro_torch/csrc/flash_attention_bwd.cu",
-        replaces="src/repro/kernels/flash_attention.py:81 (the gradient of "
-                 "flash_attention_pallas; the JAX package has no backward "
-                 "kernel and differentiates its plain attention)",
+        replaces=replaces, max_abs_err=max(line["ffma_rel_err"]),
+        dq_dk_dv_rel_err=line["ffma_rel_err"], ms=line["ffma_ms"],
+        other_models={m: x["ffma_ms"] for m, x in models.items()},
+        sweep_max_rel_err={dt: e for (dt, k), e in sweep_err.items()
+                           if k == "flash_attention_bwd"},
+        **{k: line[k] for k in ("plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "flops", "bytes")})
+    line.update(
+        source="src/repro_torch/csrc/flash_attention_bwd_tc.cu",
+        replaces=replaces,
         max_abs_err=max([line["max_abs_err"]]
                         + [m["max_abs_err"] for m in models.values()]),
         error_note="max_abs_err: the largest error of dq, dk or dv relative "
                    "to its largest |want|, over the four models' shapes",
-        other_models=models, autograd=flash_bwd_autograd(randn),
-        sweep_cases=len(sweep),
-        sweep_max_rel_err={dt: max(r[-1] for r in sweep if r[0] == dt)
-                           for dt in ("float32", "bfloat16")})
-    return {"flash_attention_bwd": line}
+        other_models=models, forward_lse_without_key=blind,
+        autograd=flash_bwd_autograd(randn), sweep_cases=len(sweep),
+        sweep_max_rel_err={dt: e for (dt, k), e in sweep_err.items()
+                           if k == "flash_attention_bwd_tc"})
+    return {"flash_attention_bwd_tc": line, "flash_attention_bwd": ffma}
 
 
 def outer_dst(g, dist: str, n: int, e_real: int, e: int):
@@ -2362,13 +2467,36 @@ def device_groups(prof, classify) -> dict:
     return out
 
 
+def gemm_dtype(kernel: str) -> str:
+    """The operand type of a GEMM kernel, read off its name: cuBLAS's
+    ``nvjet_`` kernels name their types in three letters (the first the
+    inputs': ``s`` float32, ``t`` bf16, ``h`` fp16; ``nvjet_tst`` is bf16
+    in and out, ``nvjet_tss`` bf16 in and float32 out), the xmma and
+    CUTLASS kernels spell them (``bf16bf16``, ``f32f32``).  "other" where
+    the name says neither."""
+    import re
+    low = kernel.lower()
+    m = re.search(r"nvjet_([a-z])[a-z]{2}_", low)
+    if m:
+        return {"s": "f32", "t": "bf16", "h": "f16"}.get(m.group(1), "other")
+    if "bf16" in low:
+        return "bf16"
+    if "f32f32" in low or "sgemm" in low:
+        return "f32"
+    return "other"
+
+
 def train_kernel_group(name: str) -> str:
+    """A training step's device kernels by part: the flash backward (both
+    kernels) and forward, the GEMMs by operand type (``gemm_dtype``: the
+    bf16 products, and the float32 ones, which are the float32-cotangent
+    products of ``_WideProduct``'s backward), the rest."""
     low = name.lower()
     if "flash_attention_bwd" in low:
         return "flash_backward"
     if "flash_attention" in low:
         return "flash_forward"
-    return "gemm" if is_gemm(name) else "other"
+    return f"gemm_{gemm_dtype(name)}" if is_gemm(name) else "other"
 
 
 def train_main(tmp: Path) -> dict:
@@ -2378,10 +2506,12 @@ def train_main(tmp: Path) -> dict:
     token file.  Holds finite losses falling from the first step to the
     last, finite gradient norms, and the launches of the path: 4 of
     ``flash_attention_tc`` a layer a step (2 microbatches x forward and
-    remat's recompute), 2 of ``flash_attention_bwd``, none of
-    ``flash_attention_mma``.  Then one more step by hand, profiled in two
-    windows (the microbatches' forward and backward; the AdamW update),
-    every gradient leaf held finite, and the device time by part."""
+    remat's recompute), 2 of ``flash_attention_bwd_tc``, none of
+    ``flash_attention_mma`` or the FFMA ``flash_attention_bwd``.  Then one
+    more step by hand, profiled in two windows (the microbatches' forward
+    and backward; the AdamW update), every gradient leaf held finite, and
+    the device time by part, the GEMMs split by operand type (the ten
+    GEMM kernels that took the most time listed by name)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import STABLELM_3B
@@ -2420,11 +2550,13 @@ def train_main(tmp: Path) -> dict:
          f"train: the loss did not fall over {TRAIN_STEPS} steps: {losses}")
     layers = cfg.n_layers * TRAIN_STEPS
     need(launches["flash_attention_tc"] == 2 * TRAIN_MICRO * layers
-         and launches["flash_attention_bwd"] == TRAIN_MICRO * layers
-         and launches["flash_attention_mma"] == 0,
+         and launches["flash_attention_bwd_tc"] == TRAIN_MICRO * layers
+         and launches["flash_attention_mma"] == 0
+         and launches["flash_attention_bwd"] == 0,
          f"train: launches {launches}, want flash_attention_tc "
-         f"{2 * TRAIN_MICRO * layers}, flash_attention_bwd "
-         f"{TRAIN_MICRO * layers}, flash_attention_mma 0")
+         f"{2 * TRAIN_MICRO * layers}, flash_attention_bwd_tc "
+         f"{TRAIN_MICRO * layers}, flash_attention_mma and "
+         "flash_attention_bwd 0")
 
     # one more step by hand, profiled: make_train_step's work in two windows
     batch = tree_map(lambda x: torch.as_tensor(np.array(x), device="cuda"),
@@ -2452,6 +2584,9 @@ def train_main(tmp: Path) -> dict:
         adamw_update(trainer.params, mean, trainer.opt_state, opt)
         torch.cuda.synchronize()
     parts = device_groups(prof_grad, train_kernel_group)
+    gemms = sorted(((s, k[:90]) for k, s in device_groups(
+        prof_grad, lambda k: k if is_gemm(k) else "").items() if k),
+        reverse=True)[:10]
     parts["optimizer"] = sum(device_groups(prof_opt, lambda _: "o").values())
     busy = sum(parts.values())
     steady = float(np.median(step_s[1:]))
@@ -2469,7 +2604,10 @@ def train_main(tmp: Path) -> dict:
                      share={k: v / busy for k, v in parts.items()},
                      idle_share=1 - busy / steady,
                      idle_note="1 - the profiled step's device time over "
-                               "the median unprofiled step"),
+                               "the median unprofiled step",
+                     top_gemm_kernels=[dict(kernel=k, s=s_,
+                                            type=gemm_dtype(k))
+                                       for s_, k in gemms]),
         every_gradient_leaf_finite=grads_finite)
     log(json.dumps(out))
     del trainer, batch, gsum, mean, prof_grad, prof_opt
@@ -2621,7 +2759,8 @@ def train_parity(model) -> dict:
          f"{worst[0]} after one step (lr {TRAIN_PARITY_LR})")
     need(launches["flash_attention_mma"] == 2 * cfg.n_layers
          and launches["flash_attention_bwd"] == cfg.n_layers
-         and launches["flash_attention_tc"] == 0,
+         and launches["flash_attention_tc"] == 0
+         and launches["flash_attention_bwd_tc"] == 0,
          f"train parity {cfg.name}: launches {launches}")
     out = dict(path="train parity", model=cfg.name, n_layers=cfg.n_layers,
                dtype="float32", batch=TRAIN_PARITY_BATCH,
@@ -2765,7 +2904,8 @@ def train_compressed() -> dict:
     need(abs(lc[-1] - lu[-1]) < 0.35 * lu[0],
          f"train compressed: {lc[-1]} vs uncompressed {lu[-1]}")
     need(launches["flash_attention_bwd"] == 2 * cfg.n_layers
-         * COMPRESSED_STEPS, f"train compressed: launches {launches}")
+         * COMPRESSED_STEPS and launches["flash_attention_bwd_tc"] == 0,
+         f"train compressed: launches {launches}")
     out = dict(path="train compressed", world_size=1, backend="nccl",
                steps=COMPRESSED_STEPS, compressed=lc, uncompressed=lu,
                launches=launches, wall_s=time.perf_counter() - t0)
@@ -2775,7 +2915,9 @@ def train_compressed() -> dict:
 
 def train_phase() -> dict:
     """(a)-(e) of the ``train`` phase, in a temporary directory for the
-    token file and the checkpoints; returns (a)'s launches."""
+    token file and the checkpoints; returns (a)'s launches (``main``) and
+    those of (c)'s float32 steps summed (``parity``: the FFMA backward's
+    path)."""
     import tempfile
     from repro_torch.configs import GRANITE_MOE_3B_A800M, STABLELM_3B
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
@@ -2786,9 +2928,11 @@ def train_phase() -> dict:
         t0 = time.perf_counter()
         train_resume(tmp)
         log(f"train resume: {time.perf_counter() - t0:.2f} s")
+    parity = {}
     for model in (STABLELM_3B, GRANITE_MOE_3B_A800M):
         t0 = time.perf_counter()
-        train_parity(model)
+        for k, n in train_parity(model)["launches"].items():
+            parity[k] = parity.get(k, 0) + n
         log(f"train parity {model.name}: {time.perf_counter() - t0:.2f} s")
     for model in (STABLELM_3B, GRANITE_MOE_3B_A800M):
         t0 = time.perf_counter()
@@ -2798,7 +2942,7 @@ def train_phase() -> dict:
     t0 = time.perf_counter()
     train_compressed()
     log(f"train compressed: {time.perf_counter() - t0:.2f} s")
-    return main["launches"]
+    return {"main": main["launches"], "parity": parity}
 
 
 def main_path(T, dbs):
@@ -4362,7 +4506,8 @@ def run_phases(T, phases, smi: str, workers: dict) -> int:
         t0 = time.perf_counter()
         train_launches = train_phase()
         log(f"train: {time.perf_counter() - t0:.2f} s, launches of the "
-            f"main path {train_launches}")
+            f"main path {train_launches['main']}, of the float32 parity "
+            f"steps {train_launches['parity']}")
 
     if phases != list(PHASES):
         log(f"partial run of {phases}: every check passed")
@@ -4373,7 +4518,8 @@ def run_phases(T, phases, smi: str, workers: dict) -> int:
     # the "kernel intersect_count" line above), the LM serving paths of
     # the four models for the wgmma flash kernel, their f32 parity paths for
     # the mma.sync one (both replace flash_attention_pallas, split by
-    # dtype and head dim), the training main path for the flash backward;
+    # dtype and head dim), the training main path for the tensor-core
+    # flash backward and the float32 train steps of (c) for the FFMA one;
     # no path runs the bitset AND-popcount or the segment outer product,
     # which only the kernel router reaches
     entries = (("searchsorted_segments", "searchsorted_segments",
@@ -4388,8 +4534,10 @@ def run_phases(T, phases, smi: str, workers: dict) -> int:
                 lm_launches["flash_attention_tc"]),
                ("flash_attention_mma", "flash_attention_mma",
                 parity_launches["flash_attention_mma"]),
+               ("flash_attention_bwd_tc", "flash_attention_bwd_tc",
+                train_launches["main"]["flash_attention_bwd_tc"]),
                ("flash_attention_bwd", "flash_attention_bwd",
-                train_launches["flash_attention_bwd"]),
+                train_launches["parity"]["flash_attention_bwd"]),
                ("segment_outer", "segment_outer",
                 lm_launches["segment_outer"]))
     keys = ("source", "replaces", "max_abs_err", "ms", "plain_ms",

@@ -52,16 +52,21 @@
 // above the query's position (q_offset + row) gets P = 0.  A row that
 // sees no key gets log-sum-exp +inf, so its P is 0 everywhere.
 //
+// Where it runs: the backward of the forward's "mma" route
+// (kernels/flash_attention.py, route()): float32 at any head dim, and
+// bf16 at a head dim that is not a multiple of 16.  bf16 at the multiples
+// of 16, every model's training path, runs its redesign for the tensor
+// cores, flash_attention_bwd_tc.cu (wgmma, P and dS rounded to bf16, the
+// log-sum-exp taken from the forward).
+//
 // What bounds it on the H100: five products of the causal Tq x Tk x D
-// work (S, dP, dV, dK, dQ) against q, k, v, o, do and the three outputs.
-// At stablelm-3b's training shape (B 2, 32 heads, T 4096, D 80) that is
-// 0.92 TFLOP of bf16 work, 0.94 ms at the tensor cores' 989 TFLOP/s,
-// against 0.2 GB of bytes.  This kernel recomputes S and dP in both
-// kernels and the scores once more for the log-sum-exp (eight products
-// in all) and runs them on the CUDA cores (67 TFLOP/s at most), so it
-// sits far above that bound: the first version is right and simple,
-// tensor cores (mma.sync or wgmma, with dS rounded to bf16) are its
-// redesign.
+// work (S, dP, dV, dK, dQ) against q, k, v, o, do and the three outputs;
+// in float32 at the FFMA rate (67 TFLOP/s), in bf16 at the tensor cores'
+// 989 TFLOP/s.  This kernel recomputes S and dP in both kernels and the
+// scores once more for the log-sum-exp (eight products in all) and runs
+// them on the CUDA cores, so in bf16 it sits far above that bound; it
+// keeps float32's exact arithmetic (nothing rounded between products)
+// for the inputs it serves.
 #include <cmath>
 #include <cstdint>
 #include <cuda_bf16.h>

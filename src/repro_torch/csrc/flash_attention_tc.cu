@@ -29,7 +29,11 @@
 // so prefill's (B, T, H, D) -> (B, H, T, D) transposed views are read in
 // place.  Query head h of batch b reads KV head h / (Hq / Hkv).  The
 // queries are the last Tq positions of the Tk stream (q_offset = Tk - Tq).
-// Output (B, Hq, Tq, D) contiguous bf16.
+// Output (B, Hq, Tq, D) contiguous bf16.  For training the launcher may
+// also take a float32 (B, Hq, Tq) buffer for each row's log-sum-exp of
+// its scaled scores, in log2 units (log2 sum_k 2^(s_k scale log2 e),
+// +inf for a row that sees no key), which flash_attention_bwd_tc.cu reads
+// instead of recomputing it; serving passes null and stores nothing.
 //
 // What bounds it on the H100: at the main path's shape (B 4, Hq 32,
 // Hkv 2, T 2048, D 128, causal) the work is 137.4 GFLOP against 143 MB of
@@ -83,10 +87,7 @@
 // Left for later: persistent blocks (each block now waits for its first
 // loads alone on its SM), skipping the rescale where the row max did not
 // move, and a TMA store of the output.
-#include <cstdint>
-#include <cuda.h>  // CUtensorMap and its enums (header only; no -lcuda)
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "wgmma_sm90.cuh"
 
 namespace {
 
@@ -95,9 +96,7 @@ constexpr int kBN = 128;        // keys per K/V tile
 constexpr int kStages = 3;      // K/V ring depth
 constexpr int kConsumerWarps = 8;
 constexpr int kThreads = 32 * kConsumerWarps + 128;  // + the producer wg
-constexpr int kRowBytes = 128;  // one swizzled box row: 64 bf16 columns
 constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared-memory tiles of the instance for head dims up to D: whole boxes
 // of 64 columns.
@@ -110,69 +109,6 @@ struct Layout {
   static constexpr int kBytes = kQ + kStages * kStage;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
-      "r"(c1), "r"(c2), "r"(c3) : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets (16-byte units), layout type 1 (B128).
-__device__ __forceinline__ uint64_t desc_b128(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (uint64_t{1} << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Wait until at most N committed groups of this warpgroup are pending.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
 // Named barriers 1 and 2 order the two consumer warpgroups' wgmma starts
 // (barrier 0 is __syncthreads): a warpgroup waits for its turn on its own
 // barrier and passes the turn on the other's.
@@ -181,140 +117,6 @@ __device__ __forceinline__ void turn_wait(int wg) {
 }
 __device__ __forceinline__ void turn_pass(int wg) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
-}
-
-// Keeps the compiler from moving reads of wgmma accumulators across the
-// wait (the asm statements stay in order; the registers pass through).
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-// The same for the P fragments an in-flight wgmma reads: their registers
-// must hold P until the wgmma is done.
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[8][4]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// S = Q K^T for one k16 slice: A (64 x 16) and B (16 x 128 keys) from
-// shared memory, both K-major; scale_d = 0 starts the sum.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// O += P V for one k16 slice: A (64 x 16 of P) from registers, B (16 keys
-// x 128) from shared memory, MN-major (transposed: V has D contiguous).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// O += P V for one k16 slice: A (64 x 16 of P) from registers, B (16 keys
-// x 64) from shared memory, MN-major (transposed: V has D contiguous).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// O += P V for one k16 slice: A (64 x 16 of P) from registers, B (16 keys
-// x 80) from shared memory, MN-major (transposed: V has D contiguous); the
-// 80 columns are box 0 and the first 16 columns of box 1, the leading
-// byte offset apart.
-__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39}, "
-      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // What the softmax of one warpgroup's tile needs to know of its rows.
@@ -341,29 +143,6 @@ __device__ __forceinline__ void qk_start(float (&sc)[64], uint32_t qa,
                   desc_b128(k_s + (k / 4) * kBN * kRowBytes + off, 16, 1024),
                   k > 0);
   }
-}
-
-// O += P V: V rows 16 kk .. 16 kk + 15 for slice kk; the second box of
-// columns (D 80 and 128) lies kBN rows further (the leading byte offset),
-// 8-row groups 1024 B apart (the stride byte offset).
-template <int D>
-__device__ __forceinline__ void pv_start(float (&acc)[D / 2],
-                                         const uint32_t (&pa)[8][4],
-                                         uint32_t v_s) {
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    const uint64_t db =
-        desc_b128(v_s + 16 * kk * kRowBytes, kBN * kRowBytes, 1024);
-    if constexpr (D == 128) wgmma_rs_n128(acc, pa[kk], db);
-    else if constexpr (D == 80) wgmma_rs_n80(acc, pa[kk], db);
-    else wgmma_rs_n64(acc, pa[kk], db);
-  }
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // The online softmax of one tile on the accumulator layout, in place:
@@ -416,19 +195,6 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], int k0,
   }
 }
 
-// P as bf16 A fragments: slice kk covers keys 16 kk .. 16 kk + 15, the
-// accumulator columns j = 2 kk (k 0-7) and 2 kk + 1 (k 8-15).
-__device__ __forceinline__ void pack_p(const float (&sc)[64],
-                                       uint32_t (&pa)[8][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
-    pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-    pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-    pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
-  }
-}
-
 // D: the instance's width; kPad: the head dim d is below it (the
 // epilogue then stores d columns, a run-time width).
 template <int D, bool kPad>
@@ -436,8 +202,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_tc_kernel(
     const __grid_constant__ CUtensorMap q_map,
     const __grid_constant__ CUtensorMap k_map,
     const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ o,
-    int d, int hq, int group, int tq, int tk, int n_bh, float scale_log2,
-    int causal) {
+    float* __restrict__ lse, int d, int hq, int group, int tq, int tk,
+    int n_bh, float scale_log2, int causal) {
   using L = Layout<D>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + 2 * kStages];
@@ -540,7 +306,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_tc_kernel(
     wgmma_wait<0>();
     fence_regs(sc);
     softmax_tile(sc, 0, tile, m, l, alpha);
-    pack_p(sc, pa);
+    pack_frags<8>(sc, pa);
   }
   // Tile kb's Q K^T and tile kb - 1's P V are started together; the
   // softmax of tile kb runs while P V is still on the tensor cores.
@@ -550,7 +316,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_tc_kernel(
     wgmma_fence();
     qk_start<D>(sc, qa, kv_s + (kb % kStages) * L::kStage);
     wgmma_commit();
-    pv_start<D>(acc, pa, kv_s + ((kb - 1) % kStages) * L::kStage + L::kKV);
+    rs_product<D, 8>(acc, pa,
+                     kv_s + ((kb - 1) % kStages) * L::kStage + L::kKV, kBN);
     wgmma_commit();
     turn_pass(wg);
     wgmma_wait<1>();  // Q K^T done; P V may still run
@@ -568,12 +335,14 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_tc_kernel(
       acc[4 * j + 2] *= alpha[1];
       acc[4 * j + 3] *= alpha[1];
     }
-    pack_p(sc, pa);
+    pack_frags<8>(sc, pa);
   }
   if (n_kb > 0) {
     turn_wait(wg);
     wgmma_fence();
-    pv_start<D>(acc, pa, kv_s + ((n_kb - 1) % kStages) * L::kStage + L::kKV);
+    rs_product<D, 8>(acc, pa,
+                     kv_s + ((n_kb - 1) % kStages) * L::kStage + L::kKV,
+                     kBN);
     wgmma_commit();
     if (wg == 0) turn_pass(wg);
     wgmma_wait<0>();
@@ -586,6 +355,21 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_tc_kernel(
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     l[i] = fmaxf(l[i], 1e-30f);
+  }
+  if (lse != nullptr && lane % 4 == 0) {
+    // each row's log-sum-exp of its scaled scores in log2 units (the
+    // convention of flash_attention_bwd.cu's lse buffer): m + log2 l.  A
+    // row that sees no key gets +inf, tested on its position and never
+    // read off m and l, which the finite -1e30 mask leaves at a garbage
+    // value there
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 8 * i;
+      if (row >= tq) continue;
+      const bool sees_key = !causal || q_offset + row >= 0;
+      lse[static_cast<int64_t>(bh) * tq + row] =
+          sees_key ? m[i] + log2f(l[i]) : INFINITY;
+    }
   }
   // the real columns (d a multiple of 16, so whole 8-column groups)
   const int width = kPad ? d : D;
@@ -604,60 +388,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_tc_kernel(
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
-// query, so the library needs no -lcuda
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 4-D map over (D, T, H, B), innermost first, with byte strides of the
-// T, H and B dims; boxes of 64 columns x `rows` positions of one head.
-bool make_map(CUtensorMap* map, const void* ptr, int64_t d, int64_t t,
-              int64_t h, int64_t b, const int64_t* byte_strides, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(t),
-                              static_cast<cuuint64_t>(h),
-                              static_cast<cuuint64_t>(b)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(byte_strides[0]),
-                                 static_cast<cuuint64_t>(byte_strides[1]),
-                                 static_cast<cuuint64_t>(byte_strides[2])};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // The instance for head dims up to D, run at head dim d <= D (kPad: d <
 // D).
 template <int D, bool kPad>
-int launch(const void* q, const void* k, const void* v, void* o, int64_t b,
-           int64_t hq, int64_t hkv, int64_t tq, int64_t tk, int64_t d,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int64_t b, int64_t hq, int64_t hkv, int64_t tq, int64_t tk,
+           int64_t d,
            const int64_t* q_bs, const int64_t* k_bs, const int64_t* v_bs,
            float scale, int causal, cudaStream_t stream) {
   const int64_t n_qb = (tq + kBM - 1) / kBM;
@@ -679,7 +415,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t b,
   if (err != cudaSuccess) return static_cast<int>(err);
   flash_attention_tc_kernel<D, kPad><<<static_cast<unsigned>(blocks),
                                        kThreads, smem, stream>>>(
-      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o),
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), lse,
       static_cast<int>(d), static_cast<int>(hq), static_cast<int>(hq / hkv),
       static_cast<int>(tq),
       static_cast<int>(tk), static_cast<int>(n_bh), scale * kLog2e, causal);
@@ -693,10 +429,12 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t b,
 // dims of each tensor (the D dim is contiguous); the wrapper
 // (kernels/flash_attention.py, tma_geometry) checks that the base is
 // 16-byte aligned and every stride a multiple of 16 bytes.  o (B, Hq, Tq,
-// D) contiguous.
+// D) contiguous.  lse: null, or float32 (B, Hq, Tq) contiguous, which then
+// receives each row's log-sum-exp (log2 units; +inf where no key is
+// visible) for the backward kernel.
 extern "C" int flash_attention_tc_launch(
-    const void* q, const void* k, const void* v, void* o, int64_t b,
-    int64_t hq, int64_t hkv, int64_t tq, int64_t tk, int64_t d,
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    int64_t b, int64_t hq, int64_t hkv, int64_t tq, int64_t tk, int64_t d,
     int64_t q_st, int64_t q_sh, int64_t q_sb, int64_t k_st, int64_t k_sh,
     int64_t k_sb, int64_t v_st, int64_t v_sh, int64_t v_sb, float scale,
     int causal, void* stream) {
@@ -707,8 +445,8 @@ extern "C" int flash_attention_tc_launch(
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto run = [&](auto launch) {
-    return launch(q, k, v, o, b, hq, hkv, tq, tk, d, qs, ks, vs, scale,
-                  causal, s);
+    return launch(q, k, v, o, static_cast<float*>(lse), b, hq, hkv, tq, tk,
+                  d, qs, ks, vs, scale, causal, s);
   };
   if (d == 64) return run(&launch<64, false>);
   if (d < 64) return run(&launch<64, true>);

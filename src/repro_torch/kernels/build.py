@@ -1,11 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` (one
-``nvcc`` process per source, all started together) and linked into one
-shared library with a plain C interface, loaded through ``ctypes``.  The
-library lands in ``build/repro_torch_kernels/`` at the repository root,
-named by a hash of the sources, so a changed source rebuilds and an
-unchanged one loads in milliseconds.  Nothing is built at import time:
+``nvcc`` process per source, all started together; ``csrc/*.cuh`` holds
+what several sources include) and linked into one shared library with a
+plain C interface, loaded through ``ctypes``.  The library lands in
+``build/repro_torch_kernels/`` at the repository root, named by a hash of
+the sources and headers, so a changed source rebuilds and an unchanged
+one loads in milliseconds.  Nothing is built at import time:
 :func:`library` builds at the first kernel launch.
 
 Each C entry point takes device pointers and the CUDA stream as
@@ -55,9 +56,11 @@ SIGNATURES = {
     "flash_attention_launch": (
         _P, _P, _P, _P, *(_I64,) * 15, ctypes.c_float, _I32, _I32, _I32, _P),
     "flash_attention_tc_launch": (
-        _P, _P, _P, _P, *(_I64,) * 15, ctypes.c_float, _I32, _P),
+        *(_P,) * 5, *(_I64,) * 15, ctypes.c_float, _I32, _P),
     "flash_attention_bwd_launch": (
         *(_P,) * 10, *(_I64,) * 21, ctypes.c_float, _I32, _I32, _P),
+    "flash_attention_bwd_tc_launch": (
+        *(_P,) * 11, *(_I64,) * 21, _I32, ctypes.c_float, _I32, _P),
     "segment_outer_plan": (_I64, _I64, _I64, _I32, _P),
     "segment_outer_launch": (_P, _P, _P, *(_I64,) * 7, _I32, _P, _P, _P,
                              _P),
@@ -68,7 +71,8 @@ LAUNCHES = {"searchsorted_segments": 0, "bitset_member_mask": 0,
             "bitset_member_count": 0, "tile_member_mask": 0,
             "intersect_count": 0, "bitset_intersect_count": 0,
             "flash_attention_tc": 0, "flash_attention_mma": 0,
-            "flash_attention_bwd": 0, "segment_outer": 0}
+            "flash_attention_bwd": 0, "flash_attention_bwd_tc": 0,
+            "segment_outer": 0}
 
 _lock = threading.Lock()
 _launch_lock = threading.Lock()
@@ -90,6 +94,12 @@ def count_launch(name: str) -> None:
 
 def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers() -> list[Path]:
+    """The headers the sources include (``csrc/*.cuh``): part of the
+    library's hash, so a changed header rebuilds."""
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -125,7 +135,8 @@ def build() -> Path:
     returns its path.  A library already built from the same sources is
     reused."""
     srcs = sources()
-    target = BUILD_DIR / f"librepro_torch_kernels_{_digest(srcs)}.so"
+    target = BUILD_DIR / (f"librepro_torch_kernels_"
+                          f"{_digest(srcs + headers())}.so")
     if target.exists():
         build_info.update(seconds=0.0, path=str(target), ptxas="(cached)")
         return target

@@ -16,14 +16,20 @@ See the sources for the designs.  Each launch counts under its own name,
 ``flash_attention_tc`` or ``flash_attention_mma``.  The plain PyTorch
 version is ``kernels.ref.flash_attention_ref``, run for CPU tensors.
 
-The gradient is a third hand-written kernel, ``csrc/flash_attention_bwd.cu``
-(:func:`flash_attention_bwd_cuda`, counted as ``flash_attention_bwd``: one
-count a backward call, for its two launches), which the JAX package does
-not have: it differentiates its plain attention.  :class:`FlashAttention`
-is the ``torch.autograd.Function`` that pairs the routed forward kernel
-with it; its plain version is ``kernels.ref.flash_attention_bwd_ref``.
+The gradient has two hand-written kernels, routed by the same
+:func:`route`, which the JAX package does not have: it differentiates its
+plain attention.  :func:`flash_attention_bwd_cuda` runs
+``csrc/flash_attention_bwd_tc.cu`` on the ``tc`` route (wgmma, counted as
+``flash_attention_bwd_tc``), which takes each row's log-sum-exp from the
+tensor-core forward, and ``csrc/flash_attention_bwd.cu`` (float32 FFMA,
+counted as ``flash_attention_bwd``) on the ``mma`` route; one count a
+backward call, for its launches.  :class:`FlashAttention` is the
+``torch.autograd.Function`` that pairs the routed forward kernel with
+it; its plain version is ``kernels.ref.flash_attention_bwd_ref``.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -38,6 +44,10 @@ MAX_HEAD_DIM = 128
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the copies the mma.sync kernel stages tiles with, widest first (bytes)
 COPY_WIDTHS = (16, 8, 4, 2)
+#: forward route -> the backward kernel that serves it (its launch counter)
+BWD_KERNELS = {"tc": "flash_attention_bwd_tc", "mma": "flash_attention_bwd"}
+#: keys a block of the tensor-core backward's dk/dv kernel takes
+BWD_TC_KEYS = 128
 
 
 def tc_head_dim(head_dim: int) -> bool:
@@ -64,6 +74,27 @@ def route(device, dtype: torch.dtype, head_dim: int) -> str:
     if dtype == torch.bfloat16 and tc_head_dim(head_dim):
         return "tc"
     return "mma"
+
+
+def bwd_kernel(device, dtype: torch.dtype, head_dim: int) -> str:
+    """The backward kernel of a CUDA input: the one of its forward's
+    :func:`route` (:data:`BWD_KERNELS`)."""
+    return BWD_KERNELS[route(device, dtype, head_dim)]
+
+
+def bwd_split(b: int, hkv: int, tk: int, group: int, n_sm: int) -> int:
+    """Over how many blocks the tensor-core backward's dk/dv kernel splits
+    each GQA group's query heads: 1 where its grid of B * Hkv * (key tiles
+    of 128) blocks fills the card's ``n_sm`` SMs, else the smallest
+    divisor of ``group`` that does (or ``group``).  Each split writes
+    float32 partials that a third kernel sums in split order, so the
+    result stays deterministic (chatglm3-6b's 2 KV heads at B 1 x T 4096
+    give 64 blocks: split 4)."""
+    blocks = b * hkv * -(-tk // BWD_TC_KEYS)
+    for s in range(1, group + 1):
+        if group % s == 0 and blocks * s >= n_sm:
+            return s
+    return group
 
 
 def tma_geometry(t: torch.Tensor):
@@ -125,15 +156,29 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                              f"of min({PALLAS_BLOCK}, {name})")
 
 
+def _tma_ready(t: torch.Tensor):
+    """``t`` and its :func:`tma_geometry` byte strides, ``t`` copied to a
+    contiguous tensor first where TMA cannot read it in place."""
+    geo = tma_geometry(t)
+    if geo is None:
+        t = t.contiguous()
+        geo = tma_geometry(t)
+    return t, geo[1]
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool = True,
-                         scale: float | None = None) -> torch.Tensor:
+                         causal: bool = True, scale: float | None = None,
+                         return_lse: bool = False):
     """Causal GQA attention of (B, Hq, Tq, D) queries over (B, Hkv, Tk, D)
     keys and values, all f32 or all bf16 on one CUDA device, D <= 128,
     through the kernel :func:`route` picks.  Any strides, as long as the
     last dim is contiguous (a transposed view costs no copy).  Returns
     (B, Hq, Tq, D) contiguous, in q's dtype; ``scale`` defaults to
-    1 / sqrt(D)."""
+    1 / sqrt(D).  With ``return_lse`` (the ``tc`` route only) it returns
+    ``(o, lse)``: each row's log-sum-exp of its scaled scores, (B, Hq, Tq)
+    float32 in log2 units, +inf for a row that sees no key
+    (:func:`kernels.ref.flash_attention_lse_ref`), which the tensor-core
+    backward takes."""
     name = "flash_attention"
     check_shapes(q, k, v)
     if not q.is_cuda:
@@ -148,31 +193,34 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{name}: head dim {q.shape[3]} > {MAX_HEAD_DIM}")
     if scale is None:
         scale = 1.0 / (q.shape[3] ** 0.5)
-    if route(q.device, q.dtype, q.shape[3]) == "tc":
-        return _launch_tc(q, k, v, causal, float(scale))
-    return _launch_mma(q, k, v, causal, float(scale))
+    tc = route(q.device, q.dtype, q.shape[3]) == "tc"
+    if return_lse and not tc:
+        raise ValueError(f"{name}: only the tensor-core kernel (bf16, D a "
+                         "multiple of 16) returns the log-sum-exp")
+    if not tc:
+        return _launch_mma(q, k, v, causal, float(scale))
+    lse = (torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    out = _launch_tc(q, k, v, causal, float(scale), lse)
+    return (out, lse) if return_lse else out
 
 
-def _launch_tc(q, k, v, causal: bool, scale: float) -> torch.Tensor:
+def _launch_tc(q, k, v, causal: bool, scale: float,
+               lse: torch.Tensor | None = None) -> torch.Tensor:
     """The tensor-core kernel (bf16, D a multiple of 16 up to 128).  A
-    tensor TMA cannot read in place is copied to a contiguous one
-    first."""
+    tensor TMA cannot read in place is copied to a contiguous one first.
+    Where ``lse`` ((B, Hq, Tq) float32, contiguous) is given, the kernel
+    also writes each row's log-sum-exp into it."""
     b, hq, tq, d = q.shape
     hkv, tk = k.shape[1], k.shape[2]
-    maps = []
-    for t in (q, k, v):
-        geo = tma_geometry(t)
-        if geo is None:
-            t = t.contiguous()
-            geo = tma_geometry(t)
-        maps.append((t, geo[1]))
+    (qt, qs), (kt, ks), (vt, vs) = (_tma_ready(t) for t in (q, k, v))
     out = torch.empty((b, hq, tq, d), dtype=q.dtype, device=q.device)
     lib = build.library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    (qt, qs), (kt, ks), (vt, vs) = maps
     rc = lib.flash_attention_tc_launch(
-        qt.data_ptr(), kt.data_ptr(), vt.data_ptr(), out.data_ptr(), b, hq,
-        hkv, tq, tk, d, *qs, *ks, *vs, scale, int(bool(causal)), stream)
+        qt.data_ptr(), kt.data_ptr(), vt.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), b, hq, hkv, tq, tk, d, *qs,
+        *ks, *vs, scale, int(bool(causal)), stream)
     build.check(rc, "flash_attention_tc")
     build.count_launch("flash_attention_tc")
     return out
@@ -197,37 +245,74 @@ def _launch_mma(q, k, v, causal: bool, scale: float) -> torch.Tensor:
     return out
 
 
+def check_bwd_lse(q: torch.Tensor, lse: torch.Tensor | None,
+                  kernel_route: str | None = None) -> None:
+    """Raise where the backward cannot take ``lse``: any given ``lse`` must
+    be the forward's (B, Hq, Tq) float32 log-sum-exp on q's device, and
+    the ``tc`` route (``kernel_route``; None where not known yet) needs
+    one."""
+    name = "flash_attention_bwd"
+    if lse is None:
+        if kernel_route == "tc":
+            raise ValueError(f"{name}: the tensor-core backward needs the "
+                             "forward's lse (flash_attention_cuda(..., "
+                             "return_lse=True))")
+        return
+    if (lse.shape != q.shape[:3] or lse.dtype != torch.float32
+            or lse.device != q.device):
+        raise ValueError(f"{name}: lse must be float32 of shape "
+                         f"{tuple(q.shape[:3])} on {q.device}, not "
+                         f"{lse.dtype} {tuple(lse.shape)} on {lse.device}")
+
+
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
                              do: torch.Tensor, causal: bool = True,
-                             scale: float | None = None
+                             scale: float | None = None,
+                             lse: torch.Tensor | None = None
                              ) -> tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """``(dq, dk, dv)`` of :func:`flash_attention_cuda` for the output
-    cotangent ``do`` (B, Hq, Tq, D), given the forward's output ``o``:
-    the kernel of ``csrc/flash_attention_bwd.cu``, in float32 math, for
-    the forward's contract (f32 or bf16, all five tensors alike, D <=
-    128, any strides with a contiguous last dim).  Returns contiguous
-    tensors in q's dtype; raises where the kernel cannot launch."""
+    cotangent ``do`` (B, Hq, Tq, D), given the forward's output ``o``, for
+    the forward's contract (f32 or bf16, all five tensors alike, D <= 128,
+    any strides with a contiguous last dim), through the backward kernel of
+    the forward's :func:`route` (:func:`bwd_kernel`): on ``tc`` the
+    tensor-core kernel, which needs the forward's ``lse``
+    (``flash_attention_cuda(..., return_lse=True)``); on ``mma`` the FFMA
+    kernel, which recomputes it.  A route by shape, not a fallback: a
+    launch that fails raises.  Returns contiguous tensors in q's dtype."""
     name = "flash_attention_bwd"
     check_shapes(q, k, v)
+    for arg, t in (("o", o), ("do", do)):
+        if t.shape != q.shape:
+            raise ValueError(f"{name}: {arg} must have q's shape")
+    check_bwd_lse(q, lse)
     if not q.is_cuda:
         raise ValueError(f"{name}: tensors must lie on a CUDA device")
     for arg, t in (("k", k), ("v", v), ("o", o), ("do", do)):
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError(f"{name}: {arg} must match q's device and dtype")
-    for arg, t in (("o", o), ("do", do)):
-        if t.shape != q.shape:
-            raise ValueError(f"{name}: {arg} must have q's shape")
     if q.dtype not in DTYPES:
-        raise ValueError(f"{name}: dtype {q.dtype} (the kernel takes "
+        raise ValueError(f"{name}: dtype {q.dtype} (the kernels take "
                          "float32 and bfloat16)")
-    b, hq, tq, d = q.shape
-    hkv, tk = k.shape[1], k.shape[2]
+    d = q.shape[3]
     if d > MAX_HEAD_DIM:
         raise ValueError(f"{name}: head dim {d} > {MAX_HEAD_DIM}")
     if scale is None:
         scale = 1.0 / (d ** 0.5)
+    kernel_route = route(q.device, q.dtype, d)
+    check_bwd_lse(q, lse, kernel_route)
+    if kernel_route == "tc":
+        return _launch_bwd_tc(q, k, v, o, do, lse, causal, float(scale))
+    return _launch_bwd_ffma(q, k, v, o, do, causal, float(scale))
+
+
+def _launch_bwd_ffma(q, k, v, o, do, causal: bool, scale: float):
+    """The FFMA kernel (``csrc/flash_attention_bwd.cu``: f32 or bf16, any
+    D <= 128), which recomputes each row's log-sum-exp."""
+    name = BWD_KERNELS["mma"]
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
     q, k, v, o, do = (t if t.stride(3) == 1 else t.contiguous()
                       for t in (q, k, v, o, do))
     dq = torch.empty((b, hq, tq, d), dtype=q.dtype, device=q.device)
@@ -242,8 +327,44 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), b, hq, hkv, tq, tk, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-        *do.stride()[:3], float(scale), int(bool(causal)), DTYPES[q.dtype],
+        *do.stride()[:3], scale, int(bool(causal)), DTYPES[q.dtype],
         stream)
+    build.check(rc, name)
+    build.count_launch(name)
+    return dq, dk, dv
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch_bwd_tc(q, k, v, o, do, lse, causal: bool, scale: float):
+    """The tensor-core kernel (``csrc/flash_attention_bwd_tc.cu``: bf16, D
+    a multiple of 16 up to 128), given the forward's ``lse``.  Tensors TMA
+    cannot read in place are copied contiguous first; the dk/dv kernel's
+    head split (:func:`bwd_split`) gets its float32 scratch here."""
+    name = BWD_KERNELS["tc"]
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    (qt, qs), (kt, ks), (vt, vs), (ot, os_), (dot, dos) = (
+        _tma_ready(t) for t in (q, k, v, o, do))
+    lse = lse.contiguous()
+    dq = torch.empty((b, hq, tq, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, hkv, tk, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    delta = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
+    split = bwd_split(b, hkv, tk, hq // hkv, _sm_count(q.device.index))
+    part = (torch.empty((split, 2, b, hkv, tk, d), dtype=torch.float32,
+                        device=q.device) if split > 1 else None)
+    lib = build.library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.flash_attention_bwd_tc_launch(
+        qt.data_ptr(), kt.data_ptr(), vt.data_ptr(), ot.data_ptr(),
+        dot.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(),
+        None if part is None else part.data_ptr(), b, hq, hkv, tq, tk, d,
+        *qs, *ks, *vs, *os_, *dos, split, scale, int(bool(causal)), stream)
     build.check(rc, name)
     build.count_launch(name)
     return dq, dk, dv
@@ -252,20 +373,30 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
 class FlashAttention(torch.autograd.Function):
     """Flash attention on the card with its gradient: the forward kernel
     :func:`route` picks (``tc`` or ``mma``), and
-    :func:`flash_attention_bwd_cuda` as the backward.  The JAX package
-    differentiates its plain attention instead (it has no backward
-    kernel); the gradient is that of the same function."""
+    :func:`flash_attention_bwd_cuda` as the backward.  Where a gradient is
+    needed on the ``tc`` route the forward also returns each row's
+    log-sum-exp, saved for the tensor-core backward (a recompute under
+    ``torch.utils.checkpoint`` runs the forward again with grad on, so it
+    saves it again).  The JAX package differentiates its plain attention
+    instead (it has no backward kernel); the gradient is that of the same
+    function."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale):
-        o = flash_attention_cuda(q, k, v, causal=causal, scale=scale)
-        ctx.save_for_backward(q, k, v, o)
+        lse = None
+        if (any(ctx.needs_input_grad[:3])
+                and route(q.device, q.dtype, q.shape[3]) == "tc"):
+            o, lse = flash_attention_cuda(q, k, v, causal=causal,
+                                          scale=scale, return_lse=True)
+        else:
+            o = flash_attention_cuda(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.scale = causal, scale
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
+        q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o, do, ctx.causal,
-                                              ctx.scale)
+                                              ctx.scale, lse=lse)
         return dq, dk, dv, None, None

@@ -108,8 +108,9 @@ def flash_attention(q, k, v, causal: bool = True, scale=None):
     ``flash_attention_pallas`` asserts
     (:func:`kernels.flash_attention.check_shapes`: Tq and Tk multiples of
     min(128, T)).  On the card the result carries its gradient through
-    :class:`kernels.flash_attention.FlashAttention`, whose backward is the
-    hand-written ``flash_attention_bwd`` kernel; on the CPU autograd
+    :class:`kernels.flash_attention.FlashAttention`, whose backward is a
+    hand-written kernel of the same route (``flash_attention_bwd_tc`` on
+    wgmma, ``flash_attention_bwd`` on FFMA); on the CPU autograd
     differentiates the plain version."""
     if _flash_route(q.device, q.dtype, q.shape[-1]) == "plain":
         return _ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)

@@ -215,6 +215,33 @@ def bitset_member_count_ref(words: torch.Tensor, b: torch.Tensor,
 # Flash attention (causal, GQA) and the segment outer product
 # ---------------------------------------------------------------------------
 
+#: log2(e): the kernels keep scores and log-sum-exps in log2 units
+LOG2E = 1.4426950408889634
+
+
+def _flash_logits(q: torch.Tensor, k: torch.Tensor, causal: bool,
+                  scale: float) -> torch.Tensor:
+    """Scaled scores (B, Hkv, G, Tq, Tk) in f32 of queries grouped by
+    their KV head, -inf where the causal mask hides the key (the queries
+    are the last Tq positions of the Tk stream)."""
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    qg = q.reshape(b, hkv, hq // hkv, tq, d).float()
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * scale
+    if causal:
+        qpos = torch.arange(tq, device=q.device) + (tk - tq)
+        mask = qpos[:, None] >= torch.arange(tk, device=q.device)[None, :]
+        logits = logits.masked_fill(~mask, float("-inf"))
+    return logits
+
+
+def _lse2(logits: torch.Tensor) -> torch.Tensor:
+    """Each row's log-sum-exp of ``logits`` in log2 units, keepdim; +inf
+    for a row that sees no key."""
+    lse = torch.logsumexp(logits, dim=-1, keepdim=True) * LOG2E
+    return torch.where(torch.isneginf(lse), float("inf"), lse)
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True,
                         scale: float | None = None) -> torch.Tensor:
@@ -224,37 +251,48 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     reads KV head h // (Hq / Hkv)).  The queries are the last Tq
     positions of the Tk stream."""
     b, hq, tq, d = q.shape
-    hkv, tk = k.shape[1], k.shape[2]
-    group = hq // hkv
     if scale is None:
         scale = 1.0 / (d ** 0.5)
-    qg = q.reshape(b, hkv, group, tq, d).float()
-    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * scale
-    if causal:
-        qpos = torch.arange(tq, device=q.device) + (tk - tq)
-        mask = qpos[:, None] >= torch.arange(tk, device=q.device)[None, :]
-        logits = logits.masked_fill(~mask, float("-inf"))
-    p = torch.softmax(logits, dim=-1)
+    p = torch.softmax(_flash_logits(q, k, causal, scale), dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
     return out.reshape(b, hq, tq, d).to(q.dtype)
 
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                            causal: bool = True,
+                            scale: float | None = None) -> torch.Tensor:
+    """Each query row's log-sum-exp of its scaled scores, in log2 units:
+    ``log2 sum_k 2^(s_k * scale * log2 e)`` = logsumexp(s * scale) *
+    log2 e, (B, Hq, Tq) float32; +inf for a row that sees no key (causal
+    with Tq > Tk).  The plain version of what the tensor-core forward
+    kernel saves for the backward (``csrc/flash_attention_tc.cu``), in
+    the convention of ``csrc/flash_attention_bwd.cu``'s lse buffer."""
+    b, hq, tq, d = q.shape
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    return _lse2(_flash_logits(q, k, causal, scale)).reshape(b, hq, tq)
 
 
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, o: torch.Tensor,
                             do: torch.Tensor, causal: bool = True,
-                            scale: float | None = None
+                            scale: float | None = None,
+                            lse: torch.Tensor | None = None
                             ) -> tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """The gradient of :func:`flash_attention_ref`: ``(dq, dk, dv)`` for
     the output cotangent ``do``, in float32 math, each returned in its
-    input's dtype (the plain version of ``csrc/flash_attention_bwd.cu``).
+    input's dtype (the plain version of ``csrc/flash_attention_bwd.cu``
+    and ``csrc/flash_attention_bwd_tc.cu``).
 
     ``o`` is the forward's output; ``Delta = rowsum(do * o)`` stands in
-    for ``rowsum(P * dP)``, as the kernel computes it.  A query row that
-    sees no key (causal with Tq > Tk) carries no gradient: the kernels'
-    forward gives it 0, where ``flash_attention_ref``'s softmax gives NaN
-    and autograd spreads the NaN into dk and dv."""
+    for ``rowsum(P * dP)``, as the kernels compute it.  ``lse`` (B, Hq,
+    Tq), as :func:`flash_attention_lse_ref` gives it, is used where given
+    instead of recomputing it (the tensor-core kernel takes the forward's);
+    ``P = 2^(s * scale * log2 e - lse)``.  A query row that sees no key
+    (causal with Tq > Tk) carries no gradient: the kernels' forward gives
+    it 0, where ``flash_attention_ref``'s softmax gives NaN and autograd
+    spreads the NaN into dk and dv."""
     b, hq, tq, d = q.shape
     hkv, tk = k.shape[1], k.shape[2]
     group = hq // hkv
@@ -263,14 +301,13 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     qg = q.reshape(b, hkv, group, tq, d).float()
     dog = do.reshape(b, hkv, group, tq, d).float()
     kf, vf = k.float(), v.float()
-    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, kf) * scale
-    if causal:
-        qpos = torch.arange(tq, device=q.device) + (tk - tq)
-        mask = qpos[:, None] >= torch.arange(tk, device=q.device)[None, :]
-        logits = logits.masked_fill(~mask, float("-inf"))
-    lse = torch.logsumexp(logits, dim=-1, keepdim=True)
-    seen = torch.isfinite(lse)
-    p = torch.where(seen, torch.exp(logits - lse), 0.0)
+    logits = _flash_logits(q, k, causal, scale)
+    if lse is None:
+        lse2 = _lse2(logits)
+    else:
+        lse2 = lse.float().reshape(b, hkv, group, tq, 1)
+    seen = torch.isfinite(lse2)
+    p = torch.where(seen, torch.exp2(logits * LOG2E - lse2), 0.0)
     delta = (dog * o.reshape(b, hkv, group, tq, d).float()).sum(
         -1, keepdim=True)
     dp = torch.einsum("bhgqd,bhkd->bhgqk", dog, vf)
@@ -280,6 +317,7 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dog)
     return (dq.reshape(b, hq, tq, d).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
 
 def segment_outer_ref(msg: torch.Tensor, basis: torch.Tensor,
                       dst: torch.Tensor, n_nodes: int,

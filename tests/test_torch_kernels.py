@@ -305,7 +305,7 @@ def test_ops_route_cpu_tensors_to_plain_versions():
         "searchsorted_segments", "bitset_member_mask", "bitset_member_count",
         "tile_member_mask", "intersect_count", "bitset_intersect_count",
         "flash_attention_tc", "flash_attention_mma", "flash_attention_bwd",
-        "segment_outer"}
+        "flash_attention_bwd_tc", "segment_outer"}
     assert not any(build.LAUNCHES.values())
 
 
@@ -351,7 +351,8 @@ def test_ctypes_signatures_match_c_entry_points():
     assert {p.name for p in build.sources()} == {
         "searchsorted.cu", "bitset_member.cu", "intersect.cu",
         "bitset_intersect.cu", "flash_attention.cu", "flash_attention_tc.cu",
-        "flash_attention_bwd.cu", "segment_outer.cu"}
+        "flash_attention_bwd.cu", "flash_attention_bwd_tc.cu",
+        "segment_outer.cu"}
     assert found == {k: len(v) for k, v in build.SIGNATURES.items()}
     # the mask form takes the per-row valid-lane count (a pointer, null
     # for every lane) after the candidates
