@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases kernels,join,serve,dist,lm,train]
+    python3 chip_smoke.py [--phases kernels,join,serve,dist,lm,train,gnn]
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
 kernel against its plain PyTorch version at the main path's shapes
@@ -157,7 +157,29 @@ kernels' launch counters set to 0 just before it and read just after:
   copies (stablelm-3b's dense layer, granite's MoE FFN; 2^-5 of each
   leaf's largest gradient); and the data-parallel and compressed train
   steps over a world-size-1 NCCL group on the tiny model of
-  ``tests/test_fault_tolerance.py``, to its convergence criteria.
+  ``tests/test_fault_tolerance.py``, to its convergence criteria;
+* ``gnn``: GatedGCN (16 layers x 70), PNA (4 x 75), EGNN (4 x 64) and
+  MACE (2 layers, 128 channels, l_max 2, correlation 3) trained in
+  float32 through ``Trainer.run`` at the JAX package's launcher scale (6
+  steps, AdamW lr 3e-4, on one fixed graph of 100,000 nodes and
+  1,600,000 directed edges moved to the card once): losses and
+  gradient norms finite, every parameter leaf the loss reaches moved,
+  step seconds, edges per second, peak memory, and one more step
+  profiled (device time of the gathers, the scatters, the GEMMs and the
+  rest, and the idle share); each model at full width on a 2,048-node
+  graph, 8 card runs against the port's CPU path (loss, outputs and
+  every gradient leaf within 1e-4 of its largest |want|; GatedGCN's
+  gradients within 1e-2, where a ReLU input within rounding of 0 moves a
+  whole edge term with the order of the card's atomic sums), MACE's ``loop``,
+  ``couple_chunks=16``, ``remat`` and ``shard_couple`` against
+  ``outer`` on the card (1e-5) and ``compute_bf16`` against float32
+  (2^-5); one train step on each of the JAX package's one-card GNN
+  shapes (``full_graph_sm`` for the four, ``molecule`` for EGNN and
+  MACE); and ``examples/train_gnn_wcoj_features.py`` in the port: the
+  3-cliques of an 800-node graph enumerated by ``VLFTJ`` on the card
+  (``searchsorted_segments`` launched), each node's count equal to the
+  host's, and GatedGCN's loss lower with the triangle features than
+  without.
 
 The counts are checked against counts made on the host with scipy and
 numpy alone (the cliques, 3-path and lollipops), across the two dbs
@@ -178,7 +200,8 @@ kernels against their plain versions, the join paths, the LM paths, or
 ``oracles``, the last part of the join paths alone) and then prints
 neither the ``kernels`` line nor the last line (``--phases serve`` runs
 the query server's phase alone, ``--phases dist`` distributed
-execution's, ``--phases train`` training's).
+execution's, ``--phases train`` training's, ``--phases gnn`` the
+GNNs').
 """
 from __future__ import annotations
 
@@ -277,8 +300,8 @@ OUTER_KERNELS = ("segment_outer_kernel", "segment_outer_merge_kernel",
 
 #: what a run drives, in order: the kernels against their plain versions,
 #: the join paths, the query server and its scheduler, distributed
-#: execution, the LM serving paths, LM training
-PHASES = ("kernels", "join", "serve", "dist", "lm", "train")
+#: execution, the LM serving paths, LM training, GNN training
+PHASES = ("kernels", "join", "serve", "dist", "lm", "train", "gnn")
 #: the join path's kernel functions, reported by name in count profiles
 PORT_JOIN_KERNELS = ("searchsorted_segments_kernel", "tile_member_mask_kernel",
                      "bitset_member_mask_kernel")
@@ -2945,6 +2968,422 @@ def train_phase() -> dict:
     return {"main": main["launches"], "parity": parity}
 
 
+#: the ``gnn`` phase (a): the four GNNs trained at the JAX package's
+#: launcher scale (``src/repro/launch/train.py:47-57`` without
+#: ``--reduced``): one fixed graph of 100,000 nodes and 1,600,000 directed
+#: edges, 16 features, coordinates, 4 graphs, full-width configs
+#: (``make_cfg(16, 16)``), AdamW at lr 3e-4 with warmup min(100, steps)
+GNN_NODES, GNN_EDGES, GNN_FEAT, GNN_GRAPHS = 100_000, 1_600_000, 16, 4
+GNN_STEPS, GNN_LR = 6, 3e-4
+#: (b) card against the port's CPU path at full width on a smaller graph,
+#: float32 (TF32 off): loss, outputs and every gradient leaf within
+#: ``GNN_PARITY_TOL`` of each one's largest |want| (float32 sums in other
+#: orders, the card's by atomics); MACE's switches on the card against
+#: ``outer`` within ``GNN_VARIANT_TOL``; ``compute_bf16`` against float32
+#: within ``GNN_BF16_TOL``, the ``train`` phase's bf16 convention
+GNN_PARITY_GRAPH = dict(n_nodes=2048, n_edges=16384, d_feat=16, seed=1,
+                        coords=True, n_graphs=4, n_classes=16)
+GNN_PARITY_TOL, GNN_VARIANT_TOL, GNN_BF16_TOL = 1e-4, 1e-5, 2.0 ** -5
+#: GatedGCN's gradients, whose float32 floor is above ``GNN_PARITY_TOL``:
+#: a ReLU input within rounding of 0 flips with the order of a sum, and
+#: one edge's whole term then enters or leaves a gradient element.  The
+#: card against itself with the edges reordered (the same function) gave
+#: 2.24e-3 on ``E1``, and once the card against the CPU as well; on the
+#: CPU, reordering gives 1.1e-4 with ReLU, 8.1e-6 with a smooth
+#: activation in its place, and 1.2e-14 in float64 (PERF.md, PR 24)
+GNN_GRAD_TOL = {"gatedgcn": 1e-2}
+#: card runs of each parity line: the card's atomics sum in another order
+#: each time, and the line holds the worst of them
+GNN_PARITY_REPEATS = 8
+GNN_MACE_VARIANTS = {"loop": dict(a_basis_mode="loop"),
+                     "couple_chunks_16": dict(couple_chunks=16),
+                     "remat": dict(remat=True),
+                     "shard_couple": dict(shard_couple=True)}
+#: (c) the JAX package's one-card GNN shapes, one train step each; edges
+#: are padded to a multiple of 512 as ``GNNArch._batch_abs`` pads them
+GNN_SHAPE_RUNS = (("full_graph_sm", ("gatedgcn", "pna", "egnn", "mace")),
+                  ("molecule", ("egnn", "mace")))
+#: (d) ``examples/train_gnn_wcoj_features.py``: triangle counts from the
+#: join as GatedGCN features on ``powerlaw_cluster(800, 4, seed=0)``
+WCOJ_NODES, WCOJ_M, WCOJ_STEPS = 800, 4, 60
+
+
+def gnn_archs() -> tuple:
+    from repro_torch.configs import EGNN, GATEDGCN, MACE, PNA
+    return GATEDGCN, PNA, EGNN, MACE
+
+
+def gnn_kernel_group(name: str) -> str:
+    """A GNN step's device kernels by part, read off PyTorch's kernel
+    names: the gathers (``index_select``, ``h[src]``: the vectorized
+    gather, ``indexSelect*``, and the scatter-gather kernel in its gather
+    form, ``internal_kernel<false``, which rows of other than 16-byte
+    multiples take), the scatters (``index_add_`` and ``index_reduce``,
+    ``indexFunc*``: the message sums and maxima and the gathers'
+    backward; the scatter-gather kernel's scatter form), the GEMMs, the
+    rest (elementwise work, reductions, norms, the optimizer)."""
+    low = name.lower()
+    if "_scatter_gather" in low:
+        return "gather" if "internal_kernel<false" in low else "scatter"
+    if "vectorized_gather" in low or "indexselect" in low:
+        return "gather"
+    if "indexfunc" in low:
+        return "scatter"
+    return "gemm" if is_gemm(name) else "other"
+
+
+def gnn_train(arch, g) -> dict:
+    """(a) ``arch`` at full width through ``Trainer.run``: ``GNN_STEPS``
+    steps of the loss closed over the launcher's graph ``g`` (on the card
+    already), then one more step by hand, profiled (its gradient and its
+    AdamW update).  Holds finite losses and gradient norms, and that
+    every parameter leaf moved but those the loss does not reach (zero
+    gradient and zero values, such as the last EGNN layer's coordinate
+    MLP biases: the energy reads no coordinates), which are named."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.train import (OptimizerConfig, Trainer, adamw_update,
+                                   value_and_grad)
+    from repro_torch.train.tree import flatten_with_paths, unflatten
+    t0 = time.perf_counter()
+    cfg = arch.make_cfg(GNN_FEAT, 16)
+    params = arch.init_fn(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), device="cuda")
+    paths, before = flatten_with_paths(params)
+    before = [p.clone() for p in before]
+    opt = OptimizerConfig(lr=GNN_LR, warmup_steps=min(100, GNN_STEPS),
+                          total_steps=GNN_STEPS)
+    lf = lambda p, b: arch.loss_fn(p, g, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(lf, params, opt, lambda step: {"step": np.zeros(1)},
+                      device="cuda")
+    hist = trainer.run(GNN_STEPS, log_every=1, resume="none")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in hist]
+    norms = [h["grad_norm"] for h in hist]
+    need(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+         f"gnn {arch.arch_id}: a loss or gradient norm is not finite: "
+         f"{hist}")
+    walls = [h["wall"] for h in hist]
+    step_s = [b - a for a, b in zip([0.0] + walls, walls)]
+    steady = float(np.median(step_s[1:]))
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, grads = value_and_grad(lf, trainer.params, None)
+        adamw_update(trainer.params, unflatten(trainer.params, grads),
+                     trainer.opt_state, opt)
+        torch.cuda.synchronize()
+    unreached = [p for p, gr in zip(paths, grads) if not bool(gr.any())]
+    still = [p for p, a, b in zip(paths, flatten_with_paths(
+        trainer.params)[1], before) if not bool((a != b).any())]
+    need(set(still) <= set(unreached),
+         f"gnn {arch.arch_id}: leaves the loss reaches did not move: "
+         f"{sorted(set(still) - set(unreached))}")
+    parts = device_groups(prof, gnn_kernel_group)
+    busy = sum(parts.values())
+    top = sorted(device_groups(prof, lambda k: k).items(),
+                 key=lambda kv: -kv[1])[:10]
+    out = dict(
+        path="gnn train", model=arch.arch_id, cfg=str(cfg),
+        n_params=sum(p.numel() for p in before), nodes=g.n_nodes,
+        edges=g.n_edges, graphs=g.n_graphs, steps=GNN_STEPS, lr=GNN_LR,
+        reduced=None, loss=losses, grad_norm=norms, step_s=step_s,
+        steady_step_s=steady, edges_per_s=g.n_edges / steady,
+        peak_bytes=peak, peak_gb=peak / 1e9, leaves=len(paths),
+        leaves_not_moved=still, leaves_without_gradient=unreached,
+        profile=dict(device_busy_s=busy, device_s=parts,
+                     share={k: v / busy for k, v in parts.items()},
+                     idle_share=1 - busy / steady,
+                     idle_note="1 - the profiled step's device time over "
+                               "the median unprofiled step",
+                     top_kernels=[dict(kernel=k[:200], s=s,
+                                       group=gnn_kernel_group(k))
+                                  for k, s in top]),
+        seconds=time.perf_counter() - t0)
+    log(json.dumps(out))
+    del trainer, params, before, grads, prof
+    torch.cuda.empty_cache()
+    return out
+
+
+def gnn_outputs(arch, params, g, cfg) -> list:
+    """What ``arch``'s forward returns, as a list of tensors: logits,
+    EGNN's ``(h, x)``, MACE's irrep state."""
+    from repro_torch.models import gnn
+    fwd = {"gatedgcn": gnn.gatedgcn_forward, "pna": gnn.pna_forward,
+           "egnn": gnn.egnn_forward, "mace": gnn.mace_forward}[arch.arch_id]
+    out = fwd(params, g, cfg)
+    return list(out) if isinstance(out, tuple) else [out]
+
+
+def gnn_grads(arch, params, g, cfg) -> tuple:
+    """``(loss, outputs, gradient leaves)`` of ``arch`` on ``g``."""
+    import torch
+    from repro_torch.train import value_and_grad
+    loss, grads = value_and_grad(lambda p, _: arch.loss_fn(p, g, cfg),
+                                 params, None)
+    with torch.no_grad():
+        outs = gnn_outputs(arch, params, g, cfg)
+    return loss, outs, grads
+
+
+def norm_err(got, want) -> float:
+    """||got - want|| over ||want|| (Frobenius, in float64)."""
+    want = want.double()
+    return float((got.double() - want).norm()
+                 / want.norm().clamp(min=1e-300))
+
+
+def gnn_errs(got: tuple, want: tuple, paths: list) -> dict:
+    """Each part's error relative to its largest |want|: the loss, the
+    largest over the outputs, and over the gradient leaves the largest
+    (with its leaf), and the largest norm error (``norm_err``)."""
+    (lg, og, gg), (lw, ow, gw) = got, want
+    grad_errs = [rel_err(a.cpu(), b.cpu()) for a, b in zip(gg, gw)]
+    worst = int(np.argmax(grad_errs))
+    return dict(loss=rel_err(lg.cpu().reshape(1), lw.cpu().reshape(1)),
+                outputs=max(rel_err(a.cpu(), b.cpu())
+                            for a, b in zip(og, ow)),
+                grads=grad_errs[worst], worst_leaf=paths[worst],
+                grads_norm=max(norm_err(a.cpu(), b.cpu())
+                               for a, b in zip(gg, gw)))
+
+
+def gnn_parity(arch) -> dict:
+    """(b) ``arch`` at full width in float32 on ``GNN_PARITY_GRAPH``: the
+    card against the port's CPU path on the same parameters; for MACE
+    also its switches on the card against ``outer`` and ``compute_bf16``
+    against float32.  ``reordered`` is the float32 floor: the same
+    computation with the edges in another order (the same function),
+    on the card against the card and on the CPU against the CPU."""
+    import dataclasses
+    import torch
+    from repro_torch.models.gnn import random_graph_batch
+    from repro_torch.train.tree import flatten_with_paths, tree_map
+    t0 = time.perf_counter()
+    g = random_graph_batch(**GNN_PARITY_GRAPH)
+    perm = np.random.default_rng(SEED).permutation(g.n_edges)
+    gp = dataclasses.replace(g, src=g.src[perm], dst=g.dst[perm])
+    gc = g.to("cuda")
+    cfg = arch.make_cfg(GNN_PARITY_GRAPH["d_feat"], 16)
+    cpu = arch.init_fn(cfg, torch.Generator().manual_seed(SEED),
+                       device="cpu")
+    paths = flatten_with_paths(cpu)[0]
+    card = tree_map(lambda t: t.to("cuda"), cpu)
+    want = gnn_grads(arch, cpu, g, cfg)
+    runs = [gnn_errs(gnn_grads(arch, card, gc, cfg), want, paths)
+            for _ in range(GNN_PARITY_REPEATS)]
+    errs = max(runs, key=lambda e: (e["grads"], e["outputs"], e["loss"]))
+    base = gnn_grads(arch, card, gc, cfg)
+    reordered = dict(
+        card=gnn_errs(gnn_grads(arch, card, gp.to("cuda"), cfg), base,
+                      paths),
+        cpu=gnn_errs(gnn_grads(arch, cpu, gp, cfg), want, paths))
+    grad_tol = GNN_GRAD_TOL.get(arch.arch_id, GNN_PARITY_TOL)
+    out = dict(path="gnn parity", model=arch.arch_id,
+               graph=GNN_PARITY_GRAPH, repeats=GNN_PARITY_REPEATS,
+               card_vs_cpu=errs,
+               card_vs_cpu_grads_by_run=[e["grads"] for e in runs],
+               tolerance=GNN_PARITY_TOL, grad_tolerance=grad_tol,
+               reordered=reordered)
+    log(json.dumps(out))
+    need(max(errs["loss"], errs["outputs"]) <= GNN_PARITY_TOL
+         and errs["grads"] <= grad_tol,
+         f"gnn parity {arch.arch_id}: card against CPU {errs}, tolerance "
+         f"{GNN_PARITY_TOL} (gradients {grad_tol})")
+    if arch.arch_id == "mace":
+        out = dict(path="gnn parity mace switches", variants_vs_outer={})
+        for name, over in GNN_MACE_VARIANTS.items():
+            out["variants_vs_outer"][name] = gnn_errs(gnn_grads(
+                arch, card, gc, dataclasses.replace(cfg, **over)), base,
+                paths)
+        out["variant_tolerance"] = GNN_VARIANT_TOL
+        out["bf16_vs_f32"] = gnn_errs(gnn_grads(arch, card, gc,
+                                                dataclasses.replace(
+                                                    cfg, compute_bf16=True)),
+                                      base, paths)
+        out["bf16_tolerance"] = GNN_BF16_TOL
+        log(json.dumps(out))
+        for name, e in out["variants_vs_outer"].items():
+            need(max(e["loss"], e["outputs"], e["grads"]) <= GNN_VARIANT_TOL,
+                 f"gnn parity mace {name}: against outer {e}, tolerance "
+                 f"{GNN_VARIANT_TOL}")
+        e = out["bf16_vs_f32"]
+        need(max(e["loss"], e["outputs"], e["grads"]) <= GNN_BF16_TOL,
+             f"gnn parity mace compute_bf16: against float32 {e}, "
+             f"tolerance {GNN_BF16_TOL}")
+    log(f"gnn parity {arch.arch_id}: {time.perf_counter() - t0:.2f} s")
+    return out
+
+
+def gnn_shape_batch(arch_id: str, shape: str, needs_coords: bool):
+    """The JAX package's ``shape`` (``GNN_SHAPES``) as a graph batch:
+    ``full_graph_sm`` one random graph of Cora's sizes (2,708 nodes,
+    10,556 undirected edges), ``molecule`` 128 random graphs of 30 nodes
+    and 64 undirected edges side by side (block-diagonal); edges padded
+    with dummy self-loops to a multiple of 512."""
+    from repro_torch.configs import GNN_SHAPES
+    from repro_torch.models.gnn import (GraphBatch, pad_graph,
+                                        random_graph_batch)
+    sh = GNN_SHAPES[shape]
+    if shape == "molecule":
+        n, b = sh["n_nodes"], sh["batch"]
+        mols = [random_graph_batch(n, 2 * sh["n_edges"], sh["d_feat"],
+                                   seed=SEED + i, coords=True, n_classes=16)
+                for i in range(b)]
+        cat = lambda f: np.concatenate([getattr(m, f) for m in mols])
+        off = np.repeat(np.arange(b, dtype=np.int32) * n, 2 * sh["n_edges"])
+        g = GraphBatch(src=cat("src") + off, dst=cat("dst") + off,
+                       n_nodes=n * b, node_feat=cat("node_feat"),
+                       coords=cat("coords"),
+                       graph_id=np.repeat(np.arange(b, dtype=np.int32), n),
+                       n_graphs=b, labels=cat("labels"))
+    else:
+        g = random_graph_batch(sh["n_nodes"], 2 * sh["n_edges"],
+                               sh["d_feat"], seed=SEED, coords=needs_coords,
+                               n_classes=16)
+    return pad_graph(g, g.n_nodes, -(-g.n_edges // 512) * 512)
+
+
+def gnn_shapes() -> list:
+    """(c) one train step of each model on each of its shapes: the loss
+    and the gradient norm finite."""
+    import torch
+    from repro_torch.train import OptimizerConfig, Trainer
+    archs = {a.arch_id: a for a in gnn_archs()}
+    out = []
+    for shape, ids in GNN_SHAPE_RUNS:
+        for arch_id in ids:
+            t0 = time.perf_counter()
+            arch = archs[arch_id]
+            g = gnn_shape_batch(arch_id, shape, arch.needs_coords).to("cuda")
+            cfg = arch.make_cfg(g.node_feat.shape[1], 16)
+            params = arch.init_fn(cfg, torch.Generator(
+                device="cuda").manual_seed(SEED), device="cuda")
+            torch.cuda.reset_peak_memory_stats()
+            tr = Trainer(lambda p, b: arch.loss_fn(p, g, cfg), params,
+                         OptimizerConfig(lr=GNN_LR, warmup_steps=1,
+                                         total_steps=1),
+                         lambda step: {"step": np.zeros(1)}, device="cuda")
+            h = tr.run(1, log_every=1, resume="none")[0]
+            need(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]),
+                 f"gnn shape {shape} {arch_id}: {h}")
+            line = dict(path="gnn shape", shape=shape, model=arch_id,
+                        nodes=g.n_nodes, edges=g.n_edges, graphs=g.n_graphs,
+                        d_feat=g.node_feat.shape[1], loss=h["loss"],
+                        grad_norm=h["grad_norm"], step_s=h["wall"],
+                        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                        seconds=time.perf_counter() - t0)
+            log(json.dumps(line))
+            out.append(line)
+    return out
+
+
+def triangles_per_node(csr) -> np.ndarray:
+    """Each node's triangles on the host, diag(A³) / 2 with scipy."""
+    import scipy.sparse as sp
+    n = csr.n_nodes
+    a = sp.csr_matrix((np.ones(csr.indices.shape[0], dtype=np.int64),
+                       csr.indices, csr.indptr), shape=(n, n))
+    return np.asarray(a.multiply(a @ a).sum(axis=1)).ravel() // 2
+
+
+def gnn_wcoj(T) -> dict:
+    """(d) ``examples/train_gnn_wcoj_features.py`` in the port: the
+    3-cliques of ``powerlaw_cluster(800, 4, seed=0)`` enumerated by
+    ``VLFTJ`` on the card (its launches counted), each node's count
+    equal to the host's, then GatedGCN (3 x 32) trained ``WCOJ_STEPS``
+    steps without and with ``log1p(triangles)`` as a feature; the loss
+    with it must be lower.  Returns the enumeration's launches."""
+    import torch
+    from repro_torch.graphs import powerlaw_cluster
+    from repro_torch.kernels import build
+    from repro_torch.models.gnn import GraphBatch
+    from repro_torch.models.gnn.gatedgcn import (GatedGCNConfig,
+                                                 gatedgcn_loss,
+                                                 init_gatedgcn)
+    from repro_torch.train import OptimizerConfig, Trainer
+    t0 = time.perf_counter()
+    g = powerlaw_cluster(n=WCOJ_NODES, m_per_node=WCOJ_M, seed=0)
+    gdb = T.GraphDB(g, {}, device="cuda")
+    build.reset_launches()
+    tris = T.VLFTJ(T.get_query("3-clique"), gdb).enumerate()
+    launches = dict(build.LAUNCHES)
+    tri = np.zeros(g.n_nodes, np.float32)
+    np.add.at(tri, tris.ravel(), 1.0)
+    host = triangles_per_node(g)
+    need(np.array_equal(tri, host.astype(np.float32)),
+         "gnn wcoj: per-node triangle counts differ from the host's")
+    rng = np.random.default_rng(0)
+    labels = (tri > np.median(tri)).astype(np.int32)
+    base = rng.standard_normal((g.n_nodes, 8)).astype(np.float32)
+    ea = g.edge_array()
+
+    def final_loss(with_wcoj: bool) -> float:
+        feat = np.concatenate([base] + ([np.log1p(tri)[:, None]]
+                                        if with_wcoj else []), 1)
+        batch = GraphBatch(src=ea[:, 0], dst=ea[:, 1], n_nodes=g.n_nodes,
+                           node_feat=feat, labels=labels).to("cuda")
+        cfg = GatedGCNConfig(n_layers=3, d_hidden=32, d_in=feat.shape[1],
+                             n_classes=2)
+        tr = Trainer(
+            lambda p, b: gatedgcn_loss(p, batch, cfg),
+            init_gatedgcn(cfg, torch.Generator(device="cuda").manual_seed(0),
+                          device="cuda"),
+            OptimizerConfig(lr=3e-3, warmup_steps=10,
+                            total_steps=WCOJ_STEPS),
+            lambda step: {"_": np.zeros(1)}, device="cuda")
+        return tr.run(WCOJ_STEPS, log_every=WCOJ_STEPS)[-1]["loss"]
+
+    plain, wcoj = final_loss(False), final_loss(True)
+    need(wcoj < plain, f"gnn wcoj: the triangle features did not lower "
+         f"the loss ({wcoj} against {plain})")
+    out = dict(path="gnn wcoj", nodes=g.n_nodes, edges=g.n_edges,
+               triangles=int(tris.shape[0]), max_per_node=int(tri.max()),
+               loss_without=plain, loss_with=wcoj, steps=WCOJ_STEPS,
+               launches=launches, seconds=time.perf_counter() - t0)
+    log(json.dumps(out))
+    return out
+
+
+def gnn_phase(T) -> dict:
+    """(a)-(d) of the ``gnn`` phase, float32 with TF32 off; returns (d)'s
+    launches."""
+    import torch
+    from repro_torch.models.gnn import random_graph_batch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    g = random_graph_batch(GNN_NODES, GNN_EDGES, GNN_FEAT, seed=SEED,
+                           coords=True, n_graphs=GNN_GRAPHS).to("cuda")
+    log(f"gnn graph: {g.n_nodes} nodes, {g.n_edges} directed edges "
+        f"({time.perf_counter() - t0:.2f} s); "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated on the "
+        "card with it")
+    for arch in gnn_archs():
+        t0 = time.perf_counter()
+        gnn_train(arch, g)
+        log(f"gnn train {arch.arch_id}: {time.perf_counter() - t0:.2f} s")
+    del g
+    torch.cuda.empty_cache()
+    failed = []
+    for arch in gnn_archs():
+        try:
+            gnn_parity(arch)
+        except SmokeFailure as e:
+            failed.append(str(e))
+            log(f"FAILED: {e}")
+    t0 = time.perf_counter()
+    gnn_shapes()
+    log(f"gnn shapes: {time.perf_counter() - t0:.2f} s")
+    launches = gnn_wcoj(T)["launches"]
+    need(not failed, "; ".join(failed))
+    return launches
+
+
 def main_path(T, dbs):
     """``count(engine="auto")`` of the six shapes on both dbs, with the
     kernels' launch counters set to 0 just before and read just after."""
@@ -4350,7 +4789,10 @@ def main(argv=None) -> int:
                          "MoE FFN against float32 and runs moe_ffn over "
                          "NCCL; train trains stablelm-3b at full width "
                          "and depth and runs the resume, parity, bf16 "
-                         "gradient and compressed-step checks")
+                         "gradient and compressed-step checks; gnn trains "
+                         "GatedGCN, PNA, EGNN and MACE at the launcher's "
+                         "scale and runs their parity, shape and WCOJ "
+                         "feature checks")
     phases = ap.parse_args(argv).phases.split(",")
     if not set(phases) <= set(PHASES + ("oracles",)):
         ap.error(f"--phases takes {', '.join(PHASES)} or oracles (the "
@@ -4508,6 +4950,15 @@ def run_phases(T, phases, smi: str, workers: dict) -> int:
         log(f"train: {time.perf_counter() - t0:.2f} s, launches of the "
             f"main path {train_launches['main']}, of the float32 parity "
             f"steps {train_launches['parity']}")
+
+    if "gnn" in phases:
+        t0 = time.perf_counter()
+        gnn_launches = gnn_phase(T)
+        log(f"gnn: {time.perf_counter() - t0:.2f} s, launches of the WCOJ "
+            f"feature enumeration {gnn_launches}")
+        need(gnn_launches["searchsorted_segments"] > 0,
+             "the WCOJ feature enumeration never launched "
+             "searchsorted_segments")
 
     if phases != list(PHASES):
         log(f"partial run of {phases}: every check passed")

@@ -14,6 +14,7 @@ import torch
 from .core.device_graph import GraphDB, HybridGraphDB
 from .core.plan import HybridPlan, JoinPlan
 from .core.query import Query, parse
+from .device import resolve_device
 from .graphs.csr import CSRGraph
 from .graphs.layout import HybridLayout
 
@@ -129,3 +130,22 @@ def opt_state_from_numpy(state: dict, cfg, *, device: torch.device | str
                for key in ("m", "v")}
     return {**moments, "step": torch.tensor(
         int(np.asarray(state["step"])), dtype=torch.int32, device=device)}
+
+
+def gnn_params_from_numpy(params, *, device: torch.device | str = "cuda"):
+    """The port's GNN parameters from the JAX package's
+    (``jax.tree.map(np.asarray, params)`` of ``init_gatedgcn``,
+    ``init_pna``, ``init_egnn`` or ``init_mace``): the same tree of
+    dicts and lists (EGNN's and MACE's ``"layers"`` stay lists), each
+    leaf a tensor of its dtype and shape on ``device``.  Raises without
+    a card unless ``device`` is the CPU."""
+    dev = resolve_device(device, "gnn_params_from_numpy")
+
+    def convert(node):
+        if isinstance(node, dict):
+            return {k: convert(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [convert(v) for v in node]
+        return torch.from_numpy(np.array(node)).to(dev)
+
+    return convert(params)

@@ -86,6 +86,22 @@ class CSRGraph:
         r.name = name
         return r
 
+    def padded_neighbors(self, pad_to: int | None = None,
+                         fill: int = -1) -> tuple[np.ndarray, np.ndarray]:
+        """Dense (n, max_deg) neighbor matrix + mask (GNN/vec-join tiles)."""
+        d = self.degrees
+        width = int(pad_to if pad_to is not None else self.max_degree)
+        out = np.full((self.n_nodes, width), fill, dtype=np.int64)
+        mask = np.zeros((self.n_nodes, width), dtype=bool)
+        cols = np.arange(width)
+        valid = cols[None, :] < np.minimum(d[:, None], width)
+        flat = np.clip(self.indptr[:-1, None] + cols[None, :], 0,
+                       max(0, self.indices.shape[0] - 1))
+        if self.indices.shape[0]:
+            out[valid] = self.indices[flat[valid]]
+        mask[valid] = True
+        return out, mask
+
 
 def degrees_from_indptr(indptr: np.ndarray) -> np.ndarray:
     """Degrees of a CSR row-pointer array — the one place the

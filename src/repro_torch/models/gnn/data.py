@@ -1,0 +1,212 @@
+"""Graph batch container shared by every GNN, and the scatters that pass
+its messages: the port of ``repro.models.gnn.data``.
+
+Edges are stored COO (src, dst).  ``GraphBatch``, :func:`pad_graph` and
+:func:`random_graph_batch` are numpy, and give the JAX package's arrays
+bit for bit; :meth:`GraphBatch.to` moves a batch's arrays to a device
+once, so that a training step over one fixed graph copies nothing from
+the host.
+
+The scatters keep ``jax.ops.segment_*``'s semantics, which torch's
+defaults do not:
+
+* an id outside ``[0, n)`` is dropped (``index_add_`` would raise): such
+  ids go to a spare row ``n`` that the result leaves out;
+* an empty segment's max is ``-inf`` and its min ``+inf`` (``index_reduce``
+  onto a ``-inf`` base; ``scatter_reduce(include_self=False)`` would leave
+  its base there);
+* the gradient of a max is split evenly among tied entries, as in JAX.
+
+On the card ``index_add_`` sums with float atomics, so its results are
+not bitwise repeatable.  A gather ``h[idx]`` is :func:`gather`, which
+reads ids as JAX indexing does: negative ids wrap once, then every id
+clamps into ``[0, n)``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Any
+
+import numpy as np
+import torch
+
+from ...device import resolve_device
+
+
+@dataclass
+class GraphBatch:
+    """COO graph (optionally a batch of graphs flattened with offsets)."""
+
+    src: Any          # (E,) int32
+    dst: Any          # (E,) int32
+    n_nodes: int
+    node_feat: Any = None       # (N, F)
+    edge_feat: Any = None       # (E, Fe)
+    coords: Any = None          # (N, 3) for equivariant models
+    graph_id: Any = None        # (N,) int32 graph membership (batched mols)
+    n_graphs: int = 1
+    labels: Any = None
+
+    @property
+    def n_edges(self) -> int:
+        return int(self.src.shape[0])
+
+    def to(self, device: torch.device | str = "cuda") -> "GraphBatch":
+        """A copy whose arrays are tensors on ``device`` (ids as int64,
+        floats as float32, labels as they are), moved once; ``None``
+        stays ``None``.  Raises without a card unless ``device`` is the
+        CPU."""
+        dev = resolve_device(device, "GraphBatch.to")
+
+        def move(x, dtype=None):
+            if x is None:
+                return None
+            t = x if isinstance(x, torch.Tensor) else torch.as_tensor(
+                np.asarray(x))
+            return t.to(device=dev, dtype=dtype or t.dtype)
+
+        return replace(
+            self, src=move(self.src, torch.int64),
+            dst=move(self.dst, torch.int64),
+            node_feat=move(self.node_feat, torch.float32),
+            edge_feat=move(self.edge_feat, torch.float32),
+            coords=move(self.coords, torch.float32),
+            graph_id=move(self.graph_id, torch.int64),
+            labels=move(self.labels))
+
+
+def pad_graph(g: GraphBatch, n_nodes: int, n_edges: int) -> GraphBatch:
+    """Pad to static sizes; padded edges self-loop onto a dummy node."""
+    def pad_to(x, n, fill=0):
+        if x is None:
+            return None
+        pad = [(0, n - x.shape[0])] + [(0, 0)] * (x.ndim - 1)
+        return np.pad(np.asarray(x), pad, constant_values=fill)
+
+    dummy = n_nodes - 1
+    src = pad_to(g.src, n_edges, dummy)
+    dst = pad_to(g.dst, n_edges, dummy)
+    return GraphBatch(
+        src=src, dst=dst, n_nodes=n_nodes,
+        node_feat=pad_to(g.node_feat, n_nodes),
+        edge_feat=pad_to(g.edge_feat, n_edges),
+        coords=pad_to(g.coords, n_nodes),
+        graph_id=pad_to(g.graph_id, n_nodes, g.n_graphs - 1),
+        n_graphs=g.n_graphs, labels=g.labels)
+
+
+def random_graph_batch(n_nodes: int, n_edges: int, d_feat: int,
+                       seed: int = 0, coords: bool = False,
+                       d_edge: int = 0, n_graphs: int = 1,
+                       n_classes: int = 8) -> GraphBatch:
+    """Deterministic synthetic graph batch (symmetrized COO)."""
+    rng = np.random.default_rng(seed)
+    half = n_edges // 2
+    s = rng.integers(0, n_nodes, half).astype(np.int32)
+    d = rng.integers(0, n_nodes, half).astype(np.int32)
+    src = np.concatenate([s, d])
+    dst = np.concatenate([d, s])
+    g = GraphBatch(
+        src=src, dst=dst, n_nodes=n_nodes,
+        node_feat=rng.standard_normal((n_nodes, d_feat)).astype(np.float32),
+        edge_feat=(rng.standard_normal((src.shape[0], d_edge))
+                   .astype(np.float32) if d_edge else None),
+        coords=(rng.standard_normal((n_nodes, 3)).astype(np.float32)
+                if coords else None),
+        graph_id=np.sort(rng.integers(0, n_graphs, n_nodes)
+                         ).astype(np.int32),
+        n_graphs=n_graphs,
+        labels=rng.integers(0, n_classes, n_nodes).astype(np.int32))
+    return g
+
+
+def as_tensor(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``x`` (numpy or a tensor) as a ``dtype`` tensor on ``device``.  A
+    tensor on another device raises: a batch on the card never quietly
+    goes to the CPU, nor the other way."""
+    if isinstance(x, torch.Tensor):
+        if x.device != device:
+            raise ValueError(f"a GNN batch tensor is on {x.device}, the "
+                             f"parameters on {device}; move the batch "
+                             "with GraphBatch.to")
+        return x.to(dtype)
+    return torch.as_tensor(np.asarray(x), device=device).to(dtype)
+
+
+def edge_ids(g: GraphBatch, device: torch.device):
+    """``(src, dst)`` of ``g`` as int64 tensors on ``device``."""
+    return (as_tensor(g.src, torch.int64, device),
+            as_tensor(g.dst, torch.int64, device))
+
+
+def graph_ids(g: GraphBatch, device: torch.device) -> torch.Tensor:
+    """Each node's graph (all 0 without ``graph_id``), int64."""
+    if g.graph_id is None:
+        return torch.zeros(g.n_nodes, dtype=torch.int64, device=device)
+    return as_tensor(g.graph_id, torch.int64, device)
+
+
+def gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` along the first axis as JAX indexes: a negative id
+    wraps once, then ids clamp into ``[0, len(x))``.  Its gradient is an
+    ``index_add_`` (``index_select``'s backward)."""
+    n = x.shape[0]
+    idx = torch.where(idx < 0, idx + n, idx).clamp_(0, n - 1)
+    return x.index_select(0, idx)
+
+
+def _segments(dst, n: int, msg: torch.Tensor) -> tuple:
+    """``dst`` as int64 ids on ``msg``'s device, every id outside ``[0,
+    n)`` sent to the spare row ``n``, and ``msg`` broadcast to one row an
+    id (a single row serves every id, as in ``jax.ops.segment_*``)."""
+    ids = as_tensor(dst, torch.int64, msg.device)
+    msg = msg.expand((ids.shape[0],) + tuple(msg.shape[1:]))
+    return torch.where((ids >= 0) & (ids < n), ids, n), msg
+
+
+def scatter_sum(msg: torch.Tensor, dst, n_nodes: int) -> torch.Tensor:
+    """``jax.ops.segment_sum(msg, dst, num_segments=n_nodes)``."""
+    ids, msg = _segments(dst, n_nodes, msg)
+    out = msg.new_zeros((n_nodes + 1,) + tuple(msg.shape[1:]))
+    return out.index_add(0, ids, msg)[:n_nodes]
+
+
+def scatter_max(msg: torch.Tensor, dst, n_nodes: int) -> torch.Tensor:
+    """``jax.ops.segment_max``: ``-inf`` where a segment is empty."""
+    ids, msg = _segments(dst, n_nodes, msg)
+    base = msg.new_full((n_nodes + 1,) + tuple(msg.shape[1:]),
+                        float("-inf"))
+    return base.index_reduce(0, ids, msg, "amax",
+                             include_self=True)[:n_nodes]
+
+
+def scatter_min(msg: torch.Tensor, dst, n_nodes: int) -> torch.Tensor:
+    """``-segment_max(-msg)``: ``+inf`` where a segment is empty."""
+    return -scatter_max(-msg, dst, n_nodes)
+
+
+def scatter_mean(msg: torch.Tensor, dst, n_nodes: int,
+                 eps: float = 1e-9) -> torch.Tensor:
+    s = scatter_sum(msg, dst, n_nodes)
+    cnt = scatter_sum(torch.ones_like(msg[..., :1]), dst, n_nodes)
+    return s / (cnt + eps)
+
+
+def node_nll(logits: torch.Tensor, labels) -> torch.Tensor:
+    """The mean over nodes of ``-log_softmax(logits)[label]``; a label
+    outside the classes picks nothing (0), as the JAX package's iota
+    compare does."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    lab = as_tensor(labels, torch.int64, logits.device)
+    c = logp.shape[-1]
+    inside = (lab >= 0) & (lab < c)
+    pick = logp.gather(-1, lab.clamp(0, c - 1)[:, None])[:, 0]
+    return -torch.where(inside, pick, 0.0).mean()
+
+
+def graph_mse(e: torch.Tensor, labels) -> torch.Tensor:
+    """``mean((e - target[:, :n_out]) ** 2)`` with the labels as float32
+    reshaped to one row a graph, as EGNN's and MACE's losses take them."""
+    target = as_tensor(labels, torch.float32, e.device).reshape(
+        e.shape[0], -1)
+    return ((e - target[:, :e.shape[1]]) ** 2).mean()

@@ -60,7 +60,13 @@ def test_importing_every_port_module_imports_no_jax():
             "repro_torch.train.optimizer", "repro_torch.train.loop",
             "repro_torch.train.checkpoint", "repro_torch.train.tree",
             "repro_torch.data", "repro_torch.data.pipeline",
-            "repro_torch.dist.compressed_step"} <= set(mods)
+            "repro_torch.dist.compressed_step",
+            "repro_torch.graphs.sampling", "repro_torch.models.gnn",
+            "repro_torch.models.gnn.data", "repro_torch.models.gnn.gatedgcn",
+            "repro_torch.models.gnn.pna", "repro_torch.models.gnn.egnn",
+            "repro_torch.models.gnn.mace", "repro_torch.configs.gatedgcn",
+            "repro_torch.configs.pna", "repro_torch.configs.egnn",
+            "repro_torch.configs.mace"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -210,3 +216,41 @@ def test_default_device_is_the_card_for_training(monkeypatch):
     hist = tr.run(1, log_every=1)
     assert hist[0]["step"] == 1 and np.isfinite(hist[0]["loss"])
     assert tr.opt_state["m"]["wq"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("what", ["init_gatedgcn", "init_pna", "init_egnn",
+                                  "init_mace", "GraphBatch.to",
+                                  "gnn_params_from_numpy", "smoke"])
+def test_default_device_is_the_card_for_gnns(monkeypatch, what):
+    """With no card, each GNN entry point called without a device raises
+    instead of landing on the CPU; ``device='cpu'`` is the explicit
+    way."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import PNA
+    from repro_torch.convert import gnn_params_from_numpy
+    from repro_torch.models import gnn
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    inits = {"init_gatedgcn": (gnn.init_gatedgcn, gnn.GatedGCNConfig),
+             "init_pna": (gnn.init_pna, gnn.PNAConfig),
+             "init_egnn": (gnn.init_egnn, gnn.EGNNConfig),
+             "init_mace": (gnn.init_mace, gnn.MACEConfig)}
+    g = gnn.random_graph_batch(5, 4, 2)
+    tree = {"enc": np.zeros((2, 2), np.float32)}
+    if what in inits:
+        init, cfg = inits[what]
+        calls = (lambda: init(cfg()),
+                 lambda: init(cfg(), torch.Generator().manual_seed(0)))
+        cpu = lambda: init(cfg(), device="cpu")["enc"]
+    else:
+        calls = ({"GraphBatch.to": g.to,
+                  "gnn_params_from_numpy": lambda: gnn_params_from_numpy(tree),
+                  "smoke": PNA.smoke}[what],)
+        cpu = {"GraphBatch.to": lambda: g.to("cpu").src,
+               "gnn_params_from_numpy":
+                   lambda: gnn_params_from_numpy(tree, device="cpu")["enc"],
+               "smoke": lambda: torch.tensor(PNA.smoke("cpu")["loss"])}[what]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert cpu().device.type == "cpu"
