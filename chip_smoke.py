@@ -184,11 +184,11 @@ kernels' launch counters set to 0 just before it and read just after:
 The counts are checked against counts made on the host with scipy and
 numpy alone (the cliques, 3-path and lollipops), across the two dbs
 where the filters are renumbering invariant, and 3-path and the
-2-lollipop against ``engine="vlftj"``.  At 5% scale every shape but the
+2-lollipop against ``engine="vlftj"``.  At 2% scale every shape but the
 3-lollipop is enumerated on the card and on the port's plain CPU path,
 and the arrays must be identical (the CPU half runs in a child process
 beside the card paths and sends back each array's SHA-256 digest; the
-3-lollipop's 725,940,260 rows are too many to materialize; its counts
+3-lollipop's 332,926,959 rows are too many to materialize; its counts
 are compared instead).  Any failure
 raises and exits non-zero.
 
@@ -206,6 +206,7 @@ GNNs').
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -223,7 +224,9 @@ PATTERNS = {"3-clique": ("ab ac bc", "ab bc"),
             "4-clique": ("ab ac ad bc bd cd", "ab bc cd"),
             "4-cycle": ("ab bc cd da", "ab bc cd")}
 DATASET, SEED, SELECTIVITY = "soc-Slashdot0811", 0, 8.0
-SMALL_SCALE = 0.05
+# 2%: the 2-lollipop's 13.8 M rows a db (33.0 M at 5% took 60 s on the
+# card a db and pushed the whole run past 1,000 s on a slower host)
+SMALL_SCALE = 0.02
 #: shapes enumerated at SMALL_SCALE (the 3-lollipop's output is too big)
 ENUM_SHAPES = SHAPES[:-1]
 #: check_mode="auto"'s tile width on the main path, and the tile width of
@@ -368,37 +371,155 @@ def device_us(e) -> float:
                    getattr(e, "self_cuda_time_total", 0))
 
 
+# CUPTI delivers a profile window's device activity to ``torch.profiler``.
+# In one whole run of this script on an H100 it delivered none for two
+# windows in a row whose kernels had run, and the kernels phase failed; a
+# window that comes back without device activity is run again, after the
+# allocator's cached blocks are released, up to ``PROFILE_TRIES`` times.
+PROFILE_TRIES = 3
+PROFILER_EMPTY: list[str] = []
+#: profile windows ``device_ms`` takes the median of
+DEVICE_MS_WINDOWS = 3
+#: kernel -> ``device_ms`` windows that recorded fewer launches than calls
+SHORT_WINDOWS: dict[str, int] = {}
+#: the kernel ``open_window`` launches (``torch.cuda._sleep``'s)
+OPENING_KERNEL = "spin_kernel"
+
+
+def open_window() -> None:
+    """Launch one short spin kernel and wait for it, at the start of a
+    profile window.  CUPTI often leaves out the first kernel launched in
+    a window (``tools/profile_sum_cost.py``: 3 of 5 products recorded in
+    most windows without it, 4 of 5 with it); this one takes that place
+    and ``device_totals`` drops it where it is recorded."""
+    import torch
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+
+
+@dataclasses.dataclass
+class DeviceTotal:
+    """One name's device activity in a profile window, under the names
+    ``key_averages()`` gives it: launches and device microseconds."""
+    key: str
+    count: int = 0
+    self_device_time_total: float = 0.0
+
+
+def device_totals(prof) -> list:
+    """A closed profile window's device activity (kernels, copies,
+    fills) by name, summed straight from its raw Kineto events.  The same
+    sums under the same names as ``prof.key_averages()``'s device rows
+    (a raw name is demangled as ``key_averages`` demangles it), but
+    ``key_averages`` builds an event tree in Python first: 15.7 s for
+    100,000 launches, against 0.95 s here (``tools/profile_sum_cost.py``,
+    H100, torch 2.11), and a 4-cycle count launches several times
+    that.  ``open_window``'s spin kernel is left out."""
+    import torch
+    from torch.autograd import DeviceType
+    try:
+        raw = prof.profiler.kineto_results.events()
+    except AttributeError:
+        return [e for e in prof.key_averages()
+                if device_us(e) and OPENING_KERNEL not in e.key]
+    out: dict[str, DeviceTotal] = {}
+    names: dict[str, str] = {}
+    for e in raw:
+        if (e.device_type() != DeviceType.CPU
+                and OPENING_KERNEL not in e.name()):
+            name = e.name()
+            if name not in names:
+                names[name] = (torch._C._demangle(name) if len(name) > 1
+                               else name)
+            t = out.setdefault(names[name], DeviceTotal(names[name]))
+            t.count += 1
+            t.self_device_time_total += e.duration_ns() / 1e3
+    return list(out.values())
+
+
+def traced(fn, what: str) -> tuple:
+    """``(events, out)``: the device activity (``device_totals``) of one
+    call of ``fn`` under ``torch.profiler`` tracing the device only
+    (synchronized before the window closes) and what that call returned.
+    A window without device activity is retried (``PROFILE_TRIES``);
+    where every try comes back empty, ``events`` is ``[]``, ``what`` is
+    noted in ``PROFILER_EMPTY`` and the caller times with CUDA events or
+    reports "not measured"."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(PROFILE_TRIES):
+        out = None
+        if i:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            open_window()
+            out = fn()
+            torch.cuda.synchronize()
+        events = device_totals(prof)
+        if any(device_us(e) for e in events):
+            if i:
+                log(f"profiler: {what}: device activity on try {i + 1}")
+            return events, out
+        log(f"profiler: {what}: no device activity on try {i + 1}")
+    PROFILER_EMPTY.append(what)
+    return [], out
+
+
 def device_ms(fn, reps: int, kernel: str, *more: str) -> float:
     """Device time of one launch of the CUDA kernel named ``kernel`` (its
     function name in ``csrc/``), from ``torch.profiler`` over ``reps``
     calls of ``fn``: the kernel's own time, averaged over the launches
     the profiler recorded, without the host's dispatch between launches
     that ``cuda_ms`` includes when a call's host work outlasts its kernel.
-    The kernels named in ``more`` (launched with it, as a second pass)
-    add their time to it.  Fails if the profiler records no launch of
-    ``kernel``, twice, naming what it recorded on the device instead."""
+    The kernels named in ``more`` (launched with it, as a second pass,
+    once a call or never) add the mean of their recorded launches.
+    CUPTI leaves launches out of a window (often the first, sometimes
+    more: ``tools/profile_sum_cost.py``), so each kernel is averaged over
+    its own recorded launches, and the result is the median of
+    ``DEVICE_MS_WINDOWS`` windows; a window with fewer than ``reps``
+    launches of ``kernel`` is counted in ``SHORT_WINDOWS``.  Fails if the
+    profiler records device activity but no launch of ``kernel``, in
+    ``DEVICE_MS_WINDOWS + 2`` windows, naming what it recorded.  Where
+    the profiler records no device activity at all (``traced``), the
+    time is ``cuda_ms``'s: CUDA events over whole calls."""
+    import statistics
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    def named(e, names):
-        return any(f"::{k}(" in e.key or f"::{k}<" in e.key for k in names)
+    def named(e, name):
+        return f"::{name}(" in e.key or f"::{name}<" in e.key
+
+    def calls():
+        for _ in range(reps):
+            fn()
 
     fn()
     torch.cuda.synchronize()
-    seen = []
-    for _ in range(2):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-        n = sum(e.count for e in events if named(e, (kernel,)))
-        if n:
-            return sum(device_us(e) for e in events
-                       if named(e, (kernel, *more))) / 1e3 / n
-        seen.append([(e.key[:80], e.count) for e in events if device_us(e)])
-    raise SmokeFailure(f"the profiler recorded no launch of {kernel}; on "
-                       f"the device it recorded {seen}")
+    got, seen = [], []
+    for _ in range(DEVICE_MS_WINDOWS + 2):
+        events, _ = traced(calls, f"device_ms {kernel}")
+        if not events:
+            log(f"profiler: {kernel}: ms from CUDA events over whole calls")
+            return cuda_ms(fn, reps)
+        per = {}
+        for name in (kernel, *more):
+            hits = [e for e in events if named(e, name)]
+            n = sum(e.count for e in hits)
+            if n:
+                per[name] = sum(device_us(e) for e in hits) / 1e3 / n
+                if name == kernel and n < reps:
+                    SHORT_WINDOWS[kernel] = SHORT_WINDOWS.get(kernel, 0) + 1
+        if kernel in per:
+            got.append(sum(per.values()))
+            if len(got) == DEVICE_MS_WINDOWS:
+                break
+        else:
+            seen.append([(e.key[:80], e.count) for e in events
+                         if device_us(e)])
+    if not got:
+        raise SmokeFailure(f"the profiler recorded no launch of {kernel}; "
+                           f"on the device it recorded {seen}")
+    return statistics.median(got)
 
 
 def level_inputs(db, rng, rows: int, hubs_only: bool,
@@ -1482,16 +1603,16 @@ def visible_pairs(tq: int, tk: int, causal: bool) -> int:
 
 def device_total_ms(fn, reps: int) -> float:
     """Device time of every kernel ``fn`` launches, per call, from
-    ``torch.profiler`` over ``reps`` calls (after one unprofiled call)."""
+    ``torch.profiler`` over ``reps`` calls (after one unprofiled call);
+    ``cuda_ms``'s where the profiler records no device activity."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(device_us(e) for e in prof.key_averages()) / 1e3 / reps
+    events, _ = traced(lambda: [fn() for _ in range(reps)],
+                       "device_total_ms")
+    if not events:
+        return cuda_ms(fn, reps)
+    return sum(device_us(e) for e in events) / 1e3 / reps
 
 
 def bwd_errs(got, want) -> list:
@@ -1983,19 +2104,20 @@ def kernel_phase_outer():
 def gpu_profile(fn, what: str) -> dict:
     """Device time of one call of ``fn`` by kernel from ``torch.profiler``
     (device only), grouped into the flash kernel, the GEMMs and the rest,
-    with the device's busy and idle share of the unprofiled wall."""
+    with the device's busy and idle share of the unprofiled wall ("not
+    measured" where the profiler records no device activity)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-
-    events = sorted(prof.key_averages(), key=device_us, reverse=True)
+    events, _ = traced(fn, what)
+    if not events:
+        return {"profile": what, "wall_s": wall, "device_busy_s": None,
+                "idle_share": None, "device_s": "not measured",
+                "share": {}}
+    events = sorted(events, key=device_us, reverse=True)
     groups = {"flash_attention": 0.0, "gemm": 0.0, "other": 0.0}
     for e in events:
         group = ("flash_attention" if "flash_attention" in e.key.lower() else
@@ -2102,7 +2224,7 @@ def is_gemm(kernel: str) -> bool:
                                   "matmul"))
 
 
-def moe_profile(params, inputs, cfg, prefill_busy_s: float) -> dict:
+def moe_profile(params, inputs, cfg, prefill_busy_s: float | None) -> dict:
     """The MoE layers' parts of one prefill's device time: every layer's
     ``_dispatch_compute`` and shared experts replayed on its recorded
     prefill input (``moe_inputs``) under ``torch.profiler`` (device
@@ -2111,9 +2233,9 @@ def moe_profile(params, inputs, cfg, prefill_busy_s: float) -> dict:
     the sorts, the slot arithmetic, both scatters); ``expert_gemms`` its
     matrix products (the three expert products and the router's logits);
     each over ``prefill_busy_s``, the prefill's device time in the
-    ``profile`` line."""
+    ``profile`` line ("not measured" where either profile recorded no
+    device activity)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.layers.moe import capacity_of
     from repro_torch.models import transformer as tfm
     moe = cfg.moe
@@ -2131,28 +2253,34 @@ def moe_profile(params, inputs, cfg, prefill_busy_s: float) -> dict:
         for x, lp in zip(inputs, layers):
             tfm.shared_experts(x, lp, cfg.act)
 
-    def device_s(fn) -> tuple[float, float]:
+    def device_s(fn, what: str) -> tuple[float, float] | None:
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
+        events, _ = traced(fn, f"moe profile {cfg.name} {what}")
+        if not events:
+            return None
         gemm = other = 0.0
-        for e in prof.key_averages():
+        for e in events:
             if is_gemm(e.key):
                 gemm += device_us(e) / 1e6
             else:
                 other += device_us(e) / 1e6
         return gemm, other
 
-    gemm, other = device_s(dispatch)
+    what = f"prefill {cfg.name} {LM_BATCH}x{LM_PROMPT}"
+    measured = [device_s(dispatch, "dispatch")]
+    if moe.n_shared_experts:
+        measured.append(device_s(shared, "shared experts"))
+    if prefill_busy_s is None or None in measured:
+        return {"moe_profile": what, "parts_s": "not measured"}
+    gemm, other = measured[0]
     parts = {"dispatch": other, "expert_gemms": gemm,
-             "shared_experts": (sum(device_s(shared))
+             "shared_experts": (sum(measured[1])
                                 if moe.n_shared_experts else 0.0)}
     need(other > 0 and gemm > 0, f"moe profile: no device time ({parts})")
     parts["rest"] = prefill_busy_s - sum(parts.values())
-    return {"moe_profile": f"prefill {cfg.name} {LM_BATCH}x{LM_PROMPT}",
-            "prefill_device_s": prefill_busy_s, "parts_s": parts,
+    return {"moe_profile": what, "prefill_device_s": prefill_busy_s,
+            "parts_s": parts,
             "share": {k: v / prefill_busy_s for k, v in parts.items()}}
 
 
@@ -2480,10 +2608,11 @@ def learnable_token_file(path: Path, vocab: int, rows: int, seq: int) -> None:
     toks.astype(np.int32).tofile(path)
 
 
-def device_groups(prof, classify) -> dict:
-    """Device seconds of a profile's kernels, summed by ``classify(name)``."""
+def device_groups(events, classify) -> dict:
+    """Device seconds of a profile's kernels (``traced``'s events), summed
+    by ``classify(name)``."""
     out = {}
-    for e in prof.key_averages():
+    for e in events:
         if device_us(e):
             key = classify(e.key)
             out[key] = out.get(key, 0.0) + device_us(e) / 1e6
@@ -2536,7 +2665,6 @@ def train_main(tmp: Path) -> dict:
     the device time by part, the GEMMs split by operand type (the ten
     GEMM kernels that took the most time listed by name)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import STABLELM_3B
     from repro_torch.data import LMTokenPipeline
     from repro_torch.kernels import build
@@ -2585,13 +2713,13 @@ def train_main(tmp: Path) -> dict:
     batch = tree_map(lambda x: torch.as_tensor(np.array(x), device="cuda"),
                      pipe.get_batch(TRAIN_STEPS))
     rows = TRAIN_BATCH // TRAIN_MICRO
-    grads_finite = True
-    with profile(activities=[ProfilerActivity.CUDA]) as prof_grad:
-        gsum = None
+
+    def mean_grads():
+        finite, gsum = True, None
         for i in range(TRAIN_MICRO):
             mb = tree_map(lambda x: x[i * rows:(i + 1) * rows], batch)
             _, grads = value_and_grad(lf, trainer.params, mb)
-            grads_finite &= all(bool(torch.isfinite(x).all()) for x in grads)
+            finite &= all(bool(torch.isfinite(x).all()) for x in grads)
             if gsum is None:
                 gsum = [x.float() for x in grads]
             else:
@@ -2600,19 +2728,33 @@ def train_main(tmp: Path) -> dict:
             del grads
         for acc in gsum:
             acc.div_(TRAIN_MICRO)
-        torch.cuda.synchronize()
+        return finite, gsum
+
+    ev_grad, (grads_finite, gsum) = traced(mean_grads, "train gradients")
     need(grads_finite, "train: a gradient leaf is not finite")
     mean = unflatten(trainer.params, gsum)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof_opt:
-        adamw_update(trainer.params, mean, trainer.opt_state, opt)
-        torch.cuda.synchronize()
-    parts = device_groups(prof_grad, train_kernel_group)
-    gemms = sorted(((s, k[:90]) for k, s in device_groups(
-        prof_grad, lambda k: k if is_gemm(k) else "").items() if k),
-        reverse=True)[:10]
-    parts["optimizer"] = sum(device_groups(prof_opt, lambda _: "o").values())
-    busy = sum(parts.values())
+    ev_opt, _ = traced(lambda: adamw_update(trainer.params, mean,
+                                            trainer.opt_state, opt),
+                       "train optimizer")
     steady = float(np.median(step_s[1:]))
+    if ev_grad and ev_opt:
+        parts = device_groups(ev_grad, train_kernel_group)
+        gemms = sorted(((s, k[:90]) for k, s in device_groups(
+            ev_grad, lambda k: k if is_gemm(k) else "").items() if k),
+            reverse=True)[:10]
+        parts["optimizer"] = sum(device_groups(ev_opt,
+                                               lambda _: "o").values())
+        busy = sum(parts.values())
+        profiled = dict(device_busy_s=busy, device_s=parts,
+                        share={k: v / busy for k, v in parts.items()},
+                        idle_share=1 - busy / steady,
+                        idle_note="1 - the profiled step's device time "
+                                  "over the median unprofiled step",
+                        top_gemm_kernels=[dict(kernel=k, s=s_,
+                                               type=gemm_dtype(k))
+                                          for s_, k in gemms])
+    else:
+        profiled = "not measured"
     out = dict(
         path="train", model=cfg.name, n_layers=cfg.n_layers,
         n_params=cfg.n_params, dtype="bfloat16", remat=cfg.remat,
@@ -2623,17 +2765,9 @@ def train_main(tmp: Path) -> dict:
         tokens_per_s=[tokens / s for s in step_s],
         steady_step_s=steady, steady_tokens_per_s=tokens / steady,
         peak_bytes=peak, peak_gb=peak / 1e9, launches=launches,
-        profile=dict(device_busy_s=busy, device_s=parts,
-                     share={k: v / busy for k, v in parts.items()},
-                     idle_share=1 - busy / steady,
-                     idle_note="1 - the profiled step's device time over "
-                               "the median unprofiled step",
-                     top_gemm_kernels=[dict(kernel=k, s=s_,
-                                            type=gemm_dtype(k))
-                                       for s_, k in gemms]),
-        every_gradient_leaf_finite=grads_finite)
+        profile=profiled, every_gradient_leaf_finite=grads_finite)
     log(json.dumps(out))
-    del trainer, batch, gsum, mean, prof_grad, prof_opt
+    del trainer, batch, gsum, mean, ev_grad, ev_opt
     torch.cuda.empty_cache()
     return out
 
@@ -3041,7 +3175,6 @@ def gnn_train(arch, g) -> dict:
     gradient and zero values, such as the last EGNN layer's coordinate
     MLP biases: the energy reads no coordinates), which are named."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.train import (OptimizerConfig, Trainer, adamw_update,
                                    value_and_grad)
     from repro_torch.train.tree import flatten_with_paths, unflatten
@@ -3070,21 +3203,33 @@ def gnn_train(arch, g) -> dict:
     step_s = [b - a for a, b in zip([0.0] + walls, walls)]
     steady = float(np.median(step_s[1:]))
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    def step():
         _, grads = value_and_grad(lf, trainer.params, None)
         adamw_update(trainer.params, unflatten(trainer.params, grads),
                      trainer.opt_state, opt)
-        torch.cuda.synchronize()
+        return grads
+
+    events, grads = traced(step, f"gnn train {arch.arch_id}")
     unreached = [p for p, gr in zip(paths, grads) if not bool(gr.any())]
     still = [p for p, a, b in zip(paths, flatten_with_paths(
         trainer.params)[1], before) if not bool((a != b).any())]
     need(set(still) <= set(unreached),
          f"gnn {arch.arch_id}: leaves the loss reaches did not move: "
          f"{sorted(set(still) - set(unreached))}")
-    parts = device_groups(prof, gnn_kernel_group)
-    busy = sum(parts.values())
-    top = sorted(device_groups(prof, lambda k: k).items(),
-                 key=lambda kv: -kv[1])[:10]
+    profiled = "not measured"
+    if events:
+        parts = device_groups(events, gnn_kernel_group)
+        busy = sum(parts.values())
+        top = sorted(device_groups(events, lambda k: k).items(),
+                     key=lambda kv: -kv[1])[:10]
+        profiled = dict(device_busy_s=busy, device_s=parts,
+                        share={k: v / busy for k, v in parts.items()},
+                        idle_share=1 - busy / steady,
+                        idle_note="1 - the profiled step's device time "
+                                  "over the median unprofiled step",
+                        top_kernels=[dict(kernel=k[:200], s=s,
+                                          group=gnn_kernel_group(k))
+                                     for k, s in top])
     out = dict(
         path="gnn train", model=arch.arch_id, cfg=str(cfg),
         n_params=sum(p.numel() for p in before), nodes=g.n_nodes,
@@ -3093,17 +3238,9 @@ def gnn_train(arch, g) -> dict:
         steady_step_s=steady, edges_per_s=g.n_edges / steady,
         peak_bytes=peak, peak_gb=peak / 1e9, leaves=len(paths),
         leaves_not_moved=still, leaves_without_gradient=unreached,
-        profile=dict(device_busy_s=busy, device_s=parts,
-                     share={k: v / busy for k, v in parts.items()},
-                     idle_share=1 - busy / steady,
-                     idle_note="1 - the profiled step's device time over "
-                               "the median unprofiled step",
-                     top_kernels=[dict(kernel=k[:200], s=s,
-                                       group=gnn_kernel_group(k))
-                                  for k, s in top]),
-        seconds=time.perf_counter() - t0)
+        profile=profiled, seconds=time.perf_counter() - t0)
     log(json.dumps(out))
-    del trainer, params, before, grads, prof
+    del trainer, params, before, grads, events
     torch.cuda.empty_cache()
     return out
 
@@ -3578,18 +3715,23 @@ def profile_count(T, db, shape: str, db_name: str = "plain", **kw) -> None:
     wall time, profiled and unprofiled.  ``kw`` goes to ``count`` (the
     check mode)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     query = T.get_query(shape)
     t0 = time.perf_counter()
     T.count(query, db, **kw)
     wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def counted():
         t0 = time.perf_counter()
         T.count(query, db, **kw)
         torch.cuda.synchronize()
-        wall_profiled = time.perf_counter() - t0
+        return time.perf_counter() - t0
 
-    events = sorted(prof.key_averages(), key=device_us, reverse=True)
+    events, wall_profiled = traced(counted, f"profile {shape} {db_name}")
+    if not events:
+        log(json.dumps({"profile": shape, "db": db_name, "count_kw": kw,
+                        "wall_s": wall, "device_busy_s": "not measured"}))
+        return
+    events = sorted(events, key=device_us, reverse=True)
     busy = sum(device_us(e) for e in events) / 1e6
     # the port's check kernels: [device ms, launches], template instances
     # summed
@@ -3750,7 +3892,7 @@ def small_scale_host(T) -> dict:
 
 
 def small_scale(T, worker):
-    """At 5% scale, every shape but the 3-lollipop enumerated on the card
+    """At 2% scale, every shape but the 3-lollipop enumerated on the card
     and on the plain CPU path (identical arrays: the CPU half,
     :func:`small_scale_host`, runs in ``worker`` and sends each array's
     digest), the 3-lollipop counted on both; on the card, each
@@ -4960,6 +5102,9 @@ def run_phases(T, phases, smi: str, workers: dict) -> int:
              "the WCOJ feature enumeration never launched "
              "searchsorted_segments")
 
+    log(f"profiler: windows without device activity after "
+        f"{PROFILE_TRIES} tries: {PROFILER_EMPTY}; device_ms windows "
+        f"short of launches: {SHORT_WINDOWS}")
     if phases != list(PHASES):
         log(f"partial run of {phases}: every check passed")
         return 0
