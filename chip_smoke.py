@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases kernels,join,serve,dist,lm,train,gnn]
+    python3 chip_smoke.py [--phases kernels,join,serve,dist,lm,train,gnn,arch]
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
 kernel against its plain PyTorch version at the main path's shapes
@@ -179,7 +179,28 @@ kernels' launch counters set to 0 just before it and read just after:
   3-cliques of an 800-node graph enumerated by ``VLFTJ`` on the card
   (``searchsorted_segments`` launched), each node's count equal to the
   host's, and GatedGCN's loss lower with the triangle features than
-  without.
+  without;
+* ``arch``: the architecture registry (``ARCHS``: the JAX package's 11
+  ids in its order, every ``smoke(device="cuda")`` finite, the paper
+  engine's triangles from ``vlftj`` equal to ``lftj_ref``'s); xDeepFM at
+  full width (39 fields x 1,000,000 rows x 10 dims, CIN 200-200-200, MLP
+  400-400, float32) trained through the training launcher's wiring (6
+  AdamW steps of 65,536 rows in 4 microbatches; step seconds, rows per
+  second, peak memory, one more step profiled: embedding gathers,
+  scatters, the CIN, the other GEMMs, the optimizer, the rest, and the
+  idle share), its ``serve_p99`` (512 rows), ``serve_bulk`` (262,144 rows
+  in chunks of 32,768) and ``retrieval_cand`` (1 x 1,000,000) forwards
+  timed, and the reduced config on the card against the CPU (logits,
+  loss and gradients within 1e-4 of each part's largest |want|, ids
+  outside the vocabulary among them); command-r-plus-104b at full width
+  with 8 of its 64 layers through the ``lm`` serving path (one wgmma
+  flash launch a prefill layer, at D 128 and GQA group 12, and that
+  shape against its plain version at 2e-2); ``launch.train.main`` at
+  ``--reduced`` for the 10 trainable ids on the card (each loss finite)
+  and ``--arch wcoj`` refused with the JAX launcher's message; and
+  ``launch.serve.main`` at its defaults (50 requests on
+  ``powerlaw_cluster(20000, 6)``), every served count equal to a direct
+  count on the server's db.
 
 The counts are checked against counts made on the host with scipy and
 numpy alone (the cliques, 3-path and lollipops), across the two dbs
@@ -201,7 +222,9 @@ kernels against their plain versions, the join paths, the LM paths, or
 neither the ``kernels`` line nor the last line (``--phases serve`` runs
 the query server's phase alone, ``--phases dist`` distributed
 execution's, ``--phases train`` training's, ``--phases gnn`` the
-GNNs').
+GNNs', ``--phases arch`` the registry's, xDeepFM's, command-r's and the
+launchers').  It prints the whole script's seconds (``script:``) before
+the card's line.
 """
 from __future__ import annotations
 
@@ -304,7 +327,8 @@ OUTER_KERNELS = ("segment_outer_kernel", "segment_outer_merge_kernel",
 #: what a run drives, in order: the kernels against their plain versions,
 #: the join paths, the query server and its scheduler, distributed
 #: execution, the LM serving paths, LM training, GNN training
-PHASES = ("kernels", "join", "serve", "dist", "lm", "train", "gnn")
+PHASES = ("kernels", "join", "serve", "dist", "lm", "train", "gnn",
+          "arch")
 #: the join path's kernel functions, reported by name in count profiles
 PORT_JOIN_KERNELS = ("searchsorted_segments_kernel", "tile_member_mask_kernel",
                      "bitset_member_mask_kernel")
@@ -464,6 +488,21 @@ def traced(fn, what: str) -> tuple:
         log(f"profiler: {what}: no device activity on try {i + 1}")
     PROFILER_EMPTY.append(what)
     return [], out
+
+
+def fullest(fn, what: str, windows: int = 3) -> tuple:
+    """``traced`` of ``fn`` in ``windows`` windows: the events of the one
+    that recorded the most launches (CUPTI leaves launches out of a
+    window, never adds any), the launches each window recorded, and
+    what the last call returned.  ``([], counts, out)`` where no window
+    recorded device activity."""
+    best, counts, out = [], [], None
+    for _ in range(windows):
+        events, out = traced(fn, what)
+        counts.append(sum(e.count for e in events))
+        if counts[-1] > sum(e.count for e in best):
+            best = events
+    return best, counts, out
 
 
 def device_ms(fn, reps: int, kernel: str, *more: str) -> float:
@@ -3521,6 +3560,497 @@ def gnn_phase(T) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# arch: the registry, xDeepFM at full width, command-r-plus-104b with its
+# depth cut, and the two launchers
+# ---------------------------------------------------------------------------
+
+#: the JAX package's registry, its ids in its order
+#: (``src/repro/configs/__init__.py:14-20``)
+ARCH_IDS = ("stablelm-3b", "chatglm3-6b", "command-r-plus-104b",
+            "moonshot-v1-16b-a3b", "granite-moe-3b-a800m", "gatedgcn",
+            "egnn", "pna", "mace", "xdeepfm", "wcoj")
+#: (b) xDeepFM's ``train_batch`` of 65,536 rows a step in microbatches of
+#: 16,384: the whole batch would hold ~90 GB of CIN products and their
+#: gradients at once (three (B·10, Hk·39) float32 products saved, 44.9 GB,
+#: and two 20.4 GB transients in the backward), over one 80 GB card
+XDF_STEPS, XDF_MICROBATCHES = 6, 4
+#: ``serve_bulk``'s 262,144 rows run in row chunks: its (B·10, 7800)
+#: product would be 82 GB at once; the rows are independent
+XDF_BULK_CHUNK = 32_768
+XDF_P99_CALLS, XDF_RETRIEVAL_CALLS = 30, 20
+XDF_PARITY_TOL = 1e-4
+XDF_PARITY_ROWS = 1024
+#: (c) command-r-plus-104b's depth cut: 8 of 64 layers (15.7 B parameters,
+#: 31.5 GB of bf16 weights; all 64 are 208 GB)
+COMMANDR_LAYERS = 8
+#: (d) the JAX training launcher's message for ``--arch wcoj``
+#: (``src/repro/launch/train.py:75-76``)
+WCOJ_TRAIN_MESSAGE = ("--arch wcoj: family wcoj is not a trainable "
+                      "architecture (use launch.serve for wcoj)")
+
+
+def arch_registry() -> dict:
+    """(a) ``ARCHS`` has the JAX package's 11 ids in its order, and every
+    ``smoke(device="cuda")`` is finite (``WCOJArch.smoke`` raises unless
+    ``vlftj``'s triangles equal ``lftj_ref``'s).  Returns the launches."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import build
+    need(tuple(ARCHS) == ARCH_IDS, f"arch registry: ids {list(ARCHS)}")
+    build.reset_launches()
+    out = {}
+    for arch_id, arch in ARCHS.items():
+        t0 = time.perf_counter()
+        got = arch.smoke(device="cuda")
+        torch.cuda.synchronize()
+        need(all(np.isfinite(v) for v in got.values()),
+             f"arch smoke {arch_id}: {got}")
+        out[arch_id] = dict(got, family=arch.family,
+                            seconds=time.perf_counter() - t0)
+    launches = dict(build.LAUNCHES)
+    log(json.dumps({"path": "arch registry", "ids": list(ARCHS),
+                    "smoke": out, "launches": launches}))
+    torch.cuda.empty_cache()
+    return launches
+
+
+def xdf_train() -> tuple:
+    """(b) xDeepFM at full width (39 fields x 1,000,000 rows x 10 dims,
+    CIN 200-200-200, MLP 400-400, float32) through the training launcher's
+    recsys wiring (``launch.train.build_trainer``): ``XDF_STEPS`` AdamW
+    steps of ``train_batch``'s 65,536 rows from ``recsys_synthetic_batch``,
+    in ``XDF_MICROBATCHES`` microbatches.  Then one more step by hand,
+    profiled in three windows: the microbatches' gradients, the CIN's
+    forward and backward replayed on the same microbatches' embeddings,
+    and the AdamW update (each the fullest of 3, ``fullest``: a replay
+    window short of launches would move CIN time into "gemms").  The device time as embedding gathers
+    (``index_select``), scatters (its backward, ``index_add_``), the CIN
+    (all its kernels), the other GEMMs, the optimizer and the rest
+    (``gnn_kernel_group``'s reading of the names).  Returns the trained
+    parameters and the line."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import xdeepfm as xdf
+    from repro_torch.train import adamw_update, value_and_grad
+    from repro_torch.train.tree import leaves as tree_leaves
+    from repro_torch.train.tree import tree_map, unflatten
+    cfg = ARCHS["xdeepfm"].cfg
+    batch_rows = ARCHS["xdeepfm"].shapes["train_batch"]["batch"]
+    args = launch_train.parse_args([
+        "--arch", "xdeepfm", "--steps", str(XDF_STEPS), "--seed", str(SEED),
+        "--microbatches", str(XDF_MICROBATCHES), "--resume", "none",
+        "--log-every", "1", "--device", "cuda"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = launch_train.build_trainer("xdeepfm", args)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    hist = trainer.run(XDF_STEPS, log_every=1, resume="none")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in hist]
+    need(all(np.isfinite(x) for x in losses)
+         and all(np.isfinite(h["grad_norm"]) for h in hist),
+         f"xdeepfm train: a loss or gradient norm is not finite: {hist}")
+    walls = [h["wall"] for h in hist]
+    step_s = [b - a for a, b in zip([0.0] + walls, walls)]
+    steady = float(np.median(step_s[1:]))
+
+    batch = tree_map(lambda x: torch.as_tensor(np.array(x), device="cuda"),
+                     trainer.get_batch(XDF_STEPS))
+    need(batch["ids"].shape[0] == batch_rows, f"xdeepfm train: the "
+         f"launcher's batch has {batch['ids'].shape[0]} rows, train_batch "
+         f"{batch_rows}")
+    rows = batch_rows // XDF_MICROBATCHES
+    mbs = [tree_map(lambda x: x[i * rows:(i + 1) * rows], batch)
+           for i in range(XDF_MICROBATCHES)]
+
+    def mean_grads():
+        gsum = None
+        for mb in mbs:
+            _, grads = value_and_grad(trainer.loss_fn, trainer.params, mb)
+            if gsum is None:
+                gsum = grads
+            else:
+                for acc, x in zip(gsum, grads):
+                    acc.add_(x)
+            del grads
+        for acc in gsum:
+            acc.div_(XDF_MICROBATCHES)
+        return gsum
+
+    with torch.no_grad():
+        x0s = [xdf.embedding_bag(trainer.params["embed"], xdf._field_ids(
+            mb["ids"].long(), cfg)).transpose(1, 2).contiguous()
+            for mb in mbs]
+
+    def cin_replay():
+        ws = [w.detach().requires_grad_(True) for w in trainer.params["cin"]]
+        for x0 in x0s:
+            x0 = x0.requires_grad_(True)
+            with torch.enable_grad():
+                y = (xdf.cin(x0, ws) @ trainer.params["out_cin"]).sum()
+                torch.autograd.grad(y, [x0] + ws)
+
+    ev_grad, n_grad, gsum = fullest(mean_grads, "xdeepfm train gradients")
+    finite = all(bool(torch.isfinite(x).all()) for x in gsum)
+    need(finite, "xdeepfm train: a gradient leaf is not finite")
+    mean = unflatten(trainer.params, gsum)
+    ev_cin, n_cin, _ = fullest(cin_replay, "xdeepfm train CIN replay")
+    ev_opt, n_opt, _ = fullest(
+        lambda: adamw_update(trainer.params, mean, trainer.opt_state,
+                             trainer.opt_cfg), "xdeepfm train optimizer")
+    if ev_grad and ev_cin and ev_opt:
+        grad = device_groups(ev_grad, gnn_kernel_group)
+        cin = device_groups(ev_cin, gnn_kernel_group)
+        parts = dict(embedding_gathers=grad.get("gather", 0.0),
+                     scatters=grad.get("scatter", 0.0),
+                     cin=sum(cin.values()),
+                     gemms=grad.get("gemm", 0.0) - cin.get("gemm", 0.0),
+                     optimizer=sum(device_groups(ev_opt,
+                                                 lambda _: "o").values()))
+        parts["rest"] = (sum(grad.values()) - parts["embedding_gathers"]
+                         - parts["scatters"] - parts["gemms"] - parts["cin"])
+        busy = sum(parts.values())
+        top = sorted(device_groups(ev_grad, lambda k: k).items(),
+                     key=lambda kv: -kv[1])[:10]
+        profiled = dict(device_busy_s=busy, device_s=parts,
+                        share={k: v / busy for k, v in parts.items()},
+                        idle_share=1 - busy / steady,
+                        idle_note="1 - the profiled step's device time "
+                                  "over the median unprofiled step",
+                        cin_note="the CIN's forward and backward replayed "
+                                 "on the step's embeddings; gemms and rest "
+                                 "are the gradient window's less the CIN's",
+                        window_launches=dict(gradients=n_grad, cin=n_cin,
+                                             optimizer=n_opt),
+                        top_kernels=[dict(kernel=k[:120], s=s,
+                                          group=gnn_kernel_group(k))
+                                     for k, s in top])
+    else:
+        profiled = "not measured"
+    out = dict(
+        path="xdeepfm train", shape="train_batch", cfg=str(cfg),
+        n_params=sum(p.numel() for p in tree_leaves(trainer.params)),
+        batch=batch_rows, microbatches=XDF_MICROBATCHES,
+        rows_per_microbatch=rows, steps=XDF_STEPS, lr=args.lr,
+        init_s=init_s, loss=losses, grad_norm=[h["grad_norm"] for h in hist],
+        step_s=step_s, steady_step_s=steady, rows_per_s=batch_rows / steady,
+        peak_bytes=peak, peak_gb=peak / 1e9, profile=profiled,
+        every_gradient_leaf_finite=finite)
+    log(json.dumps(out))
+    params = trainer.params
+    del trainer, batch, mbs, gsum, mean, x0s, ev_grad, ev_cin, ev_opt
+    torch.cuda.empty_cache()
+    return params, out
+
+
+def event_times_ms(fn, calls: int) -> list:
+    """CUDA-event time of each of ``calls`` calls of ``fn``, after one
+    warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
+
+
+def xdf_serve(params) -> dict:
+    """(b) xDeepFM's three forward shapes at full size on the trained
+    parameters: ``serve_p99`` (512 rows, the median of ``XDF_P99_CALLS``
+    calls), ``serve_bulk`` (262,144 rows in chunks of ``XDF_BULK_CHUNK``
+    rows; the first chunk's first rows equal the same rows' logits in a
+    call of their own within 1e-5 of their largest |value|) and
+    ``retrieval_cand`` (1 query against 1,000,000 candidates of field 0's
+    rows); each finite and of its shape."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import recsys_synthetic_batch
+    from repro_torch.models import xdeepfm as xdf
+    arch = ARCHS["xdeepfm"]
+    cfg, shapes = arch.cfg, arch.shapes
+
+    def ids(step: int, rows: int):
+        return torch.as_tensor(recsys_synthetic_batch(
+            step, rows, cfg.n_sparse, cfg.vocab_per_field,
+            seed=SEED)["ids"], device="cuda")
+
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        p99_ids = ids(100, shapes["serve_p99"]["batch"])
+        times = event_times_ms(
+            lambda: xdf.xdeepfm_forward(params, p99_ids, cfg), XDF_P99_CALLS)
+        logits = xdf.xdeepfm_forward(params, p99_ids, cfg)
+        need(tuple(logits.shape) == (p99_ids.shape[0],)
+             and bool(torch.isfinite(logits).all()),
+             f"xdeepfm serve_p99: logits {tuple(logits.shape)} not finite")
+        out["serve_p99"] = dict(rows=p99_ids.shape[0], calls=len(times),
+                                median_ms=float(np.median(times)),
+                                p99_ms=float(np.percentile(times, 99)),
+                                min_ms=min(times))
+
+        bulk = shapes["serve_bulk"]["batch"]
+        bulk_ids = ids(101, bulk)
+
+        def bulk_forward():
+            return torch.cat([xdf.xdeepfm_forward(
+                params, bulk_ids[i:i + XDF_BULK_CHUNK], cfg)
+                for i in range(0, bulk, XDF_BULK_CHUNK)])
+
+        times = event_times_ms(bulk_forward, 2)
+        logits = bulk_forward()
+        need(tuple(logits.shape) == (bulk,)
+             and bool(torch.isfinite(logits).all()),
+             f"xdeepfm serve_bulk: logits {tuple(logits.shape)} not finite")
+        alone = xdf.xdeepfm_forward(params, bulk_ids[:512], cfg)
+        chunk_err = rel_err(logits[:512], alone)
+        need(chunk_err <= 1e-5, f"xdeepfm serve_bulk: a chunk's logits "
+             f"differ from the same rows' in a call of their own by "
+             f"{chunk_err} of their largest")
+        out["serve_bulk"] = dict(rows=bulk, chunk_rows=XDF_BULK_CHUNK,
+                                 chunks=-(-bulk // XDF_BULK_CHUNK),
+                                 chunk_vs_alone=chunk_err,
+                                 ms=min(times), calls_ms=times,
+                                 rows_per_s=bulk / min(times) * 1e3)
+
+        n_cand = shapes["retrieval_cand"]["n_candidates"]
+        q = ids(102, 1)
+        cand = torch.arange(n_cand, device="cuda")
+        times = event_times_ms(
+            lambda: xdf.retrieval_scores(params, q, cand, cfg),
+            XDF_RETRIEVAL_CALLS)
+        scores = xdf.retrieval_scores(params, q, cand, cfg)
+        need(tuple(scores.shape) == (n_cand,)
+             and bool(torch.isfinite(scores).all()),
+             "xdeepfm retrieval_cand: scores not finite")
+        out["retrieval_cand"] = dict(candidates=n_cand, calls=len(times),
+                                     median_ms=float(np.median(times)),
+                                     min_ms=min(times))
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(json.dumps({"path": "xdeepfm serve", **out}))
+    return out
+
+
+def xdf_parity() -> dict:
+    """(b) the reduced config (vocab 1000 a field, CIN (16, 16), MLP (32,
+    32)) on the card against the port's CPU path, on the same parameters
+    carried across by ``convert.xdeepfm_params_from_numpy`` and the same
+    ids (``XDF_PARITY_ROWS`` pipeline rows and 8 rows of ids outside
+    [0, vocab), negative ones among them): logits, loss and every
+    gradient leaf within ``XDF_PARITY_TOL`` of each part's largest
+    |want|."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.convert import xdeepfm_params_from_numpy
+    from repro_torch.data import recsys_synthetic_batch
+    from repro_torch.models import xdeepfm as xdf
+    from repro_torch.train import value_and_grad
+    from repro_torch.train.tree import flatten_with_paths, tree_map
+    cfg = ARCHS["xdeepfm"].reduced_cfg()
+    host = xdf.init_xdeepfm(cfg, torch.Generator().manual_seed(SEED),
+                            device="cpu")
+    arrays = tree_map(lambda t: t.numpy(), host)
+    batch = recsys_synthetic_batch(0, XDF_PARITY_ROWS, cfg.n_sparse,
+                                   cfg.vocab_per_field, seed=SEED)
+    rng = np.random.default_rng(SEED)
+    wild = rng.integers(-5 * cfg.total_vocab, 5 * cfg.total_vocab,
+                        (8, cfg.n_sparse)).astype(np.int32)
+    batch = {"ids": np.concatenate([batch["ids"], wild]),
+             "labels": np.concatenate([batch["labels"],
+                                       np.ones(8, np.int32)])}
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        p = xdeepfm_params_from_numpy(arrays, device=dev)
+        b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        loss, grads = value_and_grad(
+            lambda pp, bb: xdf.xdeepfm_loss(pp, bb, cfg), p, b)
+        with torch.no_grad():
+            logits = xdf.xdeepfm_forward(p, b["ids"], cfg)
+        runs[dev] = (loss.cpu(), logits.cpu(), [g.cpu() for g in grads])
+    (lw, ow, gw), (lg, og, gg) = runs["cpu"], runs["cuda"]
+    paths = flatten_with_paths(host)[0]
+    grad_errs = [rel_err(a, b) for a, b in zip(gg, gw)]
+    worst = int(np.argmax(grad_errs))
+    errs = dict(logits=rel_err(og, ow),
+                loss=rel_err(lg.reshape(1), lw.reshape(1)),
+                grads=grad_errs[worst], worst_leaf=paths[worst])
+    log(json.dumps({"path": "xdeepfm parity", "cfg": str(cfg),
+                    "rows": XDF_PARITY_ROWS + 8, "tolerance": XDF_PARITY_TOL,
+                    "errors": errs}))
+    need(max(errs["logits"], errs["loss"], errs["grads"]) <= XDF_PARITY_TOL,
+         f"xdeepfm parity: card against CPU beyond {XDF_PARITY_TOL}: {errs}")
+    return errs
+
+
+def commandr_serve() -> dict:
+    """(c) command-r-plus-104b at full width (d_model 12,288, 96 query and
+    8 KV heads of 128, d_ff 33,792, vocab 256,000, LayerNorm, tied) with
+    its depth cut to ``COMMANDR_LAYERS`` of 64, bf16: the ``lm`` phase's
+    serving path (``lm_serve``: prefill 4 x 2048, 32 decode steps, one
+    launch of the wgmma flash kernel a prefill layer, none of the
+    mma.sync one), then the wgmma kernel at its prefill shape (D 128, GQA
+    group 12) against its plain version at 2e-2, timed beside SDPA
+    (``flash_model_shape``).  Returns the serving path's launches."""
+    import torch
+    from repro_torch.configs import COMMAND_R_PLUS_104B
+    cfg = dataclasses.replace(COMMAND_R_PLUS_104B, n_layers=COMMANDR_LAYERS)
+    log(json.dumps({"path": "arch command-r cut",
+                    "reduced": {"n_layers": f"{COMMANDR_LAYERS} of "
+                                f"{COMMAND_R_PLUS_104B.n_layers}"},
+                    "n_params_full": COMMAND_R_PLUS_104B.n_params,
+                    "n_params_run": cfg.n_params,
+                    "bf16_gb_full": 2 * COMMAND_R_PLUS_104B.n_params / 1e9,
+                    "bf16_gb_run": 2 * cfg.n_params / 1e9}))
+    launches, _ = lm_serve(cfg)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    line = flash_model_shape(cfg, randn)
+    need(line["gqa_group"] == 12 and cfg.head_dim == 128,
+         f"command-r's heads: group {line['gqa_group']}, D {cfg.head_dim}")
+    log(json.dumps({"path": "arch flash command-r", **line}))
+    torch.cuda.empty_cache()
+    return launches
+
+
+def arch_launchers(T) -> dict:
+    """(d) ``launch.train.main`` at ``--reduced --steps 3 --device cuda``
+    for the 10 trainable ids (each loss finite), ``--arch wcoj`` refused
+    with the JAX launcher's message, and ``launch.serve.main`` at its
+    defaults (``powerlaw_cluster(20000, 6)``, 50 requests) on the card,
+    each served count equal to a direct ``count`` of the same query on
+    the server's db with the result's engine (``QueryServer.execute_batch``
+    wrapped to record the server, requests and results).  Returns the
+    launches of the training runs and of the served batch."""
+    import io
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+    runs, launches = {}, {}
+    build.reset_launches()
+    for arch_id, arch in ARCHS.items():
+        if arch.family == "wcoj":
+            continue
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = launch_train.main([
+                "--arch", arch_id, "--reduced", "--steps", "3",
+                "--log-every", "1", "--resume", "none", "--device", "cuda"])
+        lines = buf.getvalue().splitlines()
+        losses = [float(x.split()[3]) for x in lines if x.startswith("step")]
+        need(rc == 0 and len(losses) == 3 and all(np.isfinite(losses)),
+             f"launch.train {arch_id}: rc {rc}, output {lines}")
+        runs[arch_id] = dict(loss=losses, device_line=lines[0],
+                             seconds=time.perf_counter() - t0)
+    launches["train"] = dict(build.LAUNCHES)
+    refused = None
+    try:
+        launch_train.main(["--arch", "wcoj", "--device", "cuda"])
+    except SystemExit as e:
+        refused = str(e)
+    need(refused == WCOJ_TRAIN_MESSAGE,
+         f"launch.train --arch wcoj: {refused!r}")
+    log(json.dumps({"path": "arch launch.train", "runs": runs,
+                    "wcoj": refused, "launches": launches["train"]}))
+
+    recorded = []
+    real = launch_serve.QueryServer.execute_batch
+
+    def recording(server, reqs):
+        results = real(server, reqs)
+        recorded.append((server, reqs, results))
+        return results
+
+    buf = io.StringIO()
+    launch_serve.QueryServer.execute_batch = recording
+    t0 = time.perf_counter()
+    build.reset_launches()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = launch_serve.main(["--device", "cuda"])
+    finally:
+        launch_serve.QueryServer.execute_batch = real
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches["serve"] = dict(build.LAUNCHES)
+    (server, reqs, results), = recorded
+    need(rc == 0 and len(results) == 50,
+         f"launch.serve: rc {rc}, {len(results)} results")
+    t0 = time.perf_counter()
+    for req, res in zip(reqs, results):
+        direct = T.count(T.get_query(req.query_name),
+                         server._gdb_for(req.selectivity, req.seed),
+                         engine=res.engine)
+        need(direct == res.count, f"launch.serve {req}: served {res.count} "
+             f"!= direct {res.engine} count {direct}")
+    log(json.dumps({
+        "path": "arch launch.serve", "graph_nodes": server.csr.n_nodes,
+        "directed_edges": int(server.csr.indices.shape[0]),
+        "requests": len(results), "seconds": serve_s,
+        "engine_s": sum(r.latency_s for r in results),
+        "percentiles": launch_serve.percentiles(results),
+        "counts": [[r.request.query_name, r.request.selectivity,
+                    r.request.seed, r.engine, r.count] for r in results],
+        "direct_counts_s": time.perf_counter() - t0,
+        "launches": launches["serve"]}))
+    for line in buf.getvalue().splitlines():
+        if line.strip():
+            log(f"  launch.serve: {line}")
+    del server, recorded
+    torch.cuda.empty_cache()
+    return launches
+
+
+def arch_phase(T) -> dict:
+    """(a)-(d) of the ``arch`` phase, float32 with TF32 off (command-r in
+    bf16); returns each path's launches."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    log(f"arch: {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated on "
+        "the card before the phase")
+    launches = {}
+    t0 = time.perf_counter()
+    launches["registry"] = arch_registry()
+    log(f"arch registry: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    params, _ = xdf_train()
+    log(f"arch xdeepfm train: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    xdf_serve(params)
+    del params
+    torch.cuda.empty_cache()
+    log(f"arch xdeepfm serve: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    xdf_parity()
+    log(f"arch xdeepfm parity: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    launches["command_r"] = commandr_serve()
+    log(f"arch command-r: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    launches.update(arch_launchers(T))
+    log(f"arch launchers: {time.perf_counter() - t0:.2f} s")
+    return launches
+
+
 def main_path(T, dbs):
     """``count(engine="auto")`` of the six shapes on both dbs, with the
     kernels' launch counters set to 0 just before and read just after."""
@@ -4920,6 +5450,7 @@ def dist_phase(T, g, db) -> dict:
 def main(argv=None) -> int:
     import argparse
     import torch
+    started = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma list of phases to run, of "
@@ -4934,7 +5465,10 @@ def main(argv=None) -> int:
                          "gradient and compressed-step checks; gnn trains "
                          "GatedGCN, PNA, EGNN and MACE at the launcher's "
                          "scale and runs their parity, shape and WCOJ "
-                         "feature checks")
+                         "feature checks; arch runs every registry smoke, "
+                         "trains and serves xDeepFM at full width, serves "
+                         "command-r-plus-104b cut to 8 layers and drives "
+                         "both launchers")
     phases = ap.parse_args(argv).phases.split(",")
     if not set(phases) <= set(PHASES + ("oracles",)):
         ap.error(f"--phases takes {', '.join(PHASES)} or oracles (the "
@@ -4961,7 +5495,7 @@ def main(argv=None) -> int:
     if "join" in phases:
         workers["small"] = start_host_job(src, "small", threads=2)
     try:
-        return run_phases(T, phases, smi, workers)
+        return run_phases(T, phases, smi, workers, started)
     finally:
         for proc, _ in workers.values():
             if proc.is_alive():
@@ -4969,9 +5503,10 @@ def main(argv=None) -> int:
             proc.join()
 
 
-def run_phases(T, phases, smi: str, workers: dict) -> int:
+def run_phases(T, phases, smi: str, workers: dict, started: float) -> int:
     """The phases of ``main``, in order; ``workers`` compute the scalar
-    oracles' counts and the small-scale CPU enumerations beside them."""
+    oracles' counts and the small-scale CPU enumerations beside them;
+    ``started`` is the script's start on the host clock."""
     import torch
     from repro_torch.configs import (CHATGLM3_6B, GRANITE_MOE_3B_A800M,
                                      MOONSHOT_V1_16B_A3B, STABLELM_3B)
@@ -5102,9 +5637,29 @@ def run_phases(T, phases, smi: str, workers: dict) -> int:
              "the WCOJ feature enumeration never launched "
              "searchsorted_segments")
 
+    if "arch" in phases:
+        t0 = time.perf_counter()
+        arch_launches = arch_phase(T)
+        log(f"arch: {time.perf_counter() - t0:.2f} s, launches of the "
+            f"registry's smokes {arch_launches['registry']}, of "
+            f"command-r's serving path {arch_launches['command_r']}, of "
+            f"the training launcher's runs {arch_launches['train']}, of "
+            f"the serving launcher's batch {arch_launches['serve']}")
+        for path, kernels in (("registry", ("searchsorted_segments",
+                                            "flash_attention_mma",
+                                            "flash_attention_bwd")),
+                              ("command_r", ("flash_attention_tc",)),
+                              ("train", ("flash_attention_mma",
+                                         "flash_attention_bwd")),
+                              ("serve", ("searchsorted_segments",))):
+            for name in kernels:
+                need(arch_launches[path][name] > 0,
+                     f"the arch phase's {path} path never launched {name}")
+
     log(f"profiler: windows without device activity after "
         f"{PROFILE_TRIES} tries: {PROFILER_EMPTY}; device_ms windows "
         f"short of launches: {SHORT_WINDOWS}")
+    log(f"script: {time.perf_counter() - started:.2f} s")
     if phases != list(PHASES):
         log(f"partial run of {phases}: every check passed")
         return 0

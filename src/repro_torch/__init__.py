@@ -25,6 +25,10 @@ match the JAX package's within its own tolerances.
 * ``convert.py`` builds the port's graph databases and plans from the
   JAX package's plain arrays and fields, and the transformer's
   parameters from the JAX package's.
+* ``configs/`` is also the architecture registry (``ARCHS``: the five
+  LMs, the four GNNs, xDeepFM of ``models/xdeepfm.py`` and the join
+  engine), which ``launch/train.py`` and ``launch/serve.py``, the
+  launchers, resolve.
 
 Counts are int64, written out explicitly (the JAX package gets int64
 from its global x64 switch).

@@ -7,6 +7,7 @@ import torch
 
 from ..layers.moe import MoEConfig
 from ..models.transformer import TransformerConfig
+from .common import LMArch
 
 CFG = TransformerConfig(
     name="granite-moe-3b-a800m", n_layers=32, d_model=1536, n_heads=24,
@@ -15,3 +16,5 @@ CFG = TransformerConfig(
     moe=MoEConfig(n_experts=40, top_k=8, d_ff_expert=512,
                   shard_mode="tp"),
     dtype=torch.bfloat16, remat=True, loss_seq_chunk=512)
+
+ARCH = LMArch(arch_id="granite-moe-3b-a800m", cfg=CFG, microbatches=1)

@@ -6,6 +6,7 @@ import torch
 
 from ..layers.moe import MoEConfig
 from ..models.transformer import TransformerConfig
+from .common import LMArch
 
 CFG = TransformerConfig(
     name="moonshot-v1-16b-a3b", n_layers=48, d_model=2048, n_heads=16,
@@ -14,3 +15,5 @@ CFG = TransformerConfig(
     moe=MoEConfig(n_experts=64, top_k=6, d_ff_expert=1408,
                   shard_mode="ep", n_shared_experts=2),
     dtype=torch.bfloat16, remat=True, loss_seq_chunk=512)
+
+ARCH = LMArch(arch_id="moonshot-v1-16b-a3b", cfg=CFG, microbatches=2)

@@ -139,13 +139,33 @@ def gnn_params_from_numpy(params, *, device: torch.device | str = "cuda"):
     dicts and lists (EGNN's and MACE's ``"layers"`` stay lists), each
     leaf a tensor of its dtype and shape on ``device``.  Raises without
     a card unless ``device`` is the CPU."""
-    dev = resolve_device(device, "gnn_params_from_numpy")
+    return _tree_from_numpy(params,
+                            resolve_device(device, "gnn_params_from_numpy"))
 
-    def convert(node):
-        if isinstance(node, dict):
-            return {k: convert(v) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return [convert(v) for v in node]
-        return torch.from_numpy(np.array(node)).to(dev)
 
-    return convert(params)
+#: the top-level names of the JAX package's ``init_xdeepfm`` tree
+XDEEPFM_PARAM_NAMES = ("embed", "linear", "cin", "mlp", "out_mlp", "out_cin")
+
+
+def xdeepfm_params_from_numpy(params, *, device: torch.device | str):
+    """The port's xDeepFM parameters from the JAX package's
+    (``jax.tree.map(np.asarray, init_xdeepfm(key, cfg))``): the same dict
+    of ``embed``, ``linear``, the ``cin`` list, the ``mlp`` list of
+    ``{"w", "b"}`` and the two output columns, each leaf a float32
+    tensor of its shape on ``device``.  Raises without a card unless
+    ``device`` is the CPU."""
+    if set(params) != set(XDEEPFM_PARAM_NAMES):
+        raise ValueError(f"xDeepFM parameter names {sorted(params)} != "
+                         f"{sorted(XDEEPFM_PARAM_NAMES)}")
+    return _tree_from_numpy(
+        params, resolve_device(device, "xdeepfm_params_from_numpy"))
+
+
+def _tree_from_numpy(node, dev: torch.device):
+    """A tree of dicts and lists of numpy arrays as the same tree of
+    tensors on ``dev``, each of its array's dtype and shape."""
+    if isinstance(node, dict):
+        return {k: _tree_from_numpy(v, dev) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_tree_from_numpy(v, dev) for v in node]
+    return torch.from_numpy(np.array(node)).to(dev)

@@ -66,7 +66,12 @@ def test_importing_every_port_module_imports_no_jax():
             "repro_torch.models.gnn.pna", "repro_torch.models.gnn.egnn",
             "repro_torch.models.gnn.mace", "repro_torch.configs.gatedgcn",
             "repro_torch.configs.pna", "repro_torch.configs.egnn",
-            "repro_torch.configs.mace"} <= set(mods)
+            "repro_torch.configs.mace", "repro_torch.models.xdeepfm",
+            "repro_torch.configs.xdeepfm",
+            "repro_torch.configs.command_r_plus_104b",
+            "repro_torch.configs.wcoj", "repro_torch.launch",
+            "repro_torch.launch.train",
+            "repro_torch.launch.serve"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -255,3 +260,41 @@ def test_default_device_is_the_card_for_gnns(monkeypatch, what):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert cpu().device.type == "cpu"
+
+
+@pytest.mark.parametrize("what", ["stablelm-3b", "granite-moe-3b-a800m",
+                                  "xdeepfm", "wcoj", "init_xdeepfm",
+                                  "launch.train", "launch.serve"])
+def test_default_device_is_the_card_for_the_registry_and_launchers(
+        monkeypatch, capsys, what):
+    """With no card, ``ARCHS[...].smoke()``, ``init_xdeepfm`` and both
+    launchers' ``main`` without ``--device`` raise before any work
+    instead of landing on the CPU; ``device='cpu'`` (``--device cpu``)
+    is the explicit way."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import serve, train
+    from repro_torch.models.xdeepfm import XDeepFMConfig, init_xdeepfm
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    small = XDeepFMConfig(n_sparse=3, embed_dim=2, vocab_per_field=5,
+                          cin_layers=(2,), mlp_dims=(4,))
+    serve_argv = ["--nodes", "60", "--requests", "2"]
+    train_argv = ["--arch", "xdeepfm", "--reduced", "--steps", "1"]
+    call, cpu = {
+        "init_xdeepfm": (lambda: init_xdeepfm(small),
+                         lambda: init_xdeepfm(small, device="cpu")[
+                             "embed"].device.type == "cpu"),
+        "launch.train": (lambda: train.main(train_argv),
+                         lambda: train.main(train_argv + ["--device",
+                                                          "cpu"]) == 0),
+        "launch.serve": (lambda: serve.main(serve_argv),
+                         lambda: serve.main(serve_argv + ["--device",
+                                                          "cpu"]) == 0),
+    }.get(what, (lambda: ARCHS[what].smoke(),
+                 lambda: all(np.isfinite(v) for v in
+                             ARCHS[what].smoke(device="cpu").values())))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()
+    assert capsys.readouterr().out == ""
+    assert cpu()
