@@ -155,7 +155,11 @@ kernels' launch counters set to 0 just before it and read just after:
   picks equal, loss and gradient norm within 1e-4, parameters within 3
   learning rates); one bf16 layer's gradients against float32 on upcast
   copies (stablelm-3b's dense layer, granite's MoE FFN; 2^-5 of each
-  leaf's largest gradient); and the data-parallel and compressed train
+  leaf's largest gradient); stablelm-3b's bf16 embedding gradient at the
+  train step's 4 x 4096 Zipf tokens against float32 (2^-5 of its
+  largest gradient; summed in float32) and against a second run (bit
+  for bit); and the
+  data-parallel and compressed train
   steps over a world-size-1 NCCL group on the tiny model of
   ``tests/test_fault_tolerance.py``, to its convergence criteria;
 * ``gnn``: GatedGCN (16 layers x 70), PNA (4 x 75), EGNN (4 x 64) and
@@ -200,7 +204,12 @@ kernels' launch counters set to 0 just before it and read just after:
   and ``--arch wcoj`` refused with the JAX launcher's message; and
   ``launch.serve.main`` at its defaults (50 requests on
   ``powerlaw_cluster(20000, 6)``), every served count equal to a direct
-  count on the server's db.
+  count on the server's db; last, ``launch.dryrun`` of stablelm-3b's
+  ``train_4k`` at the ``train`` phase's 4 x 4096 and of xDeepFM's
+  ``train_batch`` on the host (fake CPU tensors, no launch): each line
+  gives the FLOPs by operand type, the unfused bytes, the compute and
+  memory terms at the H100 SXM peaks and their bound beside the step
+  seconds measured in this run, and the card's name and power limit.
 
 The counts are checked against counts made on the host with scipy and
 numpy alone (the cliques, 3-path and lollipops), across the two dbs
@@ -222,8 +231,8 @@ kernels against their plain versions, the join paths, the LM paths, or
 neither the ``kernels`` line nor the last line (``--phases serve`` runs
 the query server's phase alone, ``--phases dist`` distributed
 execution's, ``--phases train`` training's, ``--phases gnn`` the
-GNNs', ``--phases arch`` the registry's, xDeepFM's, command-r's and the
-launchers').  It prints the whole script's seconds (``script:``) before
+GNNs', ``--phases arch`` the registry's, xDeepFM's, command-r's, the
+launchers' and the dry run's, without a measured stablelm-3b step).  It prints the whole script's seconds (``script:``) before
 the card's line.
 """
 from __future__ import annotations
@@ -256,17 +265,10 @@ ENUM_SHAPES = SHAPES[:-1]
 #: the tile-only runs (at least the max degree, 1,577, so nothing is cut)
 TILE_WIDTH, FULL_TILE_WIDTH = 512, 2048
 INT32_MAX = 2 ** 31 - 1
-#: H100 SXM peaks.  HBM bytes/s from NVIDIA's data sheet.  The data sheet
-#: gives no int32 rate: its 67 TFLOP/s fp32 is 132 SMs x 128 FMA lanes x
-#: 2 FLOP x 1.98 GHz, and the CUDA C++ Programming Guide's arithmetic
-#: throughput table gives compute capability 9.0 64 results per clock
-#: per SM for 32-bit integer add, compare, min/max, shift and logic
-#: (against 128 for fp32), so int32 ops peak at 67e12 / 4 per second.
-PEAK_BYTES_S = 3.35e12
-PEAK_INT32_OPS_S = 67e12 / 4
-#: floating-point peaks from the same data sheet: dense bf16 and TF32 on
-#: the tensor cores, and float32 on the CUDA cores
-PEAK_FLOPS_S = {"bf16": 989e12, "fp32": 67e12, "tf32": 495e12}
+#: the H100 SXM peaks (HBM bytes/s, int32 ops/s, and the FLOP/s of bf16
+#: and TF32 on the tensor cores and of float32 on the CUDA cores) come
+#: from ``repro_torch.launch.roofline`` (:func:`peaks`), the dry run's
+#: roofline, so that both use one table
 #: the LM phases: chatglm3-6b and stablelm-3b served at full width and
 #: depth (4 requests of 2048 prompt tokens, 32 greedy decode steps), and
 #: their f32 parity checks at full width and 2 layers (card against the
@@ -651,19 +653,28 @@ def halving_rounds(n, live) -> int:
     return int((steps * live.long().clamp(min=0)).sum())
 
 
+def peaks():
+    """``repro_torch.launch.roofline``: the H100 peaks ``PEAK_BYTES_S``,
+    ``PEAK_INT32_OPS_S`` and ``PEAK_FLOPS_S`` (imported where used: the
+    package is on the path only once ``main`` has put it there)."""
+    from repro_torch.launch import roofline
+    return roofline
+
+
 def bound(k: dict) -> dict:
     """The larger of bytes over the HBM rate and the operations over their
     peak rate — int32 ops (``ops``) at the int32 rate, or floating-point
     operations (``flops``) at the peak of their type (``flops_type``) —
     and which of the two it is.  The peaks used are printed with it."""
-    t_bytes = k["bytes"] / PEAK_BYTES_S
+    rl = peaks()
+    t_bytes = k["bytes"] / rl.PEAK_BYTES_S
     if "flops" in k:
-        k["peak_flops_s"] = PEAK_FLOPS_S[k["flops_type"]]
+        k["peak_flops_s"] = rl.PEAK_FLOPS_S[k["flops_type"]]
         t_ops = k["flops"] / k["peak_flops_s"]
     else:
-        k["peak_int32_ops_s"] = PEAK_INT32_OPS_S
-        t_ops = k["ops"] / PEAK_INT32_OPS_S
-    k["peak_bytes_s"] = PEAK_BYTES_S
+        k["peak_int32_ops_s"] = rl.PEAK_INT32_OPS_S
+        t_ops = k["ops"] / rl.PEAK_INT32_OPS_S
+    k["peak_bytes_s"] = rl.PEAK_BYTES_S
     k["bound_ms"] = 1e3 * max(t_bytes, t_ops)
     k["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     return k
@@ -1247,12 +1258,13 @@ def bound_3xtf32(k: dict) -> dict:
     (three TF32 products of every flop at the TF32 peak); ``bound_ms`` is
     the lower of the two, and ``bound_note`` says which."""
     bound(k)
+    rl = peaks()
     k["bound_ffma_ms"] = k["bound_ms"]
-    t_ops = 3 * k["flops"] / PEAK_FLOPS_S["tf32"]
-    k["bound_3xtf32_ms"] = 1e3 * max(k["bytes"] / PEAK_BYTES_S, t_ops)
+    t_ops = 3 * k["flops"] / rl.PEAK_FLOPS_S["tf32"]
+    k["bound_3xtf32_ms"] = 1e3 * max(k["bytes"] / rl.PEAK_BYTES_S, t_ops)
     if k["bound_3xtf32_ms"] < k["bound_ffma_ms"]:
         k["bound_ms"] = k["bound_3xtf32_ms"]
-        k["bound_by"] = ("bytes" if k["bytes"] / PEAK_BYTES_S >= t_ops
+        k["bound_by"] = ("bytes" if k["bytes"] / rl.PEAK_BYTES_S >= t_ops
                          else "operations")
         k["bound_note"] = ("3xTF32: 3 x flops at the TF32 peak, below the "
                            "FFMA bound")
@@ -2048,7 +2060,7 @@ def outer_gap_case(g, randn) -> dict:
                                                  n_tiles, OUTER_BN,
                                                  OUTER_TE), 5,
                        OUTER_KERNELS[2])
-    bound_ms = 1e3 * nbytes / PEAK_BYTES_S
+    bound_ms = 1e3 * nbytes / peaks().PEAK_BYTES_S
     return dict(max_abs_err=err, ms=ms, gap_ms=gap_ms, bytes=nbytes,
                 bound_ms=bound_ms, bound_share=bound_ms / ms)
 
@@ -2112,7 +2124,7 @@ def kernel_phase_outer():
                 event_ms=cuda_ms(lambda: ops.segment_outer(*args), 5),
                 plain_ms=cuda_ms(lambda: ref.segment_outer_ref(mm, bb, dst,
                                                                n), 2),
-                bytes=nbytes, bound_ms=1e3 * nbytes / PEAK_BYTES_S)
+                bytes=nbytes, bound_ms=1e3 * nbytes / peaks().PEAK_BYTES_S)
             line[dtype]["bound_share"] = (line[dtype]["bound_ms"]
                                           / line[dtype]["ms"])
         line["f32"]["previous_ms"] = PREVIOUS_OUTER_MS[dist]
@@ -2631,6 +2643,9 @@ GRAD_BATCH, GRAD_SEQ = 4, 2048
 BF16_GRAD_TOL = 2.0 ** -5
 #: (e): ``tests/test_fault_tolerance.py``'s tiny model and its criteria
 COMPRESSED_STEPS = 25
+#: (d'): the embedding gradient's tokens, a Zipf draw of this exponent
+#: (a few rows take thousands of the step's tokens, as text's do)
+EMBED_ZIPF = 1.1
 
 
 def learnable_token_file(path: Path, vocab: int, rows: int, seq: int) -> None:
@@ -3039,6 +3054,71 @@ def train_bf16_grads(model) -> dict:
     return out
 
 
+def train_embed_grad(model) -> dict:
+    """(d') ``_embed``'s gradient of ``model``'s bf16 table (its full
+    vocabulary and width) at the train step's 4 x 4096 tokens, drawn
+    Zipf so that rows repeat, with two ids outside the table (which read
+    a clamped row and send it nothing): against the same on a float32
+    copy within ``BF16_GRAD_TOL`` of its largest |f32 grad|, and against
+    a second bf16 run bit for bit.  The loss is ``sum(rows * r)`` for a
+    fixed random float32 ``r``.  For the record only, the same error of
+    two bf16 sums in place of ``_embed``'s float32 one (on the clamped
+    ids, against their own float32 gradient): the indexing's own
+    backward ``table[ids]`` and one ``index_add_``."""
+    import torch
+    from repro_torch.models import transformer as tfm
+    n = model.padded_vocab
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    table = (torch.randn((n, model.d_model), generator=g,
+                         device="cuda") * 0.02).to(model.dtype)
+    rank = torch.arange(1, model.vocab_size + 1, device="cuda",
+                        dtype=torch.float64)
+    tokens = torch.multinomial(rank ** -EMBED_ZIPF, TRAIN_BATCH * TRAIN_SEQ,
+                               replacement=True, generator=g)
+    tokens = tokens.reshape(TRAIN_BATCH, TRAIN_SEQ).to(torch.int32)
+    tokens[0, 0], tokens[1, 1] = n + 5, -n - 9
+    ids = torch.where(tokens < 0, tokens + n, tokens).clamp(0, n - 1).long()
+    r = torch.randn((TRAIN_BATCH, TRAIN_SEQ, model.d_model), generator=g,
+                    device="cuda")
+
+    def grad(tab, rows_of):
+        tab = tab.detach().requires_grad_()
+        return torch.autograd.grad((rows_of(tab).float() * r).sum(), tab)[0]
+
+    def embed(cfg):
+        return lambda tab: tfm._embed({"embed": tab}, tokens, cfg)
+
+    f32_cfg = dataclasses.replace(model, dtype=torch.float32)
+    bf16 = grad(table, embed(model))
+    again = grad(table, embed(model))
+    f32 = grad(table.float(), embed(f32_cfg))
+    err = rel_err(bf16, f32)
+    repeat = same_bits(bf16, again)
+    indexed = lambda tab: tab[ids]
+    f32_ids = grad(table.float(), indexed)
+    bf16_sums = {
+        "indexing": rel_err(grad(table, indexed), f32_ids),
+        "index_add_": rel_err(grad(table, lambda tab: tab.index_select(
+            0, ids.reshape(-1)).reshape(r.shape)), f32_ids)}
+    counts = torch.bincount(ids.reshape(-1), minlength=n)
+    out = dict(path="train embed grad", model=model.name,
+               table=[n, model.d_model],
+               dtype=str(model.dtype).removeprefix("torch."),
+               tokens=TRAIN_BATCH * TRAIN_SEQ, zipf=EMBED_ZIPF,
+               most_repeated_row=int(counts.max()),
+               rows_hit=int((counts > 0).sum()), rel_err=err,
+               tolerance=BF16_GRAD_TOL, repeat_same_bits=repeat,
+               bf16_sums_rel_err=bf16_sums)
+    log(json.dumps(out))
+    need(err <= BF16_GRAD_TOL,
+         f"train embed grad {model.name}: the bf16 embedding gradient "
+         f"differs from float32 by {err} of its largest |grad|")
+    need(repeat, f"train embed grad {model.name}: two bf16 runs differ")
+    del table, bf16, again, f32, f32_ids, r
+    torch.cuda.empty_cache()
+    return out
+
+
 def train_compressed() -> dict:
     """(e) ``make_dp_train_step`` and ``make_compressed_train_step`` over a
     world-size-1 NCCL group (an in-memory store, destroyed at the end) on
@@ -3112,8 +3192,8 @@ def train_compressed() -> dict:
 def train_phase() -> dict:
     """(a)-(e) of the ``train`` phase, in a temporary directory for the
     token file and the checkpoints; returns (a)'s launches (``main``) and
-    those of (c)'s float32 steps summed (``parity``: the FFMA backward's
-    path)."""
+    median step seconds (``steady_step_s``), and the launches of (c)'s
+    float32 steps summed (``parity``: the FFMA backward's path)."""
     import tempfile
     from repro_torch.configs import GRANITE_MOE_3B_A800M, STABLELM_3B
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
@@ -3136,9 +3216,13 @@ def train_phase() -> dict:
         log(f"train bf16 grads {model.name}: "
             f"{time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
+    train_embed_grad(STABLELM_3B)
+    log(f"train embed grad: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
     train_compressed()
     log(f"train compressed: {time.perf_counter() - t0:.2f} s")
-    return {"main": main["launches"], "parity": parity}
+    return {"main": main["launches"], "parity": parity,
+            "steady_step_s": main["steady_step_s"]}
 
 
 #: the ``gnn`` phase (a): the four GNNs trained at the JAX package's
@@ -4018,9 +4102,71 @@ def arch_launchers(T) -> dict:
     return launches
 
 
-def arch_phase(T) -> dict:
-    """(a)-(d) of the ``arch`` phase, float32 with TF32 off (command-r in
-    bf16); returns each path's launches."""
+#: (e) the dry run's time on the host, which the phase keeps under this
+DRYRUN_BUDGET_S = 45.0
+
+
+def arch_dryrun(train_step_s, xdf_step_s: float) -> None:
+    """(e) ``launch.dryrun`` of two one-card cells whose steps this run
+    measured: stablelm-3b's ``train_4k`` cut to the ``train`` phase's
+    batch (4 x 4096 in 2 microbatches, an ``LMArch`` copy of that shape)
+    and xDeepFM's ``train_batch`` (65,536 rows; (b) runs them in 4
+    microbatches).  The dry run costs each cell on fake CPU tensors (host
+    time only, no launch; flash attention as the card's fused kernels,
+    the rest on its plain path): FLOPs by operand type, unfused
+    bytes, the compute and memory terms and the bound, the larger of the
+    two, beside the step seconds measured in this run (``train_step_s``
+    is None when the ``train`` phase did not run) and measured / bound,
+    with the card's name and power limit."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    t0 = time.perf_counter()
+    mesh = make_mesh((1, 1), ("data", "model"))
+    lm = dataclasses.replace(
+        ARCHS["stablelm-3b"], microbatches=TRAIN_MICRO,
+        shapes={"train_4k": dict(kind="train", seq=TRAIN_SEQ,
+                                 batch=TRAIN_BATCH)})
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    for name, cell, measured in (
+            ("stablelm-3b train_4k 4x4096", lm.cell("train_4k", mesh),
+             train_step_s),
+            ("xdeepfm train_batch", ARCHS["xdeepfm"].cell("train_batch",
+                                                          mesh),
+             xdf_step_s)):
+        rec = dryrun.measure(cell)
+        rl = rec["roofline"]
+        need(rec["cost"]["flops"] > 0 and rec["cost"]["bytes accessed"] > 0
+             and rl["bound_s"] > 0, f"arch dryrun {name}: {rec}")
+        log(json.dumps(dict(
+            path="arch dryrun", cell=name, kind=cell.kind,
+            flops_by_dtype=rec["cost"]["flops_by_dtype"],
+            bytes=rec["cost"]["bytes accessed"],
+            top_bytes_by_op=rec["cost"]["top_bytes_by_op"],
+            t_compute_s=rl["t_compute"], t_memory_s=rl["t_memory"],
+            bound_s=rl["bound_s"], bottleneck=rl["bottleneck"],
+            model_flops=cell.model_flops, trace_s=rec["trace_s"],
+            measured_step_s=("not measured" if measured is None
+                             else measured),
+            measured_over_bound=("not measured" if measured is None
+                                 else measured / rl["bound_s"]),
+            bound_note="the count on fake CPU tensors: products by "
+                       "operand type at the H100 SXM peaks, bytes unfused "
+                       "(each op's inputs and outputs), flash attention "
+                       "and its backward as the card's fused kernels",
+            card=smi)))
+    seconds = time.perf_counter() - t0
+    log(f"arch dryrun: {seconds:.2f} s of host time (budget "
+        f"{DRYRUN_BUDGET_S:.0f} s)")
+
+
+def arch_phase(T, train_step_s=None) -> dict:
+    """(a)-(e) of the ``arch`` phase, float32 with TF32 off (command-r in
+    bf16); returns each path's launches.  ``train_step_s`` is the
+    ``train`` phase's median step seconds, for (e)."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4032,7 +4178,7 @@ def arch_phase(T) -> dict:
     launches["registry"] = arch_registry()
     log(f"arch registry: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    params, _ = xdf_train()
+    params, xdf_line = xdf_train()
     log(f"arch xdeepfm train: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     xdf_serve(params)
@@ -4048,6 +4194,7 @@ def arch_phase(T) -> dict:
     t0 = time.perf_counter()
     launches.update(arch_launchers(T))
     log(f"arch launchers: {time.perf_counter() - t0:.2f} s")
+    arch_dryrun(train_step_s, xdf_line["steady_step_s"])
     return launches
 
 
@@ -5467,8 +5614,9 @@ def main(argv=None) -> int:
                          "scale and runs their parity, shape and WCOJ "
                          "feature checks; arch runs every registry smoke, "
                          "trains and serves xDeepFM at full width, serves "
-                         "command-r-plus-104b cut to 8 layers and drives "
-                         "both launchers")
+                         "command-r-plus-104b cut to 8 layers, drives "
+                         "both launchers and sets two cells' dry-run "
+                         "bounds beside their measured steps")
     phases = ap.parse_args(argv).phases.split(",")
     if not set(phases) <= set(PHASES + ("oracles",)):
         ap.error(f"--phases takes {', '.join(PHASES)} or oracles (the "
@@ -5639,7 +5787,9 @@ def run_phases(T, phases, smi: str, workers: dict, started: float) -> int:
 
     if "arch" in phases:
         t0 = time.perf_counter()
-        arch_launches = arch_phase(T)
+        arch_launches = arch_phase(
+            T, train_launches["steady_step_s"] if "train" in phases
+            else None)
         log(f"arch: {time.perf_counter() - t0:.2f} s, launches of the "
             f"registry's smokes {arch_launches['registry']}, of "
             f"command-r's serving path {arch_launches['command_r']}, of "

@@ -20,7 +20,8 @@ defaults do not:
 On the card ``index_add_`` sums with float atomics, so its results are
 not bitwise repeatable.  A gather ``h[idx]`` is :func:`gather`, which
 reads ids as JAX indexing does: negative ids wrap once, then every id
-clamps into ``[0, n)``.
+clamps into ``[0, n)``; its gradient drops the ids outside ``[-n, n)``,
+as JAX's does, and sums a bf16 gradient in float32.
 """
 from __future__ import annotations
 
@@ -146,13 +147,44 @@ def graph_ids(g: GraphBatch, device: torch.device) -> torch.Tensor:
     return as_tensor(g.graph_id, torch.int64, device)
 
 
+class _Gather(torch.autograd.Function):
+    """``x[idx]`` along the first axis with JAX's gather and its
+    transpose: the forward reads a negative id wrapped once, then every id
+    clamped into ``[0, n)``; the backward adds each row's cotangent at its
+    wrapped id, and drops the rows of ids outside ``[-n, n)`` (JAX's
+    scatter-add drops them) into a spare row ``n`` that the gradient
+    leaves out, as :func:`_segments` does for the scatters.  A bf16 or
+    f16 cotangent is summed in float32 and rounded once, by the sort-based
+    ``index_put_`` (the same bits in every run): an LM's embedding row
+    takes thousands of a step's tokens, and summing them in bf16, one
+    rounding an add, loses a tenth of the largest gradient (PERF.md)."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        n = x.shape[0]
+        wrapped = torch.where(idx < 0, idx + n, idx)
+        inside = (wrapped >= 0) & (wrapped < n)
+        ctx.save_for_backward(torch.where(inside, wrapped, n))
+        ctx.n = n
+        return x.index_select(0, wrapped.clamp(0, n - 1))
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        shape = (ctx.n + 1,) + tuple(g.shape[1:])
+        if g.dtype in (torch.bfloat16, torch.float16):
+            out = g.new_zeros(shape, dtype=torch.float32)
+            out.index_put_((ids,), g.float(), accumulate=True)
+            return out[:ctx.n].to(g.dtype), None
+        return g.new_zeros(shape).index_add_(0, ids, g)[:ctx.n], None
+
+
 def gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``x[idx]`` along the first axis as JAX indexes: a negative id
-    wraps once, then ids clamp into ``[0, len(x))``.  Its gradient is an
-    ``index_add_`` (``index_select``'s backward)."""
-    n = x.shape[0]
-    idx = torch.where(idx < 0, idx + n, idx).clamp_(0, n - 1)
-    return x.index_select(0, idx)
+    """``x[idx]`` along the first axis as JAX indexes and differentiates
+    it: a negative id wraps once, then ids clamp into ``[0, len(x))``; the
+    gradient (:class:`_Gather`, no host read) drops the ids outside
+    ``[-len(x), len(x))``."""
+    return _Gather.apply(x, idx)
 
 
 def _segments(dst, n: int, msg: torch.Tensor) -> tuple:

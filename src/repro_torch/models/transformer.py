@@ -28,7 +28,8 @@ so the JAX package's parameters carry across unchanged
   step; the returned cache holds the same tensors.
 
 Two JAX behaviours are reproduced on purpose: token ids are clamped into
-the embedding table (JAX clamps an out-of-range gather, PyTorch raises),
+the embedding table (JAX clamps an out-of-range gather, PyTorch raises;
+the gradient of such an id is dropped, as JAX's is),
 and the decode write position is clamped to ``max_len - 1``
 (``jax.lax.dynamic_update_slice`` clamps its start).
 
@@ -60,7 +61,9 @@ from ..layers.common import (act_fn, apply_rope, cross_entropy_from_logits,
                              make_norm, normal_init)
 from ..layers.common import matmul as _matmul
 from ..layers.moe import (MoEConfig, _dispatch_compute, capacity_of,
-                          init_moe_params, moe_param_shapes, shared_experts)
+                          init_moe_params, moe_param_shapes, moe_param_specs,
+                          shared_experts)
+from .gnn.data import gather
 
 
 @dataclass(frozen=True)
@@ -179,6 +182,47 @@ def param_shapes(cfg: TransformerConfig) -> dict:
     return shapes
 
 
+def param_specs(cfg: TransformerConfig) -> dict:
+    """The axes of :func:`param_shapes`' tensors, as tuples of axis names
+    or None (``"data"`` = the FSDP shard dim with ``fsdp``, ``"model"`` =
+    tensor parallel): the JAX package's ``PartitionSpec``s, entry for
+    entry; an MoE config's ``"moe"`` is
+    :func:`~repro_torch.layers.moe.moe_param_specs`."""
+    dp = "data" if cfg.fsdp else None
+    specs = {
+        "embed": ("model", dp),
+        "ln1": (None, None),
+        "wq": (None, dp, "model"),
+        "wk": (None, dp, None),   # kv heads may not divide the TP axis
+        "wv": (None, dp, None),
+        "wo": (None, "model", dp),
+        "ln2": (None, None),
+        "ln_f": (None,),
+    }
+    if cfg.moe is None:
+        specs["w_gate"] = (None, dp, "model")
+        specs["w_up"] = (None, dp, "model")
+        specs["w_down"] = (None, "model", dp)
+    else:
+        specs["moe"] = moe_param_specs(cfg.moe, cfg.fsdp)
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = (dp, "model")
+    return specs
+
+
+def cache_specs(cfg: TransformerConfig, mesh) -> dict:
+    """The KV cache's axes on ``mesh`` (``launch.mesh.Mesh``, or None):
+    batch over (pod, data); heads over model where the KV heads divide
+    it, else the sequence dim (flash-decoding split-K sharding)."""
+    dax = (() if mesh is None else
+           tuple(a for a in mesh.axis_names if a in ("pod", "data")))
+    if mesh is not None and cfg.n_kv_heads % mesh.shape["model"] == 0:
+        kv = (None, dax, "model", None, None)
+    else:
+        kv = (None, dax, None, "model", None)
+    return {"k": kv, "v": kv, "len": ()}
+
+
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
@@ -186,12 +230,14 @@ def param_shapes(cfg: TransformerConfig) -> dict:
 def _embed(params: dict, tokens: torch.Tensor, cfg: TransformerConfig):
     """``params["embed"][tokens]`` with JAX's gather semantics: a negative
     id counts from the end, then ids are clamped into the table (7 -> 4
-    and -7 -> 0 in a table of 5), where PyTorch would raise."""
+    and -7 -> 0 in a table of 5), where PyTorch would raise; an id outside
+    ``[-n, n)`` sends no gradient to the row it reads, as in JAX, and a
+    bf16 table's gradient is summed in float32
+    (:func:`~repro_torch.models.gnn.data.gather`)."""
     table = params["embed"]
-    n = table.shape[0]
-    t = tokens.long()
-    t = torch.where(t < 0, t + n, t).clamp(0, n - 1)
-    return table[t].to(cfg.dtype)
+    rows = gather(table, tokens.long().reshape(-1))
+    return rows.reshape(tuple(tokens.shape) + (table.shape[1],)).to(
+        cfg.dtype)
 
 
 def _attention(x, lp, cfg: TransformerConfig, positions):
@@ -382,16 +428,20 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     The token's K and V are written into ``cache["k"]``/``cache["v"]`` in
     place at position ``cache["len"]``, clamped into [0, max_len - 1] as
     ``jax.lax.dynamic_update_slice`` clamps it; the returned cache holds
-    the same tensors with ``len`` one larger."""
+    the same tensors with ``len`` one larger.  ``len`` is a Python int, or
+    a 0-d integer tensor (the dry run's cell); either way the slot and the
+    positions are device tensors, read on no host."""
     b = tokens.shape[0]
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     n = cache["len"]
     ml = cache["k"].shape[3]
-    slot = n + ml if n < 0 else n
-    slot = min(max(slot, 0), ml - 1)
     norm = make_norm(cfg.norm)
     x = _embed(params, tokens, cfg)
-    pos = torch.full((b, 1), n, dtype=torch.int32, device=x.device)
+    nt = (n if isinstance(n, torch.Tensor)
+          else torch.full((), n, dtype=torch.int64, device=x.device))
+    slot = torch.where(nt < 0, nt + ml, nt).clamp(0, ml - 1).reshape(1)
+    slot, valid = slot.long(), nt + 1
+    pos = nt.reshape(1, 1).expand(b, 1).to(torch.int32)
     for i, lp in enumerate(_layer_stack(params)):
         kc, vc = cache["k"][i], cache["v"][i]
         h = norm(x, {"scale": lp["ln1"]})
@@ -400,9 +450,9 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
         v = _matmul(h, lp["wv"], cfg.dtype).reshape(b, 1, hkv, dh)
         q = apply_rope(q, pos, cfg.rope_frac, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_frac, cfg.rope_theta)
-        kc[:, :, slot] = k[:, 0]
-        vc[:, :, slot] = v[:, 0]
-        o = _cached_attention(q.transpose(1, 2), kc, vc, n + 1, cfg)
+        kc.index_copy_(2, slot, k.transpose(1, 2).to(kc.dtype))
+        vc.index_copy_(2, slot, v.transpose(1, 2).to(vc.dtype))
+        o = _cached_attention(q.transpose(1, 2), kc, vc, valid, cfg)
         o = o.transpose(1, 2).reshape(b, 1, hq * dh)
         x = x + _matmul(o, lp["wo"], cfg.dtype)
         x = x + _ffn(norm(x, {"scale": lp["ln2"]}), lp, cfg)[0]

@@ -71,7 +71,9 @@ def test_importing_every_port_module_imports_no_jax():
             "repro_torch.configs.command_r_plus_104b",
             "repro_torch.configs.wcoj", "repro_torch.launch",
             "repro_torch.launch.train",
-            "repro_torch.launch.serve"} <= set(mods)
+            "repro_torch.launch.serve", "repro_torch.launch.mesh",
+            "repro_torch.launch.roofline",
+            "repro_torch.launch.dryrun"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
