@@ -102,7 +102,7 @@ kernels' launch counters set to 0 just before it and read just after:
   snapshot, and two threads profiling at once;
 * ``dist``: the server's partitioned route (``dist_edge_threshold``
   lowered to the graph's 1,778,854 directed edges) answers the 3-clique,
-  4-clique, 4-cycle and 3-path at selectivity 8 as ``vlftj+partitioned``
+  4-clique and 4-cycle at selectivity 8 as ``vlftj+partitioned``
   over 4 worker threads x 2 parts, each count equal to the same parts
   run in sequence and to the unpartitioned engine (the three walls
   printed), the lollipops through the planner's engine on the same
@@ -209,7 +209,21 @@ kernels' launch counters set to 0 just before it and read just after:
   ``train_batch`` on the host (fake CPU tensors, no launch): each line
   gives the FLOPs by operand type, the unfused bytes, the compute and
   memory terms at the H100 SXM peaks and their bound beside the step
-  seconds measured in this run, and the card's name and power limit.
+  seconds measured in this run, and the card's name and power limit;
+  then the per-chip programs on the production meshes (``arch mesh``
+  lines): the dry run of stablelm-3b's ``train_4k``, xDeepFM's
+  ``train_batch`` and WCOJ's ``triangle_frontier`` on 16x16 and
+  2x16x16 (one chip's FLOPs by type, bytes, collectives by kind, the
+  three terms and the bottleneck), chip 0's WCOJ join step on 16x16 on
+  the card (a seeded random sorted CSR of the cell's 3,072,441 nodes
+  and 234,370,166 entries; its 65,536 frontier rows; the count equal to
+  the unsharded level step's exactly; ``searchsorted_segments``
+  launched under its sharding rule) and chip 0's stablelm-3b train step
+  on 16x16 (16 x 4096 tokens, 2 local heads, 32 layers; one warm-up and
+  two timed steps over a fake process group, whose collectives move
+  nothing; the loss finite; ``flash_attention_tc`` and
+  ``flash_attention_bwd_tc`` launched under their sharding rules; the
+  step's seconds beside the dry run's per-chip bound, peak memory).
 
 The counts are checked against counts made on the host with scipy and
 numpy alone (the cliques, 3-path and lollipops), across the two dbs
@@ -232,7 +246,8 @@ neither the ``kernels`` line nor the last line (``--phases serve`` runs
 the query server's phase alone, ``--phases dist`` distributed
 execution's, ``--phases train`` training's, ``--phases gnn`` the
 GNNs', ``--phases arch`` the registry's, xDeepFM's, command-r's, the
-launchers' and the dry run's, without a measured stablelm-3b step).  It prints the whole script's seconds (``script:``) before
+launchers', the dry run's and the per-chip programs', without a
+measured stablelm-3b step).  It prints the whole script's seconds (``script:``) before
 the card's line.
 """
 from __future__ import annotations
@@ -4127,10 +4142,7 @@ def arch_dryrun(train_step_s, xdf_step_s: float) -> None:
         ARCHS["stablelm-3b"], microbatches=TRAIN_MICRO,
         shapes={"train_4k": dict(kind="train", seq=TRAIN_SEQ,
                                  batch=TRAIN_BATCH)})
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = _nvidia_smi()
     for name, cell, measured in (
             ("stablelm-3b train_4k 4x4096", lm.cell("train_4k", mesh),
              train_step_s),
@@ -4161,6 +4173,356 @@ def arch_dryrun(train_step_s, xdf_step_s: float) -> None:
     seconds = time.perf_counter() - t0
     log(f"arch dryrun: {seconds:.2f} s of host time (budget "
         f"{DRYRUN_BUDGET_S:.0f} s)")
+
+
+#: (f) the cells of the per-chip programs, and the step's time limit
+MESH_CELLS = (("stablelm-3b", "train_4k"), ("xdeepfm", "train_batch"),
+              ("wcoj", "triangle_frontier"))
+MESH_STEP_LIMIT_S = 90.0
+
+
+def _nvidia_smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def arch_mesh_dryrun(smi: str) -> dict:
+    """(f a) ``launch.dryrun`` of :data:`MESH_CELLS` on the 16x16 and
+    2x16x16 meshes: one chip's program on fake CPU tensors laid out as
+    DTensors over a fake process group (host time only); one line a cell
+    and mesh with the chip's FLOPs by type, bytes, collectives by kind,
+    the three terms and the bottleneck.  Returns the records."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import dryrun
+    recs = {}
+    for arch_id, shape in MESH_CELLS:
+        for mesh_name in ("single", "multi"):
+            mesh, rec_name = dryrun.MESHES[mesh_name]
+            cell = ARCHS[arch_id].cell(shape, mesh)
+            rec = dryrun.measure(cell, mesh)
+            rl = rec["roofline"]
+            need(rec["cost"]["flops"] > 0 and rl["bound_s"] > 0,
+                 f"arch mesh dryrun {arch_id} {shape} {rec_name}: {rec}")
+            coll = rec["coll"]
+            log(json.dumps(dict(
+                path="arch mesh dryrun", cell=f"{arch_id} {shape}",
+                mesh=rec_name, chips=mesh.size,
+                flops_by_dtype=rec["cost"]["flops_by_dtype"],
+                bytes=rec["cost"]["bytes accessed"],
+                coll_bytes={k: v for k, v in coll.items()
+                            if not k.startswith("n_")},
+                coll_calls={k[2:]: v for k, v in coll.items()
+                            if k.startswith("n_")},
+                memory=rec["memory"], t_compute_s=rl["t_compute"],
+                t_memory_s=rl["t_memory"],
+                t_collective_s=rl["t_collective"],
+                bottleneck=rl["bottleneck"], bound_s=rl["bound_s"],
+                trace_s=rec["trace_s"],
+                note="one chip's share, counted on fake CPU tensors: the "
+                     "port's unfused count, not XLA's", card=smi)))
+            recs[(arch_id, rec_name)] = rec
+    return recs
+
+
+def _random_csr(n: int, e: int, seed: int):
+    """A seeded random CSR on the card: ``e`` (src, dst) pairs, sorted by
+    source and then destination, as int32 ``indptr`` and ``indices``."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    src = torch.randint(0, n, (e,), generator=gen, device="cuda")
+    key = src * n + torch.randint(0, n, (e,), generator=gen, device="cuda")
+    del src
+    key = torch.sort(key).values
+    indices = (key % n).to(torch.int32)
+    src = key // n
+    del key
+    indptr = torch.searchsorted(
+        src, torch.arange(n + 1, device="cuda")).to(torch.int32)
+    del src
+    return indptr, indices
+
+
+def arch_mesh_wcoj(bound_s: float, smi: str) -> dict:
+    """(f b) chip 0's program of WCOJ ``triangle_frontier`` on 16x16: the
+    cell's join step on DTensors over a fake 256-rank group, the graph
+    (a seeded random sorted CSR of the cell's nodes and CSR entries)
+    whole on the card, this chip's 65,536 of the 1,048,576 frontier rows
+    (edges sampled from the graph); the count must equal that of the same
+    rows through the unsharded ``_expand_level`` on the card, exactly.
+    Returns the launches of the sharded step."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.common import place
+    from repro_torch.core.vlftj import _expand_level
+    from repro_torch.kernels import build
+    from repro_torch.launch.dryrun import MESHES
+    from repro_torch.launch.mesh import device_mesh
+    from repro_torch.layers.sharding import on_mesh
+    mesh, _ = MESHES["single"]
+    sh = ARCHS["wcoj"].shapes["triangle_frontier"]
+    n, e, c = sh["n_nodes"], sh["n_edges"], sh["frontier"]
+    cell = ARCHS["wcoj"].cell("triangle_frontier", mesh)
+    t0 = time.perf_counter()
+    indptr, indices = _random_csr(n, e, seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = cell.in_shardings[2].shard_shape((c, 2))[0]
+    pick = torch.randint(0, e, (rows,), generator=gen, device="cuda")
+    srcs = torch.searchsorted(indptr[1:].long(), pick, right=True)
+    frontier = torch.stack([srcs.to(torch.int32), indices[pick]], dim=1)
+    mult = torch.ones(rows, dtype=torch.int64, device="cuda")
+    torch.cuda.synchronize()
+    graph_s = time.perf_counter() - t0
+    dm = device_mesh(mesh, "cuda")
+    args = [place(t, s, dm, shape) for t, s, shape in zip(
+        (indptr, indices, frontier, mult), cell.in_shardings,
+        ((n + 1,), (e,), (c, 2), (c,)))]
+    step_s = []
+    build.reset_launches()
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with on_mesh(args):
+            total = cell.fn(*args)
+        got = int(total.full_tensor())
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launches = dict(build.LAUNCHES)
+    want = int(_expand_level(
+        indptr, indices, (), frontier, mult,
+        torch.ones(rows, dtype=torch.bool, device="cuda"),
+        probe_cols=(0, 1), n_unary=0, lower_cols=(1,), upper_cols=(),
+        width=sh["width"], n_iter=18, count_only=True, needs_degree=False,
+        unroll=True).sum())
+    need(got == want, f"arch mesh wcoj: the sharded count {got} != the "
+         f"unsharded {want}")
+    need(launches["searchsorted_segments"] > 0,
+         "arch mesh wcoj never launched searchsorted_segments")
+    log(json.dumps(dict(
+        path="arch mesh wcoj", cell="wcoj triangle_frontier",
+        mesh="pod16x16", chip=0, graph_nodes=n, csr_entries=e,
+        indices_gb=indices.numel() * 4 / 1e9, frontier_rows=rows,
+        count=got, unsharded_count=want, graph_build_s=graph_s,
+        step_s=min(step_s), steps_s=step_s, bound_s=bound_s,
+        measured_over_bound=min(step_s) / bound_s,
+        launches={k: v for k, v in launches.items() if v},
+        note="the count is chip 0's partial: the fake group's all-reduce "
+             "moves nothing", card=smi)))
+    del indptr, indices, args
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _local_values(leaf, shape, name: str, gen, id_limit: int):
+    """Chip 0's shard of a parameter, moment or batch leaf of the LM's
+    train cell: normal(0, 0.02) bf16 weights, float32 norm scales of 1,
+    zero moments and step, token ids below ``id_limit``."""
+    import torch
+    if name.startswith(("m/", "v/")) or name == "step":
+        return torch.zeros(shape, dtype=leaf.dtype, device="cuda")
+    if name.split("/")[-1] in ("ln1", "ln2", "ln_f"):
+        return torch.ones(shape, dtype=leaf.dtype, device="cuda")
+    if leaf.dtype in (torch.int32, torch.int64):
+        return torch.randint(0, id_limit, shape, generator=gen,
+                             device="cuda", dtype=leaf.dtype)
+    return (torch.randn(shape, generator=gen, device="cuda") * 0.02).to(
+        leaf.dtype)
+
+
+def _defined_collectives():
+    """A dispatch mode for chip 0's program over the fake group, whose
+    collectives leave their outputs as they were allocated (uninitialized
+    memory): the slots of the other chips in an all-gather's,
+    reduce-scatter's or all-to-all's output are set to zeros and chip 0's
+    own slot to its own data, so every value is chip 0's partial (an
+    all-reduce already returns chip 0's input).  Nothing is moved and the
+    collectives still run through the group.  ``seen`` counts the
+    collectives by op; ``calls`` the ops the mode saw and ``handler_s``
+    the host seconds its handler spent outside the ops themselves."""
+    from collections import Counter
+
+    import torch
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    def own_slot(out, inp, n, gather_dim, shard_dim):
+        out.zero_()
+        part = inp.chunk(n, dim=shard_dim)[0] if shard_dim is not None \
+            else inp
+        out.narrow(gather_dim, 0, part.shape[gather_dim]).copy_(part)
+
+    class Defined(TorchDispatchMode):
+        seen = Counter()
+        calls, handler_s = 0, 0.0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            t0 = time.perf_counter()
+            self.calls += 1
+            if any(issubclass(t, DTensor) for t in types):
+                self.handler_s += time.perf_counter() - t0
+                return NotImplemented
+            t1 = time.perf_counter()
+            out = func(*args, **(kwargs or {}))
+            t2 = time.perf_counter()
+            self._fill(func, args, out)
+            self.handler_s += (t1 - t0) + (time.perf_counter() - t2)
+            return out
+
+        def _fill(self, func, args, out):
+            name = func._schema.name
+            if func.namespace in ("_c10d_functional", "_dtensor", "c10d"):
+                self.seen[name] += 1
+            if name == "_c10d_functional::all_gather_into_tensor":
+                own_slot(out, args[0], args[1], 0, None)
+            elif name == "_c10d_functional::reduce_scatter_tensor":
+                out.copy_(args[0][:out.shape[0]])
+            elif name == "_c10d_functional::all_to_all_single":
+                out_sizes, in_sizes = args[1], args[2]
+                out.zero_()
+                if out_sizes and in_sizes:
+                    out[:out_sizes[0]].copy_(args[0][:in_sizes[0]])
+            elif name == "_dtensor::shard_dim_alltoall":
+                n = out.shape[args[1]] // args[0].shape[args[1]]
+                own_slot(out, args[0], n, args[1], args[2])
+
+    return Defined()
+
+
+def _mode_call_us(n: int = 20000) -> float:
+    """The host microseconds a dispatch mode that passes every op through
+    adds to one small op on the card (the trampoline into Python), from
+    ``n`` in-place adds timed without and with it."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Through(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            return func(*args, **(kwargs or {}))
+
+    x = torch.zeros(16, device="cuda")
+    walls = []
+    for mode in (None, Through(), None, Through()):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mode if mode is not None else contextlib.nullcontext():
+            for _ in range(n):
+                x.add_(1)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return (min(walls[1], walls[3]) - min(walls[0], walls[2])) / n * 1e6
+
+
+def arch_mesh_lm(bound_s: float, smi: str) -> dict:
+    """(f c) chip 0's program of stablelm-3b ``train_4k`` on 16x16: the
+    cell's train step (all 32 layers, remat, AdamW) on DTensors over a
+    fake 256-rank group, each leaf chip 0's shard (16 x 4096 tokens, 2
+    of the 32 heads, 1/16 of the FFN and of the vocabulary), seeded
+    random weights, token ids in chip 0's vocabulary slice; one warm-up
+    and two timed steps, a finite loss and gradient norm, and the
+    tensor-core flash kernels launched under their sharding rules.
+    The collectives run through the fake group, which moves nothing and
+    takes no time: every value is chip 0's partial.  Returns the launches
+    of the timed steps."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.common import ShapeDtype, place
+    from repro_torch.kernels import build
+    from repro_torch.launch.dryrun import MESHES
+    from repro_torch.launch.mesh import device_mesh
+    mesh, _ = MESHES["single"]
+    cell = ARCHS["stablelm-3b"].cell("train_4k", mesh)
+    dm = device_mesh(mesh, "cuda")
+    # token ids in chip 0's slice of the vocabulary: over the fake group
+    # a chip's embedding rows are whole only for its own ids (the rest
+    # are zeros, and 64 norms' gradients at zero rows overflow)
+    id_limit = cell.in_shardings[0]["embed"].shard_shape(
+        cell.args[0]["embed"].shape)[0]
+
+    def walk(arg, shd, name, gen):
+        if isinstance(arg, ShapeDtype):
+            local = shd.shard_shape(arg.shape) if shd is not None else \
+                arg.shape
+            return place(_local_values(arg, local, name, gen, id_limit),
+                         shd, dm, arg.shape)
+        return {k: walk(v, shd[k] if isinstance(shd, dict) else shd,
+                        f"{name}/{k}" if name else k, gen)
+                for k, v in arg.items()}
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params, opt, batch = (walk(a, shd, "", gen) for a, shd in zip(
+        cell.args, cell.in_shardings))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_s, losses, norms = [], [], []
+    mode = _defined_collectives()
+    for i in range(3):
+        if i == 1:
+            build.reset_launches()
+            mode.calls, mode.handler_s = 0, 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mode:
+            params, opt, metrics = cell.fn(params, opt, batch)
+            loss = float(metrics["loss"].to_local())
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(loss)
+        norms.append(float(metrics["grad_norm"].to_local()))
+    launches = dict(build.LAUNCHES)
+    # the harness' mode on the host, a timed step: its handler's own
+    # seconds plus a trampoline into Python for each op it saw
+    call_us = _mode_call_us()
+    calls, handler_s = mode.calls / 2, mode.handler_s / 2
+    harness = dict(ops_per_step=calls, handler_s_per_step=handler_s,
+                   trampoline_us=call_us,
+                   est_s_per_step=handler_s + calls * call_us * 1e-6)
+    need(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+         f"arch mesh lm: losses {losses}, gradient norms {norms}")
+    need(max(step_s) <= MESH_STEP_LIMIT_S,
+         f"arch mesh lm: a step took {max(step_s):.1f} s")
+    for name in ("flash_attention_tc", "flash_attention_bwd_tc"):
+        need(launches[name] > 0, f"arch mesh lm never launched {name}")
+    step = min(step_s[1:])
+    log(json.dumps(dict(
+        path="arch mesh lm", cell="stablelm-3b train_4k", mesh="pod16x16",
+        chip=0, tokens=[16, 4096], token_ids_below=id_limit,
+        local_heads=2, layers=32,
+        losses=losses, grad_norms=norms, warmup_s=step_s[0], step_s=step,
+        steps_s=step_s[1:],
+        bound_s=bound_s, measured_over_bound=step / bound_s,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches_per_step={k: v / 2 for k, v in launches.items() if v},
+        collectives_per_step={k: v / 3 for k, v in mode.seen.items()},
+        harness_mode=harness,
+        note="collectives through a fake group: they move nothing and take "
+             "no time, so the values are chip 0's partials", card=smi)))
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def arch_mesh() -> dict:
+    """(f) the per-chip programs on the production meshes: (a) the dry
+    run, (b) chip 0's WCOJ join step and (c) chip 0's stablelm-3b train
+    step on the card.  Returns the launches of (b) and (c)."""
+    from repro_torch.launch.mesh import release_fake_world
+    smi = _nvidia_smi()
+    t0 = time.perf_counter()
+    try:
+        recs = arch_mesh_dryrun(smi)
+        log(f"arch mesh dryrun: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        wcoj = arch_mesh_wcoj(
+            recs[("wcoj", "pod16x16")]["roofline"]["bound_s"], smi)
+        log(f"arch mesh wcoj: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        lm = arch_mesh_lm(
+            recs[("stablelm-3b", "pod16x16")]["roofline"]["bound_s"], smi)
+        log(f"arch mesh lm: {time.perf_counter() - t0:.2f} s")
+    finally:
+        release_fake_world()
+    return {"mesh_wcoj": wcoj, "mesh_lm": lm}
 
 
 def arch_phase(T, train_step_s=None) -> dict:
@@ -4195,6 +4557,7 @@ def arch_phase(T, train_step_s=None) -> dict:
     launches.update(arch_launchers(T))
     log(f"arch launchers: {time.perf_counter() - t0:.2f} s")
     arch_dryrun(train_step_s, xdf_line["steady_step_s"])
+    launches.update(arch_mesh())
     return launches
 
 
@@ -4481,6 +4844,21 @@ def host_k4(csr, chunk: int = 1 << 24) -> np.ndarray:
     return k4
 
 
+def host_walks(db) -> tuple:
+    """``(A, v2, A² v1, A³ v1)`` on the host with scipy: ``db``'s
+    adjacency matrix, the indicator of its ``v2`` sample and the walk
+    vectors from its ``v1`` sample (the 3-path count is v2ᵀ A³ v1)."""
+    import scipy.sparse as sp
+    csr = db.csr
+    n = csr.n_nodes
+    a = sp.csr_matrix((np.ones(csr.indices.shape[0], dtype=np.int64),
+                       csr.indices, csr.indptr), shape=(n, n))
+    v1, v2 = (np.isin(np.arange(n), db.unary[u]).astype(np.int64)
+              for u in ("v1", "v2"))
+    w2 = a @ (a @ v1)
+    return a, v2, w2, a @ w2
+
+
 def host_counts(db) -> tuple[dict, int]:
     """Counts of the cliques, acyclic and lollipop shapes from walk
     vectors and per-vertex clique counts, on the host with scipy and numpy
@@ -4496,15 +4874,8 @@ def host_counts(db) -> tuple[dict, int]:
 
     Also returns the rows ``engine="vlftj"`` would materialize for the
     3-lollipop before its last level, Σ_d k4(d) · (A · deg)[d]."""
-    import scipy.sparse as sp
     csr = db.csr
-    n = csr.n_nodes
-    a = sp.csr_matrix((np.ones(csr.indices.shape[0], dtype=np.int64),
-                       csr.indices, csr.indptr), shape=(n, n))
-    v1, v2 = (np.isin(np.arange(n), db.unary[u]).astype(np.int64)
-              for u in ("v1", "v2"))
-    w2 = a @ (a @ v1)
-    w3 = a @ w2
+    a, v2, w2, w3 = host_walks(db)
     t = np.asarray(a.multiply(a @ a).sum(axis=1)).ravel() // 2
     k4 = host_k4(csr)
     return ({"3-clique": int(t.sum()) // 3, "3-path": int(v2 @ w3),
@@ -5259,10 +5630,16 @@ def serve_phase(T, g) -> tuple:
 #: the planner's engine on the same server: the 2-lollipop's vlftj count
 #: took ~20 s in sequence and ~94 s on the pool on one H100 80GB HBM3 at
 #: 700 W, and the 3-lollipop's vlftj plan materializes a ~744 M-row
-#: frontier
+#: frontier.  The shapes of ``DIST_HOST_HELD`` are held against their
+#: host count (``host_walks``) in place of the sequence's and the
+#: unpartitioned engine's reruns: the 3-path's three runs took ~55 s (75
+#: s on a slower host), more than the script's time allows beside the
+#: ``arch mesh`` step
 DIST_SELECTIVITY = 8.0
 DIST_WORKERS, DIST_GRANULARITY = 4, 2
 DIST_ROUTED = ("3-clique", "4-clique", "4-cycle", "3-path")
+DIST_HOST_HELD = ("3-path",)
+DIST_PLANNED = ("2-lollipop", "3-lollipop")
 #: ``benchmarks/bench_dist.py``'s quick workloads (the JAX package's
 #: ``BENCH_dist.json``): the triangle level of ``powerlaw_cluster(1200,
 #: 6, seed=0)`` padded to the record's 8 devices; the Zipf 3-path skew
@@ -5289,7 +5666,8 @@ def dist_route(T, g) -> dict:
     """The server's partitioned route at scale: each routed shape's count
     through ``QueryServer(..., dist_edge_threshold=g.n_edges)`` (the
     thread pool), then the same parts in sequence and the unpartitioned
-    engine, all equal; the lollipops through the planner's engine on the
+    engine, all equal (those of ``DIST_HOST_HELD`` equal to their host
+    count instead); the lollipops through the planner's engine on the
     same server; 3-path pages through the route
     against ``enumerate(limit=)``.  Returns the launches of the routed
     calls alone."""
@@ -5323,6 +5701,17 @@ def dist_route(T, g) -> dict:
         thread = dict(wall_s=st["wall_time"], makespan_s=st["makespan"],
                       total_s=st["total_time"],
                       part_counts=st["part_counts"])
+        if shape in DIST_HOST_HELD:
+            _, v2, _, w3 = host_walks(gdb)
+            host = int(v2 @ w3)
+            need(res.count == host, f"dist {shape}: routed {res.count}, "
+                 f"host {host}")
+            log(json.dumps(dict(
+                dist_route=shape, selectivity=DIST_SELECTIVITY,
+                count=res.count, host_count=host, engine=res.engine,
+                request_s=routed_s, searchsorted_launches=launched,
+                thread=thread)))
+            continue
         seq = PartitionedJoin(q, gdb, n_workers=DIST_WORKERS,
                               granularity=DIST_GRANULARITY, plan=res.plan,
                               backend="sequential")
@@ -5345,9 +5734,7 @@ def dist_route(T, g) -> dict:
             unpartitioned_s=direct_s,
             thread_over_sequential=st["wall_time"]
             / seq.stats["wall_time"])))
-    for shape in SHAPES:
-        if shape in DIST_ROUTED:
-            continue
+    for shape in DIST_PLANNED:
         res = server.execute(QueryRequest(shape,
                                           selectivity=DIST_SELECTIVITY))
         direct = T.count(T.get_query(shape), gdb, engine=res.engine)
@@ -5794,14 +6181,20 @@ def run_phases(T, phases, smi: str, workers: dict, started: float) -> int:
             f"registry's smokes {arch_launches['registry']}, of "
             f"command-r's serving path {arch_launches['command_r']}, of "
             f"the training launcher's runs {arch_launches['train']}, of "
-            f"the serving launcher's batch {arch_launches['serve']}")
+            f"the serving launcher's batch {arch_launches['serve']}, of "
+            f"chip 0's WCOJ join step on 16x16 "
+            f"{arch_launches['mesh_wcoj']}, of chip 0's stablelm-3b train "
+            f"steps on 16x16 {arch_launches['mesh_lm']}")
         for path, kernels in (("registry", ("searchsorted_segments",
                                             "flash_attention_mma",
                                             "flash_attention_bwd")),
                               ("command_r", ("flash_attention_tc",)),
                               ("train", ("flash_attention_mma",
                                          "flash_attention_bwd")),
-                              ("serve", ("searchsorted_segments",))):
+                              ("serve", ("searchsorted_segments",)),
+                              ("mesh_wcoj", ("searchsorted_segments",)),
+                              ("mesh_lm", ("flash_attention_tc",
+                                           "flash_attention_bwd_tc"))):
             for name in kernels:
                 need(arch_launches[path][name] > 0,
                      f"the arch phase's {path} path never launched {name}")

@@ -12,7 +12,12 @@ dry-run :class:`Cell`: the step function, its abstract arguments
 specs on a ``launch.mesh.Mesh`` (:func:`named`), with the JAX cell's
 kind, skip reason, model FLOPs and donated arguments.
 ``launch.dryrun`` runs a cell's function once on fake tensors and counts
-its cost.  Specs are tuples whose entries are an axis name, None or a
+its cost: on one card the whole program, on a production mesh one
+chip's, each argument a DTensor (:func:`place`) laid out by its
+:class:`NamedSharding` (``shard_shape`` gives its local shape, as JAX's
+does); a step takes its mesh from its arguments' layout
+(``layers.sharding.mesh_of``), so one function serves both.  Specs are
+tuples whose entries are an axis name, None or a
 tuple of axis names, as ``PartitionSpec``s are.
 """
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from ..device import resolve_device
+from ..layers.sharding import mesh_of, placements
 from ..models import transformer as tfm
 from ..models import xdeepfm as xdf
 from ..models.gnn import data as gnn_data
@@ -80,6 +86,41 @@ class NamedSharding:
 
     mesh: Any
     spec: tuple
+
+    def shard_shape(self, global_shape) -> tuple:
+        """One chip's shape of a ``global_shape`` array, as
+        ``jax.sharding.NamedSharding.shard_shape`` gives it: each dim
+        divided by the product of its axes' sizes, which must divide
+        it."""
+        sizes = self.mesh.shape
+        out = []
+        for dim, size in enumerate(global_shape):
+            entry = self.spec[dim] if dim < len(self.spec) else None
+            axes = (() if entry is None else
+                    (entry,) if isinstance(entry, str) else entry)
+            ways = 1
+            for a in axes:
+                ways *= sizes[a]
+            if size % ways:
+                raise ValueError(
+                    f"shard_shape: axis {dim} of {tuple(global_shape)} is "
+                    f"split {ways} ways by {self.spec}, which does not "
+                    "divide it")
+            out.append(size // ways)
+        return tuple(out)
+
+
+def place(local: torch.Tensor, sharding: NamedSharding | None, dmesh,
+          global_shape) -> torch.Tensor:
+    """``local``, one chip's shard of a ``global_shape`` array, as a
+    DTensor on ``dmesh`` laid out as ``sharding`` says (replicated where
+    it is None)."""
+    from torch.distributed.tensor import DTensor
+    spec = () if sharding is None else sharding.spec
+    stride = torch.empty(tuple(global_shape), device="meta").stride()
+    return DTensor.from_local(local, dmesh, placements(dmesh, spec),
+                              run_check=False, shape=tuple(global_shape),
+                              stride=stride)
 
 
 def _is_spec(x) -> bool:
@@ -247,8 +288,9 @@ class LMArch:
             bsh = named(mesh, {"tokens": (dax, None),
                                "labels": (dax, None)})
             step = make_train_step(
-                lambda p, b: tfm.loss_fn(p, b, cfg), OptimizerConfig(),
-                microbatches)
+                lambda p, b: tfm.loss_fn(p, b, cfg,
+                                         mesh=mesh_of(b["tokens"])),
+                OptimizerConfig(), microbatches)
             return Cell(self.arch_id, shape_name, "train", step,
                         (params, opt, batch_abs),
                         in_shardings=(psh, opt_sh, bsh),
@@ -257,7 +299,8 @@ class LMArch:
         if sh["kind"] == "prefill":
             toks = sds((batch, seq), torch.int32)
             csp = tfm.cache_specs(cfg, mesh)
-            fn = lambda p, t: tfm.prefill(p, t, cfg, max_len=seq)
+            fn = lambda p, t: tfm.prefill(p, t, cfg, max_len=seq,
+                                          mesh=mesh_of(t))
             out_sh = (named(mesh, csp), named(mesh, (dax, None, "model")))
             return Cell(self.arch_id, shape_name, "prefill", fn,
                         (params, toks),
@@ -270,7 +313,7 @@ class LMArch:
                  cfg.dtype)
         cache = {"k": kv, "v": kv, "len": sds((), torch.int32)}
         toks = sds((batch, 1), torch.int32)
-        fn = lambda p, c, t: tfm.decode_step(p, c, t, cfg)
+        fn = lambda p, c, t: tfm.decode_step(p, c, t, cfg, mesh=mesh_of(t))
         return Cell(self.arch_id, shape_name, "decode", fn,
                     (params, cache, toks),
                     in_shardings=(psh, named(mesh, csp),

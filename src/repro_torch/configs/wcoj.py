@@ -26,6 +26,7 @@ import torch
 
 from ..core.vlftj import _expand_level
 from ..device import resolve_device
+from ..layers.sharding import is_dtensor
 from ..models.gnn.data import gather, scatter_sum
 from .common import Cell, _dataxes, named, sds
 
@@ -70,6 +71,20 @@ WCOJ_SHAPES = {
         frontier=1 << 19, width=512, n_bound=3, n_probe=2,
         variant="rotate2l", stride=128, full_mesh=True),
 }
+
+
+def _head_tail(x, k: int, n: int):
+    """``(x[:k], x[k:])`` of ``n`` rows; a DTensor split along its rows is
+    cut on each chip at ``k / n`` of its own rows (the rows stay where
+    they are, where slicing the global rows would gather them), so every
+    chip sends the same share to each check path."""
+    if not is_dtensor(x):
+        return x[:k], x[k:]
+    from torch.distributed.tensor.experimental import local_map
+    pl = list(x.placements)
+    cut = lambda t: (t[:k * t.shape[0] // n], t[k * t.shape[0] // n:])
+    return local_map(cut, out_placements=(pl, pl), in_placements=(pl,),
+                     device_mesh=x.device_mesh)(x)
 
 
 @dataclass
@@ -120,13 +135,14 @@ class WCOJArch:
                             lower_cols=(nb - 1,), upper_cols=(),
                             width=w, n_iter=n_iter, count_only=True,
                             needs_degree=False, unroll=True)
+                (f1, f2), (m1, m2) = (_head_tail(t, ct, c)
+                                      for t in (frontier, mult))
                 c1 = _expand_level(
-                    indptr, indices, (), frontier[:ct], mult[:ct],
-                    rows(ct, frontier), check_mode="tile",
-                    check_width=cw, **base)
+                    indptr, indices, (), f1, m1, rows(f1.shape[0], f1),
+                    check_mode="tile", check_width=cw, **base)
                 c2 = _expand_level(
-                    indptr, indices, (), frontier[ct:], mult[ct:],
-                    rows(c - ct, frontier), **base)
+                    indptr, indices, (), f2, m2, rows(f2.shape[0], f2),
+                    **base)
                 return c1.sum() + c2.sum()
         elif variant in ("rotate", "rotate2l"):
             # only the P-1 non-probe membership checks (rotated from the

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops as kops
+from ..layers.sharding import take
 from .device_graph import GraphDB
 from .plan import (GraphStats, JoinPlan, LevelPlan, compile_levels,
                    executor_geometry)
@@ -81,6 +82,13 @@ def _expand_level(indptr, indices, bitmaps, frontier, mult, row_valid, *,
     JAX wraps a negative index once and clamps the rest, where PyTorch
     raises, so an id outside the graph reads what it reads in JAX.
     ``VLFTJ``, whose frontiers hold only vertex ids, turns it off.
+
+    On DTensors (the WCOJ cells on a mesh) each chip expands its own
+    frontier rows against the whole graph: the gathers are local
+    (``layers.sharding.take``), the kernels' custom ops run under their
+    sharding rules, and the caller's sum of the counts is a partial sum
+    over the chips, reduced where the cell's output is laid out whole
+    (as ``dist.sharded_join.spmd_join_step`` reduces it by hand).
     """
     m = indices.shape[0]
     dev = frontier.device
@@ -88,10 +96,10 @@ def _expand_level(indptr, indices, bitmaps, frontier, mult, row_valid, *,
         n_ptr = indptr.shape[0]
 
         def at(ids):
-            return indptr[ids.clamp(-n_ptr, n_ptr - 1)]
+            return take(indptr, ids.clamp(-n_ptr, n_ptr - 1))
     else:
         def at(ids):
-            return indptr[ids]
+            return take(indptr, ids)
     xs = frontier[:, list(probe_cols)]                        # (C, P)
     starts = at(xs)
     degs = at(xs + 1) - starts                                # (C, P)
@@ -105,7 +113,7 @@ def _expand_level(indptr, indices, bitmaps, frontier, mult, row_valid, *,
 
     j = torch.arange(width, dtype=torch.int32, device=dev)
     cand_idx = start_star[:, None] + j[None, :]
-    cand = indices[cand_idx.clamp(0, max(0, m - 1))]          # (C, W)
+    cand = take(indices, cand_idx.clamp(0, max(0, m - 1)))    # (C, W)
     keep = (j[None, :] < deg_star[:, None]) & row_valid[:, None]
 
     # the tile and bitset checks test only the live lanes (0 for invalid
@@ -147,13 +155,13 @@ def _expand_level(indptr, indices, bitmaps, frontier, mult, row_valid, *,
 
     n = bitmaps[0].shape[0] if n_unary else 0
     for b in range(n_unary):
-        keep &= bitmaps[b][cand.clamp(0, n - 1)]
+        keep &= take(bitmaps[b], cand.clamp(0, n - 1))
     for col in lower_cols:
         keep &= cand > frontier[:, col][:, None]
     for col in upper_cols:
         keep &= cand < frontier[:, col][:, None]
     if needs_degree:
-        keep &= (indptr[cand + 1] - indptr[cand]) > 0
+        keep &= (take(indptr, cand + 1) - take(indptr, cand)) > 0
 
     if count_only:
         return keep.sum(dim=1, dtype=torch.int64) * mult

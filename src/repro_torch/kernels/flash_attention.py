@@ -373,7 +373,9 @@ def _launch_bwd_tc(q, k, v, o, do, lse, causal: bool, scale: float):
 class FlashAttention(torch.autograd.Function):
     """Flash attention on the card with its gradient: the forward kernel
     :func:`route` picks (``tc`` or ``mma``), and
-    :func:`flash_attention_bwd_cuda` as the backward.  Where a gradient is
+    :func:`flash_attention_bwd_cuda` as the backward; on DTensors each
+    through its custom op (``kernels.custom``), which runs it on the
+    local shards under the ops' sharding rules.  Where a gradient is
     needed on the ``tc`` route the forward also returns each row's
     log-sum-exp, saved for the tensor-core backward (a recompute under
     ``torch.utils.checkpoint`` runs the forward again with grad on, so it
@@ -382,10 +384,21 @@ class FlashAttention(torch.autograd.Function):
     function."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, scale):
+    def forward(ctx, q, k, v, causal: bool, scale, with_lse=None):
+        # with_lse: whether a gradient's forward returns the log-sum-exp;
+        # None lets the route decide (the dry run's stand-in asks for it)
+        from ..layers.sharding import is_dtensor
+        from . import custom   # its ops wrap this module's
         lse = None
-        if (any(ctx.needs_input_grad[:3])
-                and route(q.device, q.dtype, q.shape[3]) == "tc"):
+        if with_lse is None:
+            with_lse = route(q.device, q.dtype, q.shape[3]) == "tc"
+        with_lse = any(ctx.needs_input_grad[:3]) and with_lse
+        if is_dtensor(q):
+            if with_lse:
+                o, lse = custom.flash_attention_lse(q, k, v, causal, scale)
+            else:
+                o = custom.flash_attention(q, k, v, causal, scale)
+        elif with_lse:
             o, lse = flash_attention_cuda(q, k, v, causal=causal,
                                           scale=scale, return_lse=True)
         else:
@@ -397,6 +410,12 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o, do, ctx.causal,
-                                              ctx.scale, lse=lse)
-        return dq, dk, dv, None, None
+        from ..layers.sharding import is_dtensor
+        from . import custom
+        if is_dtensor(q):
+            dq, dk, dv = custom.flash_attention_bwd(q, k, v, o, do, lse,
+                                                    ctx.causal, ctx.scale)
+        else:
+            dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o, do, ctx.causal,
+                                                  ctx.scale, lse=lse)
+        return dq, dk, dv, None, None, None

@@ -3,12 +3,20 @@
 A tensor on the CPU runs the plain PyTorch version (``kernels/ref.py``);
 a tensor on a CUDA device launches the hand-written CUDA kernel, or
 raises.  There is no switch and no fallback: on the card, nothing here
-ever runs a plain version.
+ever runs a plain version.  A DTensor on the card (a mesh program)
+reaches the kernels of ``searchsorted_segments``,
+``searchsorted_segments_2level``, ``tile_member_mask`` and
+``flash_attention`` (and its backward) through their custom ops
+(``kernels.custom``), which run them on its local shards under the ops'
+sharding rules; a plain card tensor calls the kernel's wrapper
+directly, without the custom op's dispatch.
 """
 from __future__ import annotations
 
 import torch
 
+from ..layers.sharding import is_dtensor as _sharded
+from . import custom as _custom
 from . import ref as _ref
 from .flash_attention import FlashAttention
 from .flash_attention import route as _flash_route
@@ -39,6 +47,9 @@ def searchsorted_segments(values, lo, hi, queries, n_iter: int,
     if _on_cpu(values):
         return _ref.searchsorted_segments_ref(values, lo, hi, queries,
                                               n_iter=n_iter)
+    if _sharded(values):
+        return _custom.searchsorted_segments(values, lo, hi, queries,
+                                             n_iter)
     return searchsorted_segments_cuda(values, lo, hi, queries, n_iter)
 
 
@@ -49,10 +60,15 @@ def searchsorted_segments_2level(values, summary, lo, hi, queries, *,
     is two launches of the ``searchsorted_segments`` kernel (the summary
     level, then the window level) with the window arithmetic between
     them in PyTorch, as the reference computes it outside any kernel."""
-    search = (_ref.searchsorted_segments_ref if _on_cpu(values)
-              else searchsorted_segments_cuda)
+    if _on_cpu(values):
+        return _ref.searchsorted_segments_2level_ref(
+            values, summary, lo, hi, queries, stride, n1, n2)
+    if _sharded(values):
+        return _custom.searchsorted_segments_2level(
+            values, summary, lo, hi, queries, stride, n1, n2)
     return _ref.searchsorted_segments_2level_ref(
-        values, summary, lo, hi, queries, stride, n1, n2, search=search)
+        values, summary, lo, hi, queries, stride, n1, n2,
+        search=searchsorted_segments_cuda)
 
 
 def tile_member_mask(indices, lo, hi, cand, check_width: int,
@@ -63,6 +79,9 @@ def tile_member_mask(indices, lo, hi, cand, check_width: int,
     if _on_cpu(indices):
         return _ref.tile_member_mask_ref(indices, lo, hi, cand, check_width,
                                          lane_len)
+    if _sharded(indices):
+        return _custom.tile_member_mask(indices, lo, hi, cand, check_width,
+                                        lane_len)
     return tile_member_mask_cuda(indices, lo, hi, cand, check_width,
                                  lane_len)
 

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from ..layers.sharding import take
+
 
 def searchsorted_segments_ref(values: torch.Tensor, lo: torch.Tensor,
                               hi: torch.Tensor, queries: torch.Tensor,
@@ -33,13 +35,15 @@ def searchsorted_segments_ref(values: torch.Tensor, lo: torch.Tensor,
     hi_c = hi0.clone()
     for _ in range(n_iter):
         active = lo_c < hi_c
-        mid = (lo_c + hi_c) >> 1
-        v = values[mid.clamp(0, m - 1)]
+        # the function, not the operator: a DTensor's ``>>`` with a
+        # Python int returns its input unshifted (PyTorch 2.13)
+        mid = torch.bitwise_right_shift(lo_c + hi_c, 1)
+        v = take(values, mid.clamp(0, m - 1))
         go_right = active & (v < q)
         lo_c = torch.where(go_right, mid + 1, lo_c)
         hi_c = torch.where(active & ~go_right, mid, hi_c)
     pos = lo_c
-    found = (pos < hi0) & (values[pos.clamp(0, m - 1)] == q)
+    found = (pos < hi0) & (take(values, pos.clamp(0, m - 1)) == q)
     return pos, found
 
 

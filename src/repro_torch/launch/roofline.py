@@ -11,7 +11,21 @@ cores and the float32 products of ``layers.common._WideProduct``'s
 backward on the CUDA cores, where bf16's 989 TFLOP/s would claim a bound
 the card cannot reach.  FLOPs, bytes and collectives come from the dry
 run's count (``launch.dryrun``); :class:`CollectiveBytes` counts the
-``torch.distributed`` collectives a run issues.
+``torch.distributed`` collectives a run issues, a DTensor's among them
+(its ``_c10d_functional`` ops and its all-to-all); on a mesh they are one
+chip's, the operands of its local shards.
+
+The collective term keeps the JAX package's formula
+(``repro.launch.roofline``): the summed operand bytes of one chip's
+collectives over ``chips`` times one card's link rate, with compute and
+memory per chip.  It assumes every collective rides NVLink at 450 GB/s
+a card each way on every mesh: on the card (1×1) there is none, on the
+16×16 and 2×16×16 meshes the formula spreads each chip's bytes over the
+whole mesh's links as the JAX one does.  256 and 512 H100s span 32 and
+64 NVLink domains of 8 cards (an HGX H100 board, NVIDIA's HGX data
+sheet); the hops between domains run over the scale-out network
+(InfiniBand NDR, 50 GB/s a card each way), which the term does not see,
+so it is a bound of the NVLink part only.
 
 Peaks of one H100 SXM from NVIDIA's data sheet (dense, without sparsity,
 at the full 700 W): 3.35 TB/s of HBM; bf16 and fp16 989, TF32 495, fp32
@@ -68,8 +82,10 @@ _KIND = {
     "alltoall_": "all-to-all", "alltoall_base_": "all-to-all",
     "all_to_all_single": "all-to-all",
     "send": "collective-permute",
+    # DTensor's redistribution between two sharded dims
+    "shard_dim_alltoall": "all-to-all",
 }
-_NAMESPACES = ("c10d", "_c10d_functional")
+_NAMESPACES = ("c10d", "_c10d_functional", "_dtensor")
 
 
 def _operand_bytes(func, args) -> int:
@@ -95,6 +111,10 @@ class CollectiveBytes(TorchDispatchMode):
         self.calls = dict.fromkeys(COLLECTIVES, 0)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if _has_dtensor(types):
+            # DTensor runs the op on its shards and issues the
+            # collectives of its redistributions: those pass here
+            return NotImplemented
         kind = (_KIND.get(func._schema.name.split("::")[-1])
                 if func.namespace in _NAMESPACES else None)
         if kind is not None:
@@ -106,6 +126,11 @@ class CollectiveBytes(TorchDispatchMode):
         """Per kind the summed operand bytes, plus ``n_<kind>`` calls:
         the dict ``repro.launch.roofline.collective_bytes`` gives."""
         return {**self.bytes, **{f"n_{k}": v for k, v in self.calls.items()}}
+
+
+def _has_dtensor(types) -> bool:
+    from torch.distributed.tensor import DTensor
+    return any(issubclass(t, DTensor) for t in types)
 
 
 def collective_bytes(fn, *args, **kwargs) -> dict:

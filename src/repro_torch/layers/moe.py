@@ -218,9 +218,19 @@ def shared_experts(x: torch.Tensor, lp: dict, act: str) -> torch.Tensor:
     """The always-on shared experts' float32 output for ``x (..., d)``:
     ``act(x @ sh_gate) * (x @ sh_up)`` cast to ``x.dtype``, then
     ``@ sh_down``."""
-    g = act_fn(act)(matmul(x, lp["sh_gate"], torch.float32))
-    u = matmul(x, lp["sh_up"], torch.float32)
-    return matmul((g * u).to(x.dtype), lp["sh_down"], torch.float32)
+    g = act_fn(act)(_product(x, lp["sh_gate"]))
+    u = _product(x, lp["sh_up"])
+    return _product((g * u).to(x.dtype), lp["sh_down"])
+
+
+def _product(x, w):
+    """``matmul(x, w, float32)``; on DTensors each chip's product of its
+    shards."""
+    from .sharding import is_dtensor, sharded_product
+    if is_dtensor(x):
+        return sharded_product(x, w,
+                               lambda a, b: matmul(a, b, torch.float32))
+    return matmul(x, w, torch.float32)
 
 
 def moe_ffn(x: torch.Tensor, params_layer: dict, cfg: MoEConfig,
@@ -273,4 +283,72 @@ def moe_ffn(x: torch.Tensor, params_layer: dict, cfg: MoEConfig,
         aux = aux / dist.get_world_size(data_group)
     if cfg.n_shared_experts:
         y = y + total[n:2 * n].reshape(b, s, d).to(y.dtype)
+    return y, aux
+
+
+def moe_ffn_mesh(x, params_layer: dict, cfg: MoEConfig, mesh, *,
+                 act: str = "silu", dtype: torch.dtype = torch.bfloat16):
+    """The JAX package's ``moe_ffn`` on a mesh: ``x`` (B, S, d), a DTensor
+    split over the data axes of ``mesh`` (a ``DeviceMesh`` with a
+    ``model`` dim), and one layer's parameters laid out by
+    :func:`moe_param_specs`.  Each chip runs :func:`_dispatch_compute`
+    on its tokens and its experts (``ep``: ``E / model`` experts from
+    ``e_off = model rank * E_loc``; ``tp``: a ``1 / model`` slice of
+    every expert's width) through ``local_map``, the counterpart of the
+    JAX ``shard_map``, with the capacity of its own ``B * S / data``
+    tokens; the routed partial sums are reduced over ``model`` in
+    float32 (the ``psum``) and cast to ``dtype``, and the aux loss is
+    averaged over the whole mesh (the ``pmean``s; every chip's aux is
+    the same over ``model``).  The shared experts
+    are tensor parallel over ``model`` outside the map, as in the JAX
+    package.  Returns ``(y, aux)``."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    from .sharding import axis_size, data_axes, placements
+    dax = data_axes(mesh)
+    b, s, d = x.shape
+    t_local = (b * s) // axis_size(mesh, dax)
+    capacity = capacity_of(cfg, t_local)
+    if cfg.shard_mode == "ep":
+        wspec = wdspec = ("model", None, None)
+    else:
+        wspec, wdspec = (None, None, "model"), (None, "model", None)
+    x_pl = placements(mesh, (dax, None, None))
+    on_model = [n == "model" for n in mesh.mesh_dim_names]
+    y_pl = [Partial() if m else p for m, p in zip(on_model, x_pl)]
+    # the aux loss as a sum of each chip's share of the mean (a Partial
+    # sum's gradient reaches every chip whole, where an average's would
+    # not be divided)
+    aux_pl = [Partial()] * mesh.ndim
+    n_chips = mesh.size()
+    w_pl = placements(mesh, wspec)
+    wd_pl = placements(mesh, wdspec)
+    # gradients: each model rank's experts see part of every token and
+    # each data rank part of the tokens, so their shares are partial sums
+    x_grad = [Partial() if m else p for m, p in zip(on_model, x_pl)]
+    r_grad = [Partial()] * mesh.ndim
+    w_grad = [p if m else Partial() for m, p in zip(on_model, w_pl)]
+    wd_grad = [p if m else Partial() for m, p in zip(on_model, wd_pl)]
+
+    def f(x_loc, router, wg, wu, wd):
+        tl = x_loc.shape[0] * x_loc.shape[1]
+        e_off = (mesh.get_local_rank("model") * wg.shape[0]
+                 if cfg.shard_mode == "ep" else 0)
+        out, aux = _dispatch_compute(
+            x_loc.reshape(tl, d), router, wg, wu, wd, cfg=cfg, e_off=e_off,
+            n_total_experts=cfg.n_experts, act=act, capacity=capacity)
+        return out.reshape(x_loc.shape), aux / n_chips
+
+    y, aux = local_map(
+        f, out_placements=(y_pl, aux_pl),
+        in_placements=(x_pl, placements(mesh, ()), w_pl, w_pl, wd_pl),
+        in_grad_placements=(x_grad, r_grad, w_grad, w_grad, wd_grad),
+        redistribute_inputs=True, device_mesh=mesh)(
+        x, params_layer["router"], params_layer["w_gate"],
+        params_layer["w_up"], params_layer["w_down"])
+    y = y.redistribute(mesh, x_pl).to(dtype)
+    if cfg.n_shared_experts:
+        sh = shared_experts(x, params_layer, act)
+        y = y + sh.redistribute(mesh, x_pl).to(y.dtype)
     return y, aux

@@ -31,6 +31,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from ...layers.sharding import is_dtensor
+
 from ...device import resolve_device
 
 
@@ -179,11 +181,137 @@ class _Gather(torch.autograd.Function):
         return g.new_zeros(shape).index_add_(0, ids, g)[:ctx.n], None
 
 
+def _meta_stride(shape) -> tuple:
+    return torch.empty(tuple(shape), device="meta").stride()
+
+
+def _as_dtensor(t: torch.Tensor, mesh):
+    """``t`` as a DTensor on ``mesh``: a plain tensor is whole on every
+    chip."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if is_dtensor(t):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _whole_where_both_split(a, b):
+    """``a`` gathered whole (and any partial sum reduced) on every mesh
+    dim where ``b`` is split too or ``a`` is a partial sum: one chip can
+    then pair its share of one with its share of the other."""
+    from torch.distributed.tensor import Replicate
+    want = [Replicate() if (p.is_partial() or not q.is_replicate()
+                            and not p.is_replicate()) else p
+            for p, q in zip(a.placements, b.placements)]
+    return a if want == list(a.placements) else a.redistribute(
+        a.device_mesh, want)
+
+
+def _whole(t):
+    """``t`` with any partial sum reduced."""
+    from torch.distributed.tensor import Replicate
+    want = [Replicate() if p.is_partial() else p for p in t.placements]
+    return t if want == list(t.placements) else t.redistribute(
+        t.device_mesh, want)
+
+
+def _row_offset(n: int, mesh, placements) -> int:
+    """The first global row of this chip's shard of ``n`` rows split by
+    ``placements`` (``torch.chunk``'s blocks, mesh dims major to
+    minor)."""
+    coord = mesh.get_coordinate()
+    off, size = 0, n
+    for i, p in enumerate(placements):
+        if p.is_shard(0):
+            chunk = -(-size // mesh.size(i))
+            start = min(coord[i] * chunk, size)
+            off += start
+            size = min(chunk, size - start)
+    return off
+
+
+class _ShardedGather(torch.autograd.Function):
+    """:class:`_Gather` on DTensors, one chip's share: ``x`` (rows whole
+    or split, any other dim split) and 1-D ids ``idx`` (whole or split),
+    never split on the same mesh dim.  A chip reads its rows for the ids
+    it holds: where the ids are split the result is split as they are;
+    where the rows are split each chip gathers the ids that fall in its
+    rows and zeros for the rest, a partial sum that the next use of the
+    rows reduces (the vocabulary-parallel embedding; an all-reduce of the
+    gathered rows, which XLA's partitioner also issues for a gather from
+    a row-split table, where ``tab[ids]`` on DTensors would move the
+    whole table by an all-to-all).  The backward adds each chip's
+    cotangent rows into its rows: split rows stay split, and rows whole
+    on a dim where the ids are split get a partial sum there (reduced
+    where the gradient meets its parameter's layout)."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+        mesh = x.device_mesh
+        n = x.shape[0]
+        xl, il = x.to_local(), idx.to_local()
+        nl, off = xl.shape[0], _row_offset(n, mesh, x.placements)
+        wrapped = torch.where(il < 0, il + n, il)
+        inside = (wrapped >= 0) & (wrapped < n)
+        loc = wrapped.clamp(0, n - 1) - off
+        mine = (loc >= 0) & (loc < nl)
+        rows = xl.index_select(0, loc.clamp(0, max(nl - 1, 0)))
+        split_rows = any(p.is_shard(0) for p in x.placements)
+        if split_rows:
+            rows = torch.where(mine.reshape((-1,) + (1,) * (rows.dim() - 1)),
+                               rows, 0)
+        out_pl = []
+        for p, q in zip(x.placements, idx.placements):
+            if q.is_shard():
+                out_pl.append(Shard(0))
+            elif p.is_shard(0):
+                out_pl.append(Partial())
+            elif p.is_shard():
+                out_pl.append(Shard(p.dim))
+            else:
+                out_pl.append(Replicate())
+        ctx.save_for_backward(torch.where(inside & mine, loc, nl))
+        ctx.mesh, ctx.nl, ctx.xshape = mesh, nl, tuple(x.shape)
+        ctx.x_pl, ctx.out_pl = tuple(x.placements), tuple(out_pl)
+        ctx.grad_pl = tuple(
+            Partial() if (q.is_shard() and p.is_replicate()) else p
+            for p, q in zip(x.placements, idx.placements))
+        shape = (idx.shape[0],) + tuple(x.shape[1:])
+        return DTensor.from_local(rows, mesh, out_pl, run_check=False,
+                                  shape=torch.Size(shape),
+                                  stride=_meta_stride(shape))
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor, Replicate
+        (ids,) = ctx.saved_tensors
+        want = [Replicate() if p.is_partial() else p for p in ctx.out_pl]
+        gl = g.redistribute(ctx.mesh, want).to_local()
+        shape = (ctx.nl + 1,) + tuple(gl.shape[1:])
+        if gl.dtype in (torch.bfloat16, torch.float16):
+            acc = gl.new_zeros(shape, dtype=torch.float32)
+            acc.index_put_((ids,), gl.float(), accumulate=True)
+            grad = acc[:ctx.nl].to(gl.dtype)
+        else:
+            grad = gl.new_zeros(shape).index_add_(0, ids, gl)[:ctx.nl]
+        return DTensor.from_local(
+            grad, ctx.mesh, ctx.grad_pl, run_check=False,
+            shape=torch.Size(ctx.xshape),
+            stride=_meta_stride(ctx.xshape)), None
+
+
 def gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``x[idx]`` along the first axis as JAX indexes and differentiates
     it: a negative id wraps once, then ids clamp into ``[0, len(x))``; the
     gradient (:class:`_Gather`, no host read) drops the ids outside
-    ``[-len(x), len(x))``."""
+    ``[-len(x), len(x))``.  On DTensors each chip gathers its share
+    (:class:`_ShardedGather`)."""
+    if is_dtensor(x) or is_dtensor(idx):
+        mesh = (x if is_dtensor(x) else idx).device_mesh
+        x, idx = _as_dtensor(x, mesh), _as_dtensor(idx, mesh)
+        idx = _whole(idx)
+        return _ShardedGather.apply(_whole_where_both_split(x, idx), idx)
     return _Gather.apply(x, idx)
 
 
@@ -196,9 +324,74 @@ def _segments(dst, n: int, msg: torch.Tensor) -> tuple:
     return torch.where((ids >= 0) & (ids < n), ids, n), msg
 
 
+class _ShardedScatterSum(torch.autograd.Function):
+    """``segment_sum`` on DTensors, one chip's share: rows ``msg`` and
+    their ids ``ids`` (already sent to the spare row ``n`` where they lie
+    outside ``[0, n)``) split alike along the rows or whole, and any other
+    dim of ``msg`` split.  Each chip adds its rows into a whole
+    ``(n, ...)`` result: where the rows are split that is a partial sum,
+    reduced where it is next used (the psum XLA issues for a segment sum
+    of split edges); the backward gathers each chip's cotangent rows."""
+
+    @staticmethod
+    def forward(ctx, msg, ids, n: int):
+        from torch.distributed.tensor import DTensor, Partial
+        mesh = msg.device_mesh
+        ml, il = msg.to_local(), ids.to_local()
+        out = ml.new_zeros((n + 1,) + tuple(ml.shape[1:]))
+        out = out.index_add(0, il, ml)[:n]
+        out_pl = [Partial() if p.is_shard(0) else p
+                  for p in msg.placements]
+        ctx.save_for_backward(il)
+        ctx.mesh, ctx.msg_pl = mesh, tuple(msg.placements)
+        ctx.msg_shape, ctx.out_pl = tuple(msg.shape), tuple(out_pl)
+        shape = (n,) + tuple(msg.shape[1:])
+        return DTensor.from_local(out, mesh, out_pl, run_check=False,
+                                  shape=torch.Size(shape),
+                                  stride=_meta_stride(shape))
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor, Replicate
+        (il,) = ctx.saved_tensors
+        want = [Replicate() if p.is_partial() else p for p in ctx.out_pl]
+        gl = g.redistribute(ctx.mesh, want).to_local()
+        gl = torch.cat([gl, gl.new_zeros((1,) + tuple(gl.shape[1:]))])
+        return DTensor.from_local(
+            gl.index_select(0, il), ctx.mesh, ctx.msg_pl, run_check=False,
+            shape=torch.Size(ctx.msg_shape),
+            stride=_meta_stride(ctx.msg_shape)), None, None
+
+
+def _rows_alike(msg, ids):
+    """``msg`` and ``ids`` split alike along their rows on every mesh dim
+    (a whole one is cut to the other's split, which moves nothing)."""
+    from torch.distributed.tensor import Shard
+    mesh = msg.device_mesh
+    mp, ip = list(msg.placements), list(ids.placements)
+    for i, (p, q) in enumerate(zip(mp, ip)):
+        if q.is_shard(0) and p.is_replicate():
+            mp[i] = Shard(0)
+        elif p.is_shard(0) and q.is_replicate():
+            ip[i] = Shard(0)
+        elif q.is_shard(0) and not p.is_shard(0):
+            mp[i] = Shard(0)
+    if mp != list(msg.placements):
+        msg = msg.redistribute(mesh, mp)
+    if ip != list(ids.placements):
+        ids = ids.redistribute(mesh, ip)
+    return msg, ids
+
+
 def scatter_sum(msg: torch.Tensor, dst, n_nodes: int) -> torch.Tensor:
-    """``jax.ops.segment_sum(msg, dst, num_segments=n_nodes)``."""
+    """``jax.ops.segment_sum(msg, dst, num_segments=n_nodes)``; on
+    DTensors each chip sums its rows (:class:`_ShardedScatterSum`)."""
     ids, msg = _segments(dst, n_nodes, msg)
+    if is_dtensor(msg) or is_dtensor(ids):
+        mesh = (msg if is_dtensor(msg) else ids).device_mesh
+        msg, ids = _rows_alike(_whole(_as_dtensor(msg, mesh)),
+                               _whole(_as_dtensor(ids, mesh)))
+        return _ShardedScatterSum.apply(msg, ids, n_nodes)
     out = msg.new_zeros((n_nodes + 1,) + tuple(msg.shape[1:]))
     return out.index_add(0, ids, msg)[:n_nodes]
 

@@ -28,9 +28,10 @@ basis back to float32.  Where the port departs from the JAX package:
 * ``remat`` runs each layer under ``torch.utils.checkpoint``
   (non-reentrant) while gradients are on, where JAX wraps it in
   ``jax.checkpoint``;
-* ``shard_couple`` is accepted and does nothing: on one card there is
-  no model axis, and JAX's ``_maybe_shard`` is a no-op without a mesh
-  too;
+* ``shard_couple`` places the node tensors (the state, each A-basis
+  component, the A-basis) over the ``model`` axis where they are
+  DTensors on a mesh, as JAX's ``_maybe_shard`` constrains them; on one
+  card, as in JAX without a mesh, it does nothing;
 * the A-basis sums with ``index_add_`` (float atomics on the card) in
   both ``a_basis_mode``s, as the JAX package sums with ``segment_sum``;
   ``csrc/segment_outer.cu`` computes the same sum but has no backward.
@@ -47,6 +48,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ...device import resolve_device
 from ...layers.common import normal_init
+from ...layers.sharding import wsc
 from .data import (GraphBatch, as_tensor, edge_ids, gather, graph_ids,
                    graph_mse, scatter_sum)
 
@@ -206,6 +208,8 @@ def mace_forward(params: dict, g: GraphBatch, cfg: MACEConfig) -> torch.Tensor:
     h0 = as_tensor(g.node_feat, torch.float32, dev) @ params["enc"]  # (N, C)
     state = torch.cat([h0[..., None],
                        h0.new_zeros((n, cfg.d_hidden, N_SH - 1))], dim=-1)
+    if cfg.shard_couple:
+        state = wsc(state, ("model", None, None))
 
     diff = gather(x, dst) - gather(x, src)
     r = torch.sqrt((diff * diff).sum(dim=-1) + 1e-12)
@@ -224,20 +228,31 @@ def mace_forward(params: dict, g: GraphBatch, cfg: MACEConfig) -> torch.Tensor:
         if cfg.a_basis_mode == "loop":
             # never materialize the (E, C, 9) outer product: one
             # f32-accumulated segment-sum per spherical component
-            a = torch.stack([
-                scatter_sum((msg * edge_basis[:, m:m + 1]).float(), dst, n)
-                for m in range(N_SH)], dim=-1)                   # (N, C, 9)
+            ams = [scatter_sum((msg * edge_basis[:, m:m + 1]).float(),
+                               dst, n) for m in range(N_SH)]
+            if cfg.shard_couple:  # keep node tensors model-sharded
+                ams = [wsc(am, ("model", None)) for am in ams]
+            a = torch.stack(ams, dim=-1)                         # (N, C, 9)
         else:
             a = scatter_sum((msg[:, :, None] * edge_basis[:, None, :])
                             .float(), dst, n)                    # (N, C, 9)
         # product basis, correlation order 1..3 (iterated Gaunt coupling)
         a = a.to(cdt)
+        if cfg.shard_couple:
+            # node-local math: the model axis contributes HBM bandwidth
+            a = wsc(a, ("model", None, None))
         bs = [b.float() for b in _product_basis(a, gaunt.to(cdt), cfg)]
         m = torch.zeros_like(a)
         for order, b in enumerate(bs):
             for l in range(3):
                 m = m + torch.einsum("ncp,cd->ndp", b * masks[l],
                                      lp["w_B"][order, l])
+        if cfg.shard_couple:
+            # the coupling's gradient arrives a partial sum over the data
+            # axes (the edges' scatters): reduced here once a layer, where
+            # DTensor would reduce-scatter it over the channels inside
+            # each einsum (an added site: XLA lays it out itself)
+            m = wsc(m, ("model", None, None))
         # update: residual on the full irrep state; invariant mix
         state = state + m
         s0 = state[:, :, 0]

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..layers.sharding import is_dtensor, on_mesh
 from .checkpoint import CheckpointManager
 from .optimizer import OptimizerConfig, adamw_update, init_opt_state
 from .tree import leaves as tree_leaves
@@ -33,9 +34,30 @@ def value_and_grad(loss_fn: Callable, params, batch):
     with torch.enable_grad():
         req = [p.detach().requires_grad_(True) for p in flat]
         loss = loss_fn(unflatten(params, req), batch)
-        grads = torch.autograd.grad(loss, req, allow_unused=True)
+        # on a mesh, a plain tensor the backward makes (a constant of a
+        # derivative) is taken as whole on every chip
+        with on_mesh(loss):
+            grads = torch.autograd.grad(loss, req, allow_unused=True)
     return loss.detach(), [torch.zeros_like(p) if g is None else g
                            for p, g in zip(flat, grads)]
+
+
+def _microbatch(x: torch.Tensor, n: int, i: int) -> torch.Tensor:
+    """Block ``i`` of ``n`` along ``x``'s leading axis.  A DTensor split
+    along that axis is cut on each chip's own rows (its rows' block
+    ``i``): every chip's microbatch then stays on it, and the blocks
+    together are the batch, as the scan over them is in the JAX
+    package's program."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import DTensor
+        loc = x.to_local()
+        part = loc.reshape((n, loc.shape[0] // n) + tuple(loc.shape[1:]))[i]
+        shape = (x.shape[0] // n,) + tuple(x.shape[1:])
+        return DTensor.from_local(
+            part, x.device_mesh, x.placements, run_check=False,
+            shape=torch.Size(shape),
+            stride=torch.empty(shape, device="meta").stride())
+    return x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))[i]
 
 
 def make_train_step(loss_fn: Callable, opt_cfg: OptimizerConfig,
@@ -48,15 +70,19 @@ def make_train_step(loss_fn: Callable, opt_cfg: OptimizerConfig,
     update (in place).  ``metrics`` holds float32 scalar tensors."""
 
     def step(params, opt_state, batch):
+        with on_mesh(params, batch):
+            return _step(params, opt_state, batch)
+
+    def _step(params, opt_state, batch):
         if microbatches > 1:
             flat = tree_leaves(params)
-            gsum = [torch.zeros(p.shape, dtype=torch.float32,
-                                device=p.device) for p in flat]
+            gsum = [torch.zeros_like(p, dtype=torch.float32,
+                                     memory_format=torch.contiguous_format)
+                    for p in flat]
             losses = []
             for i in range(microbatches):
-                mb = tree_map(lambda x: x.reshape(
-                    (microbatches, x.shape[0] // microbatches)
-                    + tuple(x.shape[1:]))[i], batch)
+                mb = tree_map(lambda x: _microbatch(x, microbatches, i),
+                              batch)
                 loss, grads = value_and_grad(loss_fn, params, mb)
                 for acc, g in zip(gsum, grads):
                     acc.add_(g.to(torch.float32))

@@ -21,6 +21,8 @@ from dataclasses import dataclass
 
 import torch
 
+from ..layers.sharding import is_dtensor
+
 from .tree import leaves as tree_leaves
 from .tree import tree_map
 
@@ -59,8 +61,9 @@ def init_opt_state(params) -> dict:
     """Zero float32 moments shaped like ``params`` (on their devices) and
     an int32 step of 0."""
     first = tree_leaves(params)[0]
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
+    # zeros_like: a DTensor parameter's moments are laid out as it is
+    zeros = lambda p: torch.zeros_like(
+        p, dtype=torch.float32, memory_format=torch.contiguous_format)
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=first.device)}
 
@@ -84,6 +87,10 @@ def global_norm(tree) -> torch.Tensor:
     summed in JAX's order."""
     total = 0
     for leaf in tree_leaves(tree):
+        if is_dtensor(leaf):
+            # each chip squares its shard; DTensor sums the shards
+            total = total + leaf.float().square().sum()
+            continue
         total = total + sum(p.float().square().sum()
                             for p in _read_pieces(leaf))
     return torch.sqrt(total)
@@ -101,9 +108,17 @@ def adamw_update(params, grads, state: dict, cfg: OptimizerConfig):
     bc1 = 1 - (one * cfg.b1) ** stepf
     bc2 = 1 - (one * cfg.b2) ** stepf
     with torch.no_grad():
+        if is_dtensor(scale):
+            # on a mesh: each chip updates its shard of every leaf with
+            # the gradient laid out as the leaf is
+            scale, lr, bc1, bc2 = (t.full_tensor()
+                                   for t in (scale, lr, bc1, bc2))
         for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                               tree_leaves(state["m"]),
                               tree_leaves(state["v"])):
+            if is_dtensor(p):
+                g = g.redistribute(p.device_mesh, p.placements).to_local()
+                p, m, v = p.to_local(), m.to_local(), v.to_local()
             for pp, gp, mp, vp in zip(_pieces(p), _read_pieces(g),
                                       _pieces(m), _pieces(v)):
                 gf = gp.to(torch.float32) * scale

@@ -73,7 +73,8 @@ def test_importing_every_port_module_imports_no_jax():
             "repro_torch.launch.train",
             "repro_torch.launch.serve", "repro_torch.launch.mesh",
             "repro_torch.launch.roofline",
-            "repro_torch.launch.dryrun"} <= set(mods)
+            "repro_torch.launch.dryrun", "repro_torch.layers.sharding",
+            "repro_torch.kernels.custom"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

@@ -211,7 +211,21 @@ def test_dryrun_cli_writes_ok_records(tmp_path):
 
 @pytest.mark.parametrize("mesh", ["single", "multi"])
 def test_dryrun_cli_refuses_the_production_meshes(tmp_path, mesh):
-    got = _dryrun(tmp_path, "--mesh", mesh, "--arch", "wcoj")
-    assert got.returncode == 2
-    assert "6g" in got.stderr
-    assert not any(tmp_path.iterdir())
+    """``--mesh single`` and ``multi``, refused (exit 2) until the port had
+    per-chip programs, now write one record a cell, one chip's program
+    of 256 or 512 (the test keeps its name)."""
+    got = _dryrun(tmp_path, "--mesh", mesh, "--arch", "xdeepfm")
+    assert got.returncode == 0, got.stderr[-2000:]
+    name, chips = {"single": ("pod16x16", 256),
+                   "multi": ("pod2x16x16", 512)}[mesh]
+    files = sorted(p.name for p in tmp_path.iterdir())
+    assert files == sorted(f"xdeepfm__{s}__{name}.json" for s in
+                           ("train_batch", "serve_p99", "serve_bulk",
+                            "retrieval_cand"))
+    for p in tmp_path.iterdir():
+        r = json.loads(p.read_text())
+        assert r["status"] == "ok" and r["mesh"] == name, r
+        assert r["chips"] == r["roofline"]["chips"] == chips
+        assert r["cost"]["flops"] > 0 and r["memory"]["argument_bytes"] > 0
+        assert r["roofline"]["t_memory"] > 0
+    assert "4 ok, 0 skipped, 0 errors" in got.stdout

@@ -37,7 +37,11 @@ commit) on one CUDA device, with the measuring code of this checkout's
   M 9), uniform and powerlaw dst, in float32 and bf16, the device time of
   the tree's kernels for one call (a tree whose wrapper refuses bf16
   reports the refusal); then chip_smoke.py's large-gap case (2^17 edges
-  on 1,024 of 131,072 nodes, so 130,048 zero rows) in float32.
+  on 1,024 of 131,072 nodes, so 130,048 zero rows) in float32;
+* ``serve``: the query server (``QueryServer(g, device="cuda")``) on the
+  same graph, ``execute_many`` of the six tier-1 shapes at both of
+  chip_smoke.py's serve selectivities twice (the second pass all
+  plan-cache hits): each round's wall and each request's latency.
 
 The graph parts use the ``soc-Slashdot0811``-like graph at full scale as
 a plain and a hybrid db.  Prints one JSON line per measurement and a
@@ -62,7 +66,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent.parent
 PARTS = ("search", "main", "cycle4", "tile", "auto", "bitset", "flash",
-         "lm", "outer")
+         "lm", "outer", "serve")
 #: the kernel function each flash route launches, by route name
 FLASH_KERNELS = {"tc": "flash_attention_tc_kernel",
                  "mma": "flash_attention_mma_kernel",
@@ -117,8 +121,9 @@ def main() -> int:
     build.library()
     out["nvcc_s"] = time.perf_counter() - t0
 
-    if set(parts) & {"search", "main", "cycle4", "tile", "auto", "bitset"}:
-        _, db, hdb = cs.bench_gdb(T, 1.0, "cuda")
+    if set(parts) & {"search", "main", "cycle4", "tile", "auto", "bitset",
+                     "serve"}:
+        g, db, hdb = cs.bench_gdb(T, 1.0, "cuda")
         indptr = db.csr.indptr
         dev = db.device
         values = db.dev("indices")
@@ -190,8 +195,30 @@ def main() -> int:
     if "outer" in parts:
         out.update(outer_shapes(cs))
 
+    if "serve" in parts:
+        out.update(serve_rounds(cs, g))
+
     print(json.dumps(out), flush=True)
     return 0
+
+
+def serve_rounds(cs, g) -> dict:
+    """Two rounds of ``execute_many`` of the six shapes at both serve
+    selectivities on one server: each round's wall and, by request,
+    ``shape@selectivity`` -> latency."""
+    from repro_torch.serve import QueryRequest, QueryServer
+    server = QueryServer(g, device="cuda")
+    reqs = [QueryRequest(shape, selectivity=sel, seed=0)
+            for sel in cs.SERVE_SELECTIVITIES for shape in cs.SHAPES]
+    out = {}
+    for rnd in (1, 2):
+        t0 = time.perf_counter()
+        results = server.execute_many(reqs)
+        out[f"serve_round{rnd}_wall_s"] = time.perf_counter() - t0
+        out[f"serve_round{rnd}_latency_s"] = {
+            f"{r.request.query_name}@{r.request.selectivity:g}": r.latency_s
+            for r in results}
+    return out
 
 
 def bitset_parts(cs, T, db, hdb, reps: int) -> dict:
