@@ -28,19 +28,22 @@ stablelm-3b's shape, and a sweep of off-grid head dims in both dtypes,
 strided and offset views among them).  The two lines count the
 ``HGMMA`` and ``HMMA`` instructions in the built library's SASS where
 ``cuobjdump`` exists.  The flash backward has two kernels, routed
-as the forward is: bf16 with D a multiple of 16 on the tensor cores
-(``flash_attention_bwd_tc``, given the log-sum-exp the wgmma forward
-saves) and the rest on FFMA (``flash_attention_bwd``).  The first runs
-at the four models' heads at B 1 x T 4096 in bf16, each of dq, dk and dv
-held against its plain version relative to its largest |want| (2e-2),
-two calls bitwise equal, timed beside its bound, SDPA's backward and
-the FFMA kernel forced on the same tensors; the forward's lse is held
-against its plain version there (1e-3 in log2 units; +inf on rows that
-see no key) with ``o`` bitwise unchanged by it; both run a 1,000-case
+as the forward is, each given the log-sum-exp its forward saves: bf16
+with D a multiple of 16 on wgmma (``flash_attention_bwd_tc``) and the
+rest on mma.sync (``flash_attention_bwd``: float32 as 3xTF32, bf16 at
+the other head dims).  The first runs at the four models' heads at B 1 x
+T 4096 in bf16, each of dq, dk and dv held against its plain version
+relative to its largest |want| (2e-2), two calls bitwise equal, timed
+beside its bound, SDPA's backward and the mma.sync kernel forced on the
+same tensors; the second at the f32 path shape (2e-5) and in bf16 at
+D 72 with stablelm-3b's heads (2e-2), the same way, beside the FFMA
+kernel it replaced; each forward's lse is held against its plain
+version there and on rows that see no key (1e-3 in log2 units; +inf on
+those rows) with ``o`` bitwise unchanged by it; both run a 1,000-case
 sweep through their routes (f32 at 2e-5 and bf16, head dims 8-128, GQA
 groups 1-4 and 16, causal offsets, rows that see no key, strided
 views); and ``torch.autograd.grad`` of ``ops.flash_attention`` launches
-the tensor-core one once a backward.  The segment outer
+each once a backward (bf16 and float32).  The segment outer
 product runs at MACE's widths (131,072 nodes, 6,621,401 edges, C 128,
 M 9) on uniform and powerlaw destinations, in float32 and bf16 (each
 held at 2e-4 on the same tensors: bf16 products round alike), two calls
@@ -144,7 +147,7 @@ kernels' launch counters set to 0 just before it and read just after:
   on, from ``LMTokenPipeline`` over a token file with a learnable
   pattern): the loss finite and falling, the gradient norms finite, 4
   launches of the wgmma flash kernel and 2 of the tensor-core backward
-  a layer a step, none of the mma.sync one or the FFMA backward; one
+  a layer a step, none of the mma.sync one or the mma.sync backward; one
   more step profiled (every gradient leaf finite; device time of the
   bf16 and the float32 GEMMs, the flash forward and backward, the
   optimizer and the rest, and the idle share); a 2-layer
@@ -240,8 +243,9 @@ Needs one CUDA device and the rest of the repository; it imports nothing
 of JAX.  Prints one JSON line per shape and path, a ``kernels`` JSON
 line, the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset (the
-kernels against their plain versions, the join paths, the LM paths, or
-``oracles``, the last part of the join paths alone) and then prints
+kernels against their plain versions, the join paths, the LM paths,
+``oracles``, the last part of the join paths alone, or ``flash_bwd``,
+the flash backward's part of the kernels alone) and then prints
 neither the ``kernels`` line nor the last line (``--phases serve`` runs
 the query server's phase alone, ``--phases dist`` distributed
 execution's, ``--phases train`` training's, ``--phases gnn`` the
@@ -1629,9 +1633,11 @@ def kernel_phase_lm():
 #: 2e-5 f32)
 FLASH_BWD_T = 4096
 FLASH_BWD_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
-#: the FFMA backward's kernels (f32, and bf16 off the multiples of 16)
-FLASH_BWD_KERNELS = ("flash_attention_bwd_dq_kernel",
-                     "flash_attention_bwd_dkdv_kernel")
+#: the mma.sync backward's kernels (f32, and bf16 off the multiples of 16;
+#: the reduce kernel runs where the dk/dv kernel splits a GQA group's heads)
+FLASH_BWD_KERNELS = ("flash_attention_bwd_mma_dq_kernel",
+                     "flash_attention_bwd_mma_dkdv_kernel",
+                     "flash_attention_bwd_mma_reduce_kernel")
 #: the tensor-core backward's (bf16, D a multiple of 16; the reduce kernel
 #: runs where the dk/dv kernel splits a GQA group's heads)
 FLASH_BWD_TC_KERNELS = ("flash_attention_bwd_tc_dq_kernel",
@@ -1641,6 +1647,17 @@ FLASH_BWD_TC_KERNELS = ("flash_attention_bwd_tc_dq_kernel",
 #: absolute in log2 units: an error e scales P by 2^e, and 1e-3 is a third
 #: of one bf16 rounding of P (2^-9)
 FLASH_LSE_TOL = 1e-3
+#: the mma route's backward lines, (B, Hq, Hkv, T, D): float32 at the
+#: forward's f32 path shape (chatglm3-6b's heads, as the f32 parity runs
+#: them) and bf16 at D 72 (off the multiples of 16) with stablelm-3b's
+#: heads at B 1 x T 4096
+FLASH_BWD_MMA_SHAPES = {"float32": (4, 32, 2, 2048, 128),
+                        "bfloat16": (1, 32, 32, 4096, 72)}
+#: the FFMA kernel the mma.sync backward replaced, at those shapes (device
+#: ms), measured by this script's flash_bwd_mma_line before the redesign
+#: on an NVIDIA H100 80GB HBM3 at 700 W (the PERF.md kernel table),
+#: printed as ``previous_ms``
+PREVIOUS_FFMA_BWD_MS = {"float32": 33.599, "bfloat16": 16.439}
 
 
 def rel_err(got, want) -> float:
@@ -1651,10 +1668,11 @@ def rel_err(got, want) -> float:
 
 
 def same_bits(a, b) -> bool:
-    """Whether two bf16 tensors hold the same bits (NaN included)."""
+    """Whether two tensors of one dtype hold the same bits (NaN included)."""
     import torch
-    return a.shape == b.shape and torch.equal(a.view(torch.int16),
-                                              b.view(torch.int16))
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.contiguous().view(torch.uint8),
+                            b.contiguous().view(torch.uint8)))
 
 
 def visible_pairs(tq: int, tk: int, causal: bool) -> int:
@@ -1705,24 +1723,28 @@ def flash_bwd_errs(q, k, v, o, do, causal: bool = True, lse=None) -> list:
 
 
 def flash_forward_lse(q, k, v, causal: bool = True) -> tuple:
-    """The tensor-core forward with the log-sum-exp on and off on the same
-    inputs: ``o`` must keep its bits, and the lse must hold
+    """The routed forward (either kernel) with the log-sum-exp on and off on
+    the same inputs: ``o`` must keep its bits, and the lse must hold
     ``flash_attention_lse_ref`` (``FLASH_LSE_TOL``; +inf exactly on the rows
     that see no key).  Returns o, lse and a dict of the numbers."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     route)
+    kernel = {"tc": "flash_attention_tc", "mma": "flash_attention_mma"}[
+        route(q.device, q.dtype, q.shape[3])]
     plain_o = flash_attention_cuda(q, k, v, causal)
     o, lse = flash_attention_cuda(q, k, v, causal, return_lse=True)
     want = ref.flash_attention_lse_ref(q, k, causal)
     seen = torch.isfinite(want)
     blind_ok = torch.equal(torch.isposinf(lse), ~seen)
     err = float((lse[seen] - want[seen]).abs().max()) if seen.any() else 0.0
-    what = f"q {tuple(q.shape)} k {tuple(k.shape)} causal={causal}"
-    need(same_bits(o, plain_o), f"flash_attention_tc at {what}: o with the "
-         "lse on is not bitwise o with it off")
+    what = (f"q {tuple(q.shape)} {q.dtype} k {tuple(k.shape)} "
+            f"causal={causal}")
+    need(same_bits(o, plain_o), f"{kernel} at {what}: o with the lse on is "
+         "not bitwise o with it off")
     need(blind_ok and err <= FLASH_LSE_TOL,
-         f"flash_attention_tc's lse at {what}: max abs err {err} "
+         f"{kernel}'s lse at {what}: max abs err {err} "
          f"(tolerance {FLASH_LSE_TOL}), +inf exactly on the rows that see "
          f"no key: {blind_ok}")
     return o, lse, dict(lse_max_abs_err=err,
@@ -1737,8 +1759,8 @@ def flash_bwd_model_line(cfg, randn) -> dict:
     (``ms``: its kernels' device time), beside its bound (five causal
     Tq.Tk.D products, S, dP, dV, dK, dQ, at the bf16 rate, or the bytes of
     q, k, v, o, do and dq, dk, dv), its plain version, SDPA's backward on
-    the same tensors (k and v expanded to the query heads) and the FFMA
-    kernel forced on the same bf16 tensors (the earlier design)."""
+    the same tensors (k and v expanded to the query heads) and the mma.sync
+    kernel forced on the same bf16 tensors and lse (``mma_ms``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -1759,10 +1781,11 @@ def flash_bwd_model_line(cfg, randn) -> dict:
     deterministic = all(torch.equal(a, b_) for a, b_ in zip(first, run()))
     need(deterministic, f"flash_attention_bwd_tc at {cfg.name}'s shape: two "
          "calls on the same inputs differ")
-    ffma = lambda: fa._launch_bwd_ffma(q, k, v, o, do, True, 1.0 / d ** 0.5)
-    ffma_errs = bwd_errs(ffma(), want)
-    need(max(ffma_errs) <= tol, f"flash_attention_bwd (FFMA, forced) at "
-         f"{cfg.name}'s shape: errors {ffma_errs} beyond {tol}")
+    mma = lambda: fa._launch_bwd_mma(q, k, v, o, do, lse, True,
+                                     1.0 / d ** 0.5)
+    mma_errs = bwd_errs(mma(), want)
+    need(max(mma_errs) <= tol, f"flash_attention_bwd (mma.sync, forced) at "
+         f"{cfg.name}'s shape: errors {mma_errs} beyond {tol}")
     del first, want
     group = hq // hkv
     qe = q.detach().contiguous().requires_grad_()
@@ -1781,8 +1804,8 @@ def flash_bwd_model_line(cfg, randn) -> dict:
         max_abs_err=max(errs), dq_dk_dv_rel_err=errs, tolerance=tol,
         deterministic=deterministic, forward_lse=fwd,
         ms=device_ms(run, 5, *FLASH_BWD_TC_KERNELS),
-        ffma_ms=device_ms(ffma, 3, *FLASH_BWD_KERNELS),
-        ffma_rel_err=ffma_errs,
+        mma_ms=device_ms(mma, 3, *FLASH_BWD_KERNELS),
+        mma_rel_err=mma_errs,
         plain_ms=cuda_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, o, do),
                          1),
         library_ms=library_ms,
@@ -1795,7 +1818,94 @@ def flash_bwd_model_line(cfg, randn) -> dict:
         bytes=3 * q.nbytes + k.nbytes + v.nbytes + o.nbytes + do.nbytes))
     line["achieved_tflop_s"] = line["flops"] / line["ms"] / 1e9
     line["vs_library"] = line["ms"] / library_ms
-    line["ffma_over_tc"] = line["ffma_ms"] / line["ms"]
+    line["mma_over_tc"] = line["mma_ms"] / line["ms"]
+    del q, k, v, o, do, lse, qe, ke, ve, out
+    torch.cuda.empty_cache()
+    return line
+
+
+def flash_bwd_mma_line(dtype_name: str) -> dict:
+    """The mma route's backward (``flash_attention_bwd``) at its line's
+    shape (``FLASH_BWD_MMA_SHAPES``), causal, q, k, v as transposed
+    (B, T, H, D) views, from a generator of its own (so ``forward_digest``,
+    the SHA-256 of the forward's output bytes, compares across trees),
+    given the mma forward's lse (held first: ``flash_forward_lse``): held
+    against its plain version (``FLASH_BWD_TOL``), two calls bitwise
+    equal, one launch a call, timed (its kernels' device time, and the dq
+    and dk/dv kernels' apart in ``by_kernel``) beside its bound (five
+    causal products; in float32 the lower of FFMA and 3xTF32), its plain
+    version, SDPA's backward on the same tensors (k and v
+    repeated to the query heads) and the FFMA kernel it replaced
+    (``previous_ms``)."""
+    import hashlib
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    dtype = getattr(torch, dtype_name)
+    b, hq, hkv, t, d = FLASH_BWD_MMA_SHAPES[dtype_name]
+    q, k, v = (torch.randn((b, t, h_, d), generator=g, device="cuda"
+                           ).to(dtype).transpose(1, 2)
+               for h_ in (hq, hkv, hkv))
+    do = torch.randn((b, hq, t, d), generator=g, device="cuda").to(dtype)
+    name = fa.BWD_KERNELS["mma"]
+    need(fa.bwd_kernel(q.device, dtype, d) == name,
+         f"the backward route of {dtype_name} D {d} is not {name}")
+    o, lse, fwd = flash_forward_lse(q, k, v)
+    torch.cuda.synchronize()
+    digest = hashlib.sha256(o.contiguous().view(torch.uint8).cpu().numpy()
+                            .tobytes()).hexdigest()
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do)
+    run = lambda: fa.flash_attention_bwd_cuda(q, k, v, o, do, lse=lse)
+    build.reset_launches()
+    first = run()
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    need(launches[name] == 1 and sum(launches.values()) == 1,
+         f"one {name} call at {dtype_name} D {d} launched {launches}")
+    errs = bwd_errs(first, want)
+    tol = FLASH_BWD_TOL[dtype_name]
+    need(max(errs) <= tol, f"{name} {dtype_name} D {d}: dq, dk, dv errors "
+         f"{errs} beyond {tol}")
+    deterministic = all(torch.equal(a, b_) for a, b_ in zip(first, run()))
+    need(deterministic, f"{name} {dtype_name} D {d}: two calls on the same "
+         "inputs differ")
+    del first, want
+    plain_ms = cuda_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, o, do), 1)
+    torch.cuda.empty_cache()
+    group = hq // hkv
+    qe = q.detach().contiguous().requires_grad_()
+    ke, ve = (x.repeat_interleave(group, dim=1).contiguous().requires_grad_()
+              for x in (k, v))
+    out = F.scaled_dot_product_attention(qe, ke, ve, is_causal=True)
+    library_ms = device_total_ms(lambda: torch.autograd.grad(
+        out, (qe, ke, ve), do, retain_graph=True), 3)
+    pairs = visible_pairs(t, t, True)
+    line = dict(
+        shape=f"q ({b}, {hq}, {t}, {d}) {dtype_name} as a transposed "
+              f"(B, T, H, D) view, k, v ({b}, {hkv}, {t}, {d}), causal",
+        gqa_group=group, max_abs_err=max(errs), dq_dk_dv_rel_err=errs,
+        tolerance=tol, deterministic=deterministic, forward_lse=fwd,
+        forward_digest=digest, launches_per_call=launches[name],
+        ms=device_ms(run, 5, *FLASH_BWD_KERNELS),
+        by_kernel={k.split("_mma_")[1]: device_ms(run, 3, k)
+                   for k in FLASH_BWD_KERNELS[:2]},
+        previous_ms=PREVIOUS_FFMA_BWD_MS[dtype_name],
+        plain_ms=plain_ms, library_ms=library_ms,
+        library_call="torch.autograd.grad of scaled_dot_product_attention("
+                     "q, k, v, is_causal=True), k and v repeated to the "
+                     "query heads, contiguous",
+        flops_model="5 x 2 B Hq D x the causal (query, key) pairs (S, dP, "
+                    "dV, dK, dQ)",
+        flops=5 * 2 * b * hq * pairs * d,
+        flops_type="fp32" if dtype == torch.float32 else "bf16",
+        bytes=3 * q.nbytes + k.nbytes + v.nbytes + o.nbytes + do.nbytes
+        + lse.nbytes)
+    line = bound_3xtf32(line) if dtype == torch.float32 else bound(line)
+    line["achieved_tflop_s"] = line["flops"] / line["ms"] / 1e9
+    line["vs_library"] = line["ms"] / library_ms
+    line["previous_over_ms"] = line["previous_ms"] / line["ms"]
     del q, k, v, o, do, lse, qe, ke, ve, out
     torch.cuda.empty_cache()
     return line
@@ -1804,15 +1914,15 @@ def flash_bwd_model_line(cfg, randn) -> dict:
 def flash_bwd_sweep(randn) -> list:
     """Each backward through its route against its plain version in f32
     (2e-5) and bf16 (2e-2), each error relative to the largest |want| of
-    its output: D 16-128 in steps of 16 (bf16 on the tensor-core kernel,
-    given the forward's lse) and the off-grid 72, 40 and 8 (the FFMA
-    kernel, as is all f32); GQA groups 1 and 4 at every D, 16 at D 128, 3
-    at D 64, 2 at D 80; Tq = Tk 256, Tq 64 of Tk 256 (the causal offset),
-    a ragged 100, Tq 1 of 128, and Tq 128 of Tk 64 (the first 64 rows see
-    no key under the causal mask and carry no gradient); causal and not;
-    contiguous and as transposed (B, T, H, D) views.  Both launch counters
-    must equal the cases of their route.  Returns [dtype, D, Hq, Hkv, Tq,
-    Tk, causal, strided, kernel, max rel err]."""
+    its output: D 16-128 in steps of 16 (bf16 on the tensor-core kernel)
+    and the off-grid 72, 40 and 8 (the mma.sync kernel, as is all f32),
+    each given its forward's lse; GQA groups 1 and 4 at every D, 16 at
+    D 128, 3 at D 64, 2 at D 80; Tq = Tk 256, Tq 64 of Tk 256 (the causal
+    offset), a ragged 100, Tq 1 of 128, and Tq 128 of Tk 64 (the first 64
+    rows see no key under the causal mask and carry no gradient); causal
+    and not; contiguous and as transposed (B, T, H, D) views.  Both launch
+    counters must equal the cases of their route.  Returns [dtype, D, Hq,
+    Hkv, Tq, Tk, causal, strided, kernel, max rel err]."""
     import torch
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
@@ -1841,12 +1951,8 @@ def flash_bwd_sweep(randn) -> list:
                                            for h_, t_ in ((hq, tq),
                                                           (hkv, tk),
                                                           (hkv, tk)))
-                            lse = None
-                            if kernel == fa.BWD_KERNELS["tc"]:
-                                o, lse = fa.flash_attention_cuda(
-                                    q, k, v, causal, return_lse=True)
-                            else:
-                                o = fa.flash_attention_cuda(q, k, v, causal)
+                            o, lse = fa.flash_attention_cuda(
+                                q, k, v, causal, return_lse=True)
                             do = randn(*o.shape, dtype=dtype)
                             e = max(flash_bwd_errs(q, k, v, o, do, causal,
                                                    lse))
@@ -1863,41 +1969,46 @@ def flash_bwd_sweep(randn) -> list:
     return rows
 
 
-def flash_bwd_autograd(randn) -> dict:
+def flash_bwd_autograd(randn, dtype_name: str = "bfloat16") -> dict:
     """``torch.autograd.grad`` through ``ops.flash_attention`` on the card
-    at stablelm-3b's heads (B 1 x T 4096, bf16), q, k, v leaves of shape
-    (B, T, H, D) passed as transposed views: the forward saves its lse,
-    exactly one ``flash_attention_bwd_tc`` launch for the backward, and
-    the gradients of the plain version (2e-2)."""
+    at stablelm-3b's heads (B 1 x T 4096, bf16 or float32), q, k, v leaves
+    of shape (B, T, H, D) passed as transposed views: the forward saves its
+    lse, exactly one launch of the route's backward for the backward
+    (``flash_attention_bwd_tc`` in bf16, ``flash_attention_bwd`` in
+    float32), and the gradients of the plain version (``FLASH_BWD_TOL``)."""
     import torch
     from repro_torch.kernels import build, ops, ref
-    bf, t = torch.bfloat16, FLASH_BWD_T
-    leaves = [randn(1, t, 32, 80, dtype=bf).requires_grad_() for _ in "qkv"]
+    from repro_torch.kernels.flash_attention import bwd_kernel
+    dtype, t = getattr(torch, dtype_name), FLASH_BWD_T
+    kernel = bwd_kernel("cuda", dtype, 80)
+    leaves = [randn(1, t, 32, 80, dtype=dtype).requires_grad_()
+              for _ in "qkv"]
     views = [x.transpose(1, 2) for x in leaves]
     o = ops.flash_attention(*views)
-    do = randn(*o.shape, dtype=bf)
+    do = randn(*o.shape, dtype=dtype)
     build.reset_launches()
     grads = torch.autograd.grad(o, leaves, do)
     torch.cuda.synchronize()
     launches = dict(build.LAUNCHES)
-    need(launches["flash_attention_bwd_tc"] == 1
-         and sum(launches.values()) == 1,
-         f"one backward through ops.flash_attention launched {launches}")
+    need(launches[kernel] == 1 and sum(launches.values()) == 1,
+         f"one {dtype_name} backward through ops.flash_attention launched "
+         f"{launches}")
     with torch.no_grad():
         want = ref.flash_attention_bwd_ref(*views, o, do)
     errs = [rel_err(g.transpose(1, 2), w) for g, w in zip(grads, want)]
-    need(max(errs) <= FLASH_BWD_TOL["bfloat16"],
-         f"autograd through ops.flash_attention: errors {errs}")
-    return dict(launches_per_backward=launches["flash_attention_bwd_tc"],
+    need(max(errs) <= FLASH_BWD_TOL[dtype_name],
+         f"{dtype_name} autograd through ops.flash_attention: errors {errs}")
+    return dict(kernel=kernel, launches_per_backward=launches[kernel],
                 dq_dk_dv_rel_err=errs)
 
 
 def kernel_phase_flash_bwd():
-    """The flash backward kernels at the four models' heads (the
-    tensor-core kernel, and the FFMA one forced on the same tensors), the
-    forward's lse beside them and on rows that see no key, both kernels on
-    the sweep through their routes, and autograd, against their plain
-    versions."""
+    """The flash backward kernels: the tensor-core kernel at the four
+    models' heads (and the mma.sync one forced on the same tensors), the
+    mma.sync kernel at its two lines' shapes (``FLASH_BWD_MMA_SHAPES``),
+    each forward's lse beside them and on rows that see no key, both
+    kernels on the sweep through their routes, and autograd through each
+    route, against their plain versions."""
     import torch
     from repro_torch.configs import (CHATGLM3_6B, GRANITE_MOE_3B_A800M,
                                      MOONSHOT_V1_16B_A3B, STABLELM_3B)
@@ -1909,9 +2020,14 @@ def kernel_phase_flash_bwd():
     models = {c.name: flash_bwd_model_line(c, randn)
               for c in (STABLELM_3B, CHATGLM3_6B, GRANITE_MOE_3B_A800M,
                         MOONSHOT_V1_16B_A3B)}
-    # causal Tq 128 of Tk 64: the first 64 rows see no key (lse +inf)
-    blind = flash_forward_lse(*(randn(1, h_, t_, 64, dtype=torch.bfloat16)
-                                for h_, t_ in ((4, 128), (2, 64), (2, 64))))[2]
+    mma = {dt: flash_bwd_mma_line(dt) for dt in FLASH_BWD_MMA_SHAPES}
+    # causal Tq 128 of Tk 64: the first 64 rows see no key (lse +inf), on
+    # the tensor-core forward (bf16 D 64) and the mma.sync one (float32
+    # D 64, bf16 D 72)
+    blind = {f"{dt} D {d}": flash_forward_lse(*(
+        randn(1, h_, t_, d, dtype=getattr(torch, dt))
+        for h_, t_ in ((4, 128), (2, 64), (2, 64))))[2]
+        for dt, d in (("bfloat16", 64), ("float32", 64), ("bfloat16", 72))}
     sweep = flash_bwd_sweep(randn)
     line = dict(models.pop(STABLELM_3B.name))
     replaces = ("src/repro/kernels/flash_attention.py:81 (the gradient of "
@@ -1920,17 +2036,30 @@ def kernel_phase_flash_bwd():
     sweep_err = {(dt, k): max(r[-1] for r in sweep
                               if r[0] == dt and r[8] == k)
                  for dt, k in {(r[0], r[8]) for r in sweep}}
-    ffma = dict(
-        model=line["model"], shape=line["shape"], timed="forced on bf16 "
-        "(it serves float32, and bf16 off the multiples of 16)",
+    bwd_hmma = sass_counts("HMMA")
+    if isinstance(bwd_hmma, dict):
+        bwd_hmma = {f: n for f, n in bwd_hmma.items() if "bwd_mma" in f}
+        need(sum("dq_kernel" in f or "dkdv_kernel" in f for f in bwd_hmma)
+             == 16, f"HMMA in the mma.sync backward's dq and dk/dv "
+             f"instances (2 dtypes x 4 widths each): {bwd_hmma}")
+    bwd = dict(mma["float32"])
+    bwd.update(
         source="src/repro_torch/csrc/flash_attention_bwd.cu",
-        replaces=replaces, max_abs_err=max(line["ffma_rel_err"]),
-        dq_dk_dv_rel_err=line["ffma_rel_err"], ms=line["ffma_ms"],
-        other_models={m: x["ffma_ms"] for m, x in models.items()},
+        replaces=replaces,
+        max_abs_err=max(m["max_abs_err"] for m in mma.values()),
+        error_note="max_abs_err: the largest error of dq, dk or dv relative "
+                   "to its largest |want|, over the float32 and bf16 D 72 "
+                   "lines; every other number is the float32 line's",
+        bf16_d72=mma["bfloat16"],
+        forced_on_tc_shapes={m["model"]: dict(ms=m["mma_ms"],
+                                              rel_err=m["mma_rel_err"])
+                             for m in [line, *models.values()]},
+        forward_lse_without_key={k: x for k, x in blind.items()
+                                 if k != "bfloat16 D 64"},
+        autograd=flash_bwd_autograd(randn, "float32"),
         sweep_max_rel_err={dt: e for (dt, k), e in sweep_err.items()
                            if k == "flash_attention_bwd"},
-        **{k: line[k] for k in ("plain_ms", "bound_ms", "bound_by",
-                                "library_ms", "flops", "bytes")})
+        hmma=bwd_hmma)
     line.update(
         source="src/repro_torch/csrc/flash_attention_bwd_tc.cu",
         replaces=replaces,
@@ -1938,11 +2067,11 @@ def kernel_phase_flash_bwd():
                         + [m["max_abs_err"] for m in models.values()]),
         error_note="max_abs_err: the largest error of dq, dk or dv relative "
                    "to its largest |want|, over the four models' shapes",
-        other_models=models, forward_lse_without_key=blind,
+        other_models=models, forward_lse_without_key=blind["bfloat16 D 64"],
         autograd=flash_bwd_autograd(randn), sweep_cases=len(sweep),
         sweep_max_rel_err={dt: e for (dt, k), e in sweep_err.items()
                            if k == "flash_attention_bwd_tc"})
-    return {"flash_attention_bwd_tc": line, "flash_attention_bwd": ffma}
+    return {"flash_attention_bwd_tc": line, "flash_attention_bwd": bwd}
 
 
 def outer_dst(g, dist: str, n: int, e_real: int, e: int):
@@ -2728,8 +2857,8 @@ def train_main(tmp: Path) -> dict:
     last, finite gradient norms, and the launches of the path: 4 of
     ``flash_attention_tc`` a layer a step (2 microbatches x forward and
     remat's recompute), 2 of ``flash_attention_bwd_tc``, none of
-    ``flash_attention_mma`` or the FFMA ``flash_attention_bwd``.  Then one
-    more step by hand, profiled in two windows (the microbatches' forward
+    ``flash_attention_mma`` or the mma.sync ``flash_attention_bwd``.  Then
+    one more step by hand, profiled in two windows (the microbatches' forward
     and backward; the AdamW update), every gradient leaf held finite, and
     the device time by part, the GEMMs split by operand type (the ten
     GEMM kernels that took the most time listed by name)."""
@@ -3208,7 +3337,7 @@ def train_phase() -> dict:
     """(a)-(e) of the ``train`` phase, in a temporary directory for the
     token file and the checkpoints; returns (a)'s launches (``main``) and
     median step seconds (``steady_step_s``), and the launches of (c)'s
-    float32 steps summed (``parity``: the FFMA backward's path)."""
+    float32 steps summed (``parity``: the mma.sync backward's path)."""
     import tempfile
     from repro_torch.configs import GRANITE_MOE_3B_A800M, STABLELM_3B
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
@@ -6005,9 +6134,10 @@ def main(argv=None) -> int:
                          "both launchers and sets two cells' dry-run "
                          "bounds beside their measured steps")
     phases = ap.parse_args(argv).phases.split(",")
-    if not set(phases) <= set(PHASES + ("oracles",)):
-        ap.error(f"--phases takes {', '.join(PHASES)} or oracles (the "
-                 "last part of join alone)")
+    if not set(phases) <= set(PHASES + ("oracles", "flash_bwd")):
+        ap.error(f"--phases takes {', '.join(PHASES)}, oracles (the last "
+                 "part of join alone) or flash_bwd (the flash backward's "
+                 "part of kernels alone)")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -6051,7 +6181,9 @@ def run_phases(T, phases, smi: str, workers: dict, started: float) -> int:
     log(f"nvcc build: {time.perf_counter() - t0:.2f} s "
         f"({build.build_info['path']})")
     for line in build.build_info["ptxas"].splitlines():
-        if "Used" in line or "spill" in line:
+        if "Compiling entry function" in line:
+            log("  ptxas:", line.split("'")[1])  # the mangled kernel name
+        elif "Used" in line or "spill" in line:
             log("  ptxas:", line.strip())
 
     if {"kernels", "join", "oracles", "serve", "dist"} & set(phases):
@@ -6064,6 +6196,9 @@ def run_phases(T, phases, smi: str, workers: dict, started: float) -> int:
             "s)")
 
     kern = {}
+    if "flash_bwd" in phases and "kernels" not in phases:
+        for name, k in kernel_phase_flash_bwd().items():
+            log(f"kernel {name}: {json.dumps(k)}")
     if "kernels" in phases:
         for phase in (lambda: kernel_phase(T, db, hdb),
                       lambda: kernel_phase_intersect(T, db, hdb),
@@ -6213,9 +6348,9 @@ def run_phases(T, phases, smi: str, workers: dict, started: float) -> int:
     # the four models for the wgmma flash kernel, their f32 parity paths for
     # the mma.sync one (both replace flash_attention_pallas, split by
     # dtype and head dim), the training main path for the tensor-core
-    # flash backward and the float32 train steps of (c) for the FFMA one;
-    # no path runs the bitset AND-popcount or the segment outer product,
-    # which only the kernel router reaches
+    # flash backward and the float32 train steps of (c) for the mma.sync
+    # one; no path runs the bitset AND-popcount or the segment outer
+    # product, which only the kernel router reaches
     entries = (("searchsorted_segments", "searchsorted_segments",
                 launches["searchsorted_segments"]),
                ("bitset_member", "bitset_member",

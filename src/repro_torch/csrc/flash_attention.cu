@@ -68,9 +68,9 @@
 // is needed for all of it), and the splits cost ALU work beside each
 // product.  In bf16 at stablelm-3b's prefill shape (D 80 there, 72 for an
 // off-grid width) the bound is the bf16 rate: 0.0869 ms at D 80.
-#include <cstdint>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include <cmath>
+
+#include "mma_sm80.cuh"
 
 namespace {
 
@@ -97,141 +97,6 @@ struct Traits<float> {
   static constexpr int kLdExtra = 4;  // row stride = padded D + 4 (16 bytes)
 };
 
-struct Strides {
-  int64_t b, h, t;  // element strides of the batch, head and position dims
-};
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Rows [p0, p0 + kRows) of one (T, D) slab (row stride st elements, D
-// contiguous) into shared memory rows of kLd elements, columns [0, d):
-// per_row copies of vec bytes a row (16, 8 or 4 by cp.async, 2 by a plain
-// load).  Rows at or past `limit` are zero-filled (cp.async with src-size
-// 0).  kThreads / kRows threads share a row, so no thread divides.
-template <typename T, int kRows, int kLd>
-__device__ __forceinline__ void stage_rows(T* dst, const T* src, int64_t st,
-                                           int p0, int limit, int per_row,
-                                           int vec, int tid) {
-  constexpr int kPerRow = kThreads / kRows;
-  static_assert(kPerRow >= 1 && kThreads % kRows == 0, "rows per block");
-  const int r = tid / kPerRow;
-  const int pos = p0 + r;
-  const bool ok = pos < limit;
-  const int bytes = ok ? vec : 0;
-  // an invalid row reads nothing; its address stays inside the slab
-  const char* g = reinterpret_cast<const char*>(src) +
-                  (ok ? static_cast<int64_t>(pos) * st * sizeof(T) : 0);
-  char* s = reinterpret_cast<char*>(dst + r * kLd);
-  for (int c = tid % kPerRow; c < per_row; c += kPerRow) {
-    const char* gc = g + c * vec;
-    char* sc = s + c * vec;
-    if (vec == 16) {
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                       smem_addr(sc)), "l"(gc), "r"(bytes));
-    } else if (vec == 8) {
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
-                       smem_addr(sc)), "l"(gc), "r"(bytes));
-    } else if (vec == 4) {
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                       smem_addr(sc)), "l"(gc), "r"(bytes));
-    } else {
-      *reinterpret_cast<uint16_t*>(sc) =
-          ok ? *reinterpret_cast<const uint16_t*>(gc) : uint16_t{0};
-    }
-  }
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// x = hi + lo: hi is x rounded (half away from zero) to TF32's 10 mantissa
-// bits, and lo = x - hi exactly (Sterbenz), |lo| <= 2^-11 |x|.  The tensor
-// cores read the top 10 mantissa bits of a .tf32 operand, so adding half of
-// TF32's ulp to lo's bits rounds it there: lo carries x to about 2^-22.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
-}
-
-template <int N>
-__device__ __forceinline__ void split_tf32(const float (&x)[N],
-                                           uint32_t (&hi)[N],
-                                           uint32_t (&lo)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) split_tf32(x[i], hi[i], lo[i]);
-}
-
-// c += a.b in 3xTF32 (lo.hi + hi.lo + hi.hi), both split by the caller
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
-                                           const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4],
-                                           uint32_t bh0, uint32_t bl0,
-                                           uint32_t bh1, uint32_t bl1) {
-  mma_tf32(c, al, bh0, bh1);
-  mma_tf32(c, ah, bl0, bl1);
-  mma_tf32(c, ah, bh0, bh1);
-}
-
-// 2^x by the SFU's ex2.approx (2 ulp; -1e30 gives 0): one instruction,
-// where exp2f adds range handling around it
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
 // DP: the padded head dim of this instance (32, 64, 80 or 128), a
 // multiple of the mma depth; columns [d, DP) are zero in shared memory.
 // Every loop over D has compile-time bounds, so each key tile's fragment
@@ -239,9 +104,9 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
 template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads) flash_attention_mma_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int hq, int hkv, int tq, int tk, int d, int n_qb,
-    Strides qs, Strides ks, Strides vs, float scale_log2, int causal,
-    int vec) {
+    T* __restrict__ o, float* __restrict__ lse, int hq, int hkv, int tq,
+    int tk, int d, int n_qb, Strides qs, Strides ks, Strides vs,
+    float scale_log2, int causal, int vec) {
   using Tr = Traits<T>;
   constexpr bool kBf16 = sizeof(T) == 2;
   constexpr int kBK = Tr::kBK;
@@ -293,11 +158,13 @@ __global__ void __launch_bounds__(kThreads) flash_attention_mma_kernel(
 
   // one group: the query tile and key tile 0
   const int per_row = d * static_cast<int>(sizeof(T)) / vec;
-  stage_rows<T, kBQ, kLd>(sq, qp, qs.t, q0, tq, per_row, vec, tid);
+  stage_rows<T, kBQ, kLd, kThreads>(sq, qp, qs.t, q0, tq, per_row, vec,
+                                    tid);
   if (n_kb > 0) {
-    stage_rows<T, kBK, kLd>(skv, kp, ks.t, 0, tk, per_row, vec, tid);
-    stage_rows<T, kBK, kLd>(skv + kBK * kLd, vp, vs.t, 0, tk, per_row, vec,
-                            tid);
+    stage_rows<T, kBK, kLd, kThreads>(skv, kp, ks.t, 0, tk, per_row, vec,
+                                      tid);
+    stage_rows<T, kBK, kLd, kThreads>(skv + kBK * kLd, vp, vs.t, 0, tk,
+                                      per_row, vec, tid);
   }
   cp_async_commit();
 
@@ -321,10 +188,11 @@ __global__ void __launch_bounds__(kThreads) flash_attention_mma_kernel(
     __syncthreads();
     if (kb + 1 < n_kb) {
       T* nk = skv + ((kb + 1) % kStages) * 2 * kBK * kLd;
-      stage_rows<T, kBK, kLd>(nk, kp, ks.t, (kb + 1) * kBK, tk, per_row, vec,
-                              tid);
-      stage_rows<T, kBK, kLd>(nk + kBK * kLd, vp, vs.t, (kb + 1) * kBK, tk,
-                              per_row, vec, tid);
+      stage_rows<T, kBK, kLd, kThreads>(nk, kp, ks.t, (kb + 1) * kBK, tk,
+                                        per_row, vec, tid);
+      stage_rows<T, kBK, kLd, kThreads>(nk + kBK * kLd, vp, vs.t,
+                                        (kb + 1) * kBK, tk, per_row, vec,
+                                        tid);
     }
     cp_async_commit();
 
@@ -496,6 +364,14 @@ __global__ void __launch_bounds__(kThreads) flash_attention_mma_kernel(
       const float inv = 1.f / fmaxf(l, 1e-30f);
       const int r = row0 + 16 * m + g + 8 * i;
       if (r >= tq) continue;
+      if (lse != nullptr && t == 0) {
+        // the row's log-sum-exp of its scaled scores in log2 units, m + log2
+        // l (the quad shares m); +inf for a row that sees no key, tested on
+        // its position: the finite mask leaves m and l at garbage there
+        const bool sees_key = !causal || q_offset + r >= 0;
+        lse[static_cast<int64_t>(bh) * tq + r] =
+            sees_key ? m_run[m][i] + log2f(l) : INFINITY;
+      }
 #pragma unroll
       for (int dn = 0; dn < kDT; ++dn) {
         const int col = 8 * dn + 2 * t;
@@ -508,10 +384,10 @@ __global__ void __launch_bounds__(kThreads) flash_attention_mma_kernel(
 }
 
 template <typename T, int DP>
-int launch(const void* q, const void* k, const void* v, void* o, int64_t b,
-           int64_t hq, int64_t hkv, int64_t tq, int64_t tk, int64_t d,
-           Strides qs, Strides ks, Strides vs, float scale, int causal,
-           int vec, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int64_t b, int64_t hq, int64_t hkv, int64_t tq, int64_t tk,
+           int64_t d, Strides qs, Strides ks, Strides vs, float scale,
+           int causal, int vec, cudaStream_t stream) {
   using Tr = Traits<T>;
   const int64_t n_qb = (tq + kBQ - 1) / kBQ;
   const int64_t blocks = b * hq * n_qb;
@@ -526,31 +402,28 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t b,
   flash_attention_mma_kernel<T, DP><<<static_cast<unsigned>(blocks),
                                       kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<int>(hq),
-      static_cast<int>(hkv), static_cast<int>(tq), static_cast<int>(tk),
-      static_cast<int>(d), static_cast<int>(n_qb), qs, ks, vs,
-      scale * kLog2e, causal, vec);
+      static_cast<const T*>(v), static_cast<T*>(o), lse,
+      static_cast<int>(hq), static_cast<int>(hkv), static_cast<int>(tq),
+      static_cast<int>(tk), static_cast<int>(d), static_cast<int>(n_qb), qs,
+      ks, vs, scale * kLog2e, causal, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
 // the smallest instance that holds d: 32, 64, 80 (stablelm-3b's width,
 // and 72) or 128
 template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* o, int64_t b,
-             int64_t hq, int64_t hkv, int64_t tq, int64_t tk, int64_t d,
-             Strides qs, Strides ks, Strides vs, float scale, int causal,
-             int vec, cudaStream_t stream) {
-  if (d <= 32)
-    return launch<T, 32>(q, k, v, o, b, hq, hkv, tq, tk, d, qs, ks, vs, scale,
-                         causal, vec, stream);
-  if (d <= 64)
-    return launch<T, 64>(q, k, v, o, b, hq, hkv, tq, tk, d, qs, ks, vs, scale,
-                         causal, vec, stream);
-  if (d <= 80)
-    return launch<T, 80>(q, k, v, o, b, hq, hkv, tq, tk, d, qs, ks, vs, scale,
-                         causal, vec, stream);
-  return launch<T, 128>(q, k, v, o, b, hq, hkv, tq, tk, d, qs, ks, vs, scale,
-                        causal, vec, stream);
+int launch_d(const void* q, const void* k, const void* v, void* o, float* lse,
+             int64_t b, int64_t hq, int64_t hkv, int64_t tq, int64_t tk,
+             int64_t d, Strides qs, Strides ks, Strides vs, float scale,
+             int causal, int vec, cudaStream_t stream) {
+  const auto run = [&](auto launch) {
+    return launch(q, k, v, o, lse, b, hq, hkv, tq, tk, d, qs, ks, vs, scale,
+                  causal, vec, stream);
+  };
+  if (d <= 32) return run(&launch<T, 32>);
+  if (d <= 64) return run(&launch<T, 64>);
+  if (d <= 80) return run(&launch<T, 80>);
+  return run(&launch<T, 128>);
 }
 
 }  // namespace
@@ -560,9 +433,12 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int64_t b,
 // divide every tensor's base address, its strides in bytes and D times the
 // element size (kernels/flash_attention.py, copy_width).  The wrapper
 // checks shapes: Hq % Hkv == 0, 1 <= D <= 128, the last dim contiguous,
-// o (B, Hq, Tq, D) contiguous.
+// o (B, Hq, Tq, D) contiguous.  lse: null, or float32 (B, Hq, Tq)
+// contiguous, which then receives each row's log-sum-exp of its scaled
+// scores (log2 units; +inf where no key is visible) for the backward kernel
+// (flash_attention_bwd.cu); o is the same with it or without.
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o, int64_t b,
+    const void* q, const void* k, const void* v, void* o, void* lse, int64_t b,
     int64_t hq, int64_t hkv, int64_t tq, int64_t tk, int64_t d, int64_t q_sb,
     int64_t q_sh, int64_t q_st, int64_t k_sb, int64_t k_sh, int64_t k_st,
     int64_t v_sb, int64_t v_sh, int64_t v_st, float scale, int causal,
@@ -577,10 +453,11 @@ extern "C" int flash_attention_launch(
       vs{v_sb, v_sh, v_st};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_d<float>(q, k, v, o, b, hq, hkv, tq, tk, d, qs, ks, vs,
-                           scale, causal, vec, s);
+    return launch_d<float>(q, k, v, o, static_cast<float*>(lse), b, hq, hkv,
+                           tq, tk, d, qs, ks, vs, scale, causal, vec, s);
   if (dtype == 1)
-    return launch_d<__nv_bfloat16>(q, k, v, o, b, hq, hkv, tq, tk, d, qs, ks,
-                                   vs, scale, causal, vec, s);
+    return launch_d<__nv_bfloat16>(q, k, v, o, static_cast<float*>(lse), b,
+                                   hq, hkv, tq, tk, d, qs, ks, vs, scale,
+                                   causal, vec, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -54,11 +54,12 @@ SIGNATURES = {
         _P, _I64, _P, _P, _I64, _P, _I64, _P, _P),
     "bitset_intersect_count_launch": (_P, _P, _I64, _I64, _P, _P),
     "flash_attention_launch": (
-        _P, _P, _P, _P, *(_I64,) * 15, ctypes.c_float, _I32, _I32, _I32, _P),
+        *(_P,) * 5, *(_I64,) * 15, ctypes.c_float, _I32, _I32, _I32, _P),
     "flash_attention_tc_launch": (
         *(_P,) * 5, *(_I64,) * 15, ctypes.c_float, _I32, _P),
     "flash_attention_bwd_launch": (
-        *(_P,) * 10, *(_I64,) * 21, ctypes.c_float, _I32, _I32, _P),
+        *(_P,) * 11, *(_I64,) * 21, _I32, ctypes.c_float, _I32, _I32, _I32,
+        _P),
     "flash_attention_bwd_tc_launch": (
         *(_P,) * 11, *(_I64,) * 21, _I32, ctypes.c_float, _I32, _P),
     "segment_outer_plan": (_I64, _I64, _I64, _I32, _P),

@@ -20,12 +20,13 @@ The gradient has two hand-written kernels, routed by the same
 :func:`route`, which the JAX package does not have: it differentiates its
 plain attention.  :func:`flash_attention_bwd_cuda` runs
 ``csrc/flash_attention_bwd_tc.cu`` on the ``tc`` route (wgmma, counted as
-``flash_attention_bwd_tc``), which takes each row's log-sum-exp from the
-tensor-core forward, and ``csrc/flash_attention_bwd.cu`` (float32 FFMA,
-counted as ``flash_attention_bwd``) on the ``mma`` route; one count a
-backward call, for its launches.  :class:`FlashAttention` is the
-``torch.autograd.Function`` that pairs the routed forward kernel with
-it; its plain version is ``kernels.ref.flash_attention_bwd_ref``.
+``flash_attention_bwd_tc``) and ``csrc/flash_attention_bwd.cu`` (mma.sync,
+float32 as 3xTF32, counted as ``flash_attention_bwd``) on the ``mma``
+route; one count a backward call, for its launches.  Both take each row's
+log-sum-exp from their route's forward (``return_lse``).
+:class:`FlashAttention` is the ``torch.autograd.Function`` that pairs the
+routed forward kernel with it; its plain version is
+``kernels.ref.flash_attention_bwd_ref``.
 """
 from __future__ import annotations
 
@@ -48,6 +49,8 @@ COPY_WIDTHS = (16, 8, 4, 2)
 BWD_KERNELS = {"tc": "flash_attention_bwd_tc", "mma": "flash_attention_bwd"}
 #: keys a block of the tensor-core backward's dk/dv kernel takes
 BWD_TC_KEYS = 128
+#: keys a block of the mma.sync backward's dk/dv kernel takes, by dtype
+BWD_MMA_KEYS = {torch.float32: 128, torch.bfloat16: 64}
 
 
 def tc_head_dim(head_dim: int) -> bool:
@@ -82,15 +85,17 @@ def bwd_kernel(device, dtype: torch.dtype, head_dim: int) -> str:
     return BWD_KERNELS[route(device, dtype, head_dim)]
 
 
-def bwd_split(b: int, hkv: int, tk: int, group: int, n_sm: int) -> int:
-    """Over how many blocks the tensor-core backward's dk/dv kernel splits
-    each GQA group's query heads: 1 where its grid of B * Hkv * (key tiles
-    of 128) blocks fills the card's ``n_sm`` SMs, else the smallest
-    divisor of ``group`` that does (or ``group``).  Each split writes
-    float32 partials that a third kernel sums in split order, so the
-    result stays deterministic (chatglm3-6b's 2 KV heads at B 1 x T 4096
-    give 64 blocks: split 4)."""
-    blocks = b * hkv * -(-tk // BWD_TC_KEYS)
+def bwd_split(b: int, hkv: int, tk: int, group: int, n_sm: int,
+              keys: int = BWD_TC_KEYS) -> int:
+    """Over how many blocks a backward's dk/dv kernel splits each GQA
+    group's query heads: 1 where its grid of B * Hkv * (key tiles of
+    ``keys``: :data:`BWD_TC_KEYS`, or :data:`BWD_MMA_KEYS` by dtype)
+    blocks fills the card's ``n_sm`` SMs, else the smallest divisor of
+    ``group`` that does (or ``group``).  Each split writes float32
+    partials that a third kernel sums in split order, so the result stays
+    deterministic (chatglm3-6b's 2 KV heads at B 1 x T 4096 give 64
+    tensor-core blocks: split 4)."""
+    blocks = b * hkv * -(-tk // keys)
     for s in range(1, group + 1):
         if group % s == 0 and blocks * s >= n_sm:
             return s
@@ -174,11 +179,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     through the kernel :func:`route` picks.  Any strides, as long as the
     last dim is contiguous (a transposed view costs no copy).  Returns
     (B, Hq, Tq, D) contiguous, in q's dtype; ``scale`` defaults to
-    1 / sqrt(D).  With ``return_lse`` (the ``tc`` route only) it returns
-    ``(o, lse)``: each row's log-sum-exp of its scaled scores, (B, Hq, Tq)
-    float32 in log2 units, +inf for a row that sees no key
-    (:func:`kernels.ref.flash_attention_lse_ref`), which the tensor-core
-    backward takes."""
+    1 / sqrt(D).  With ``return_lse`` it returns ``(o, lse)``: each row's
+    log-sum-exp of its scaled scores, (B, Hq, Tq) float32 in log2 units,
+    +inf for a row that sees no key
+    (:func:`kernels.ref.flash_attention_lse_ref`), which the backward of
+    either route takes; ``o`` is the same with it or without."""
     name = "flash_attention"
     check_shapes(q, k, v)
     if not q.is_cuda:
@@ -193,15 +198,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{name}: head dim {q.shape[3]} > {MAX_HEAD_DIM}")
     if scale is None:
         scale = 1.0 / (q.shape[3] ** 0.5)
-    tc = route(q.device, q.dtype, q.shape[3]) == "tc"
-    if return_lse and not tc:
-        raise ValueError(f"{name}: only the tensor-core kernel (bf16, D a "
-                         "multiple of 16) returns the log-sum-exp")
-    if not tc:
-        return _launch_mma(q, k, v, causal, float(scale))
     lse = (torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
            if return_lse else None)
-    out = _launch_tc(q, k, v, causal, float(scale), lse)
+    launch = (_launch_tc if route(q.device, q.dtype, q.shape[3]) == "tc"
+              else _launch_mma)
+    out = launch(q, k, v, causal, float(scale), lse)
     return (out, lse) if return_lse else out
 
 
@@ -226,9 +227,12 @@ def _launch_tc(q, k, v, causal: bool, scale: float,
     return out
 
 
-def _launch_mma(q, k, v, causal: bool, scale: float) -> torch.Tensor:
+def _launch_mma(q, k, v, causal: bool, scale: float,
+                lse: torch.Tensor | None = None) -> torch.Tensor:
     """The mma.sync kernel (f32 or bf16, any D <= 128), staging tiles with
-    copies of :func:`copy_width` bytes."""
+    copies of :func:`copy_width` bytes.  Where ``lse`` ((B, Hq, Tq)
+    float32, contiguous) is given, the kernel also writes each row's
+    log-sum-exp into it."""
     b, hq, tq, d = q.shape
     hkv, tk = k.shape[1], k.shape[2]
     q, k, v = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v))
@@ -236,8 +240,9 @@ def _launch_mma(q, k, v, causal: bool, scale: float) -> torch.Tensor:
     lib = build.library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv,
-        tq, tk, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), b, hq, hkv, tq, tk, d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         scale, int(bool(causal)), DTYPES[q.dtype], copy_width(q, k, v),
         stream)
     build.check(rc, "flash_attention_mma")
@@ -249,12 +254,12 @@ def check_bwd_lse(q: torch.Tensor, lse: torch.Tensor | None,
                   kernel_route: str | None = None) -> None:
     """Raise where the backward cannot take ``lse``: any given ``lse`` must
     be the forward's (B, Hq, Tq) float32 log-sum-exp on q's device, and
-    the ``tc`` route (``kernel_route``; None where not known yet) needs
-    one."""
+    the kernel of either CUDA route (``kernel_route``, ``tc`` or ``mma``;
+    None where not known yet) needs one."""
     name = "flash_attention_bwd"
     if lse is None:
-        if kernel_route == "tc":
-            raise ValueError(f"{name}: the tensor-core backward needs the "
+        if kernel_route in BWD_KERNELS:
+            raise ValueError(f"{name}: the {kernel_route} backward needs the "
                              "forward's lse (flash_attention_cuda(..., "
                              "return_lse=True))")
         return
@@ -276,11 +281,11 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     cotangent ``do`` (B, Hq, Tq, D), given the forward's output ``o``, for
     the forward's contract (f32 or bf16, all five tensors alike, D <= 128,
     any strides with a contiguous last dim), through the backward kernel of
-    the forward's :func:`route` (:func:`bwd_kernel`): on ``tc`` the
-    tensor-core kernel, which needs the forward's ``lse``
-    (``flash_attention_cuda(..., return_lse=True)``); on ``mma`` the FFMA
-    kernel, which recomputes it.  A route by shape, not a fallback: a
-    launch that fails raises.  Returns contiguous tensors in q's dtype."""
+    the forward's :func:`route` (:func:`bwd_kernel`): on ``tc`` the wgmma
+    kernel, on ``mma`` the mma.sync one; both need the forward's ``lse``
+    (``flash_attention_cuda(..., return_lse=True)``).  A route by shape,
+    not a fallback: a launch that fails raises.  Returns contiguous
+    tensors in q's dtype."""
     name = "flash_attention_bwd"
     check_shapes(q, k, v)
     for arg, t in (("o", o), ("do", do)):
@@ -302,41 +307,48 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         scale = 1.0 / (d ** 0.5)
     kernel_route = route(q.device, q.dtype, d)
     check_bwd_lse(q, lse, kernel_route)
-    if kernel_route == "tc":
-        return _launch_bwd_tc(q, k, v, o, do, lse, causal, float(scale))
-    return _launch_bwd_ffma(q, k, v, o, do, causal, float(scale))
-
-
-def _launch_bwd_ffma(q, k, v, o, do, causal: bool, scale: float):
-    """The FFMA kernel (``csrc/flash_attention_bwd.cu``: f32 or bf16, any
-    D <= 128), which recomputes each row's log-sum-exp."""
-    name = BWD_KERNELS["mma"]
-    b, hq, tq, d = q.shape
-    hkv, tk = k.shape[1], k.shape[2]
-    q, k, v, o, do = (t if t.stride(3) == 1 else t.contiguous()
-                      for t in (q, k, v, o, do))
-    dq = torch.empty((b, hq, tq, d), dtype=q.dtype, device=q.device)
-    dk = torch.empty((b, hkv, tk, d), dtype=q.dtype, device=q.device)
-    dv = torch.empty_like(dk)
-    lse = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
-    lib = build.library()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.flash_attention_bwd_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), b, hq, hkv, tq, tk, d,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-        *do.stride()[:3], scale, int(bool(causal)), DTYPES[q.dtype],
-        stream)
-    build.check(rc, name)
-    build.count_launch(name)
-    return dq, dk, dv
+    launch = _launch_bwd_tc if kernel_route == "tc" else _launch_bwd_mma
+    return launch(q, k, v, o, do, lse, causal, float(scale))
 
 
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch_bwd_mma(q, k, v, o, do, lse, causal: bool, scale: float):
+    """The mma.sync kernel (``csrc/flash_attention_bwd.cu``: f32 or bf16,
+    any D <= 128), given the forward's ``lse``, staging tiles with copies
+    of :func:`copy_width` bytes; the dk/dv kernel's head split
+    (:func:`bwd_split` over :data:`BWD_MMA_KEYS`) gets its float32 scratch
+    here."""
+    name = BWD_KERNELS["mma"]
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    q, k, v, o, do = (t if t.stride(3) == 1 else t.contiguous()
+                      for t in (q, k, v, o, do))
+    lse = lse.contiguous()
+    dq = torch.empty((b, hq, tq, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, hkv, tk, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    delta = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
+    split = bwd_split(b, hkv, tk, hq // hkv, _sm_count(q.device.index),
+                      BWD_MMA_KEYS[q.dtype])
+    part = (torch.empty((split, 2, b, hkv, tk, d), dtype=torch.float32,
+                        device=q.device) if split > 1 else None)
+    lib = build.library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(),
+        None if part is None else part.data_ptr(), b, hq, hkv, tq, tk, d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+        *do.stride()[:3], split, scale, int(bool(causal)), DTYPES[q.dtype],
+        copy_width(q, k, v, do), stream)
+    build.check(rc, name)
+    build.count_launch(name)
+    return dq, dk, dv
 
 
 def _launch_bwd_tc(q, k, v, o, do, lse, causal: bool, scale: float):
@@ -376,23 +388,18 @@ class FlashAttention(torch.autograd.Function):
     :func:`flash_attention_bwd_cuda` as the backward; on DTensors each
     through its custom op (``kernels.custom``), which runs it on the
     local shards under the ops' sharding rules.  Where a gradient is
-    needed on the ``tc`` route the forward also returns each row's
-    log-sum-exp, saved for the tensor-core backward (a recompute under
-    ``torch.utils.checkpoint`` runs the forward again with grad on, so it
-    saves it again).  The JAX package differentiates its plain attention
-    instead (it has no backward kernel); the gradient is that of the same
-    function."""
+    needed the forward also returns each row's log-sum-exp, saved for the
+    backward (a recompute under ``torch.utils.checkpoint`` runs the
+    forward again with grad on, so it saves it again).  The JAX package
+    differentiates its plain attention instead (it has no backward
+    kernel); the gradient is that of the same function."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, scale, with_lse=None):
-        # with_lse: whether a gradient's forward returns the log-sum-exp;
-        # None lets the route decide (the dry run's stand-in asks for it)
+    def forward(ctx, q, k, v, causal: bool, scale):
         from ..layers.sharding import is_dtensor
         from . import custom   # its ops wrap this module's
         lse = None
-        if with_lse is None:
-            with_lse = route(q.device, q.dtype, q.shape[3]) == "tc"
-        with_lse = any(ctx.needs_input_grad[:3]) and with_lse
+        with_lse = any(ctx.needs_input_grad[:3])
         if is_dtensor(q):
             if with_lse:
                 o, lse = custom.flash_attention_lse(q, k, v, causal, scale)
@@ -418,4 +425,4 @@ class FlashAttention(torch.autograd.Function):
         else:
             dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o, do, ctx.causal,
                                                   ctx.scale, lse=lse)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None

@@ -129,7 +129,7 @@ def flash_attention(q, k, v, causal: bool = True, scale=None):
     min(128, T)).  On the card the result carries its gradient through
     :class:`kernels.flash_attention.FlashAttention`, whose backward is a
     hand-written kernel of the same route (``flash_attention_bwd_tc`` on
-    wgmma, ``flash_attention_bwd`` on FFMA); on the CPU autograd
+    wgmma, ``flash_attention_bwd`` on mma.sync); on the CPU autograd
     differentiates the plain version."""
     if _flash_route(q.device, q.dtype, q.shape[-1]) == "plain":
         return _ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)

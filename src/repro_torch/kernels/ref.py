@@ -268,9 +268,9 @@ def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
     """Each query row's log-sum-exp of its scaled scores, in log2 units:
     ``log2 sum_k 2^(s_k * scale * log2 e)`` = logsumexp(s * scale) *
     log2 e, (B, Hq, Tq) float32; +inf for a row that sees no key (causal
-    with Tq > Tk).  The plain version of what the tensor-core forward
-    kernel saves for the backward (``csrc/flash_attention_tc.cu``), in
-    the convention of ``csrc/flash_attention_bwd.cu``'s lse buffer."""
+    with Tq > Tk).  The plain version of what either forward kernel saves
+    for its backward (``csrc/flash_attention_tc.cu``,
+    ``csrc/flash_attention.cu``)."""
     b, hq, tq, d = q.shape
     if scale is None:
         scale = 1.0 / (d ** 0.5)
@@ -292,7 +292,7 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     ``o`` is the forward's output; ``Delta = rowsum(do * o)`` stands in
     for ``rowsum(P * dP)``, as the kernels compute it.  ``lse`` (B, Hq,
     Tq), as :func:`flash_attention_lse_ref` gives it, is used where given
-    instead of recomputing it (the tensor-core kernel takes the forward's);
+    instead of recomputing it (both kernels take the forward's);
     ``P = 2^(s * scale * log2 e - lse)``.  A query row that sees no key
     (causal with Tq > Tk) carries no gradient: the kernels' forward gives
     it 0, where ``flash_attention_ref``'s softmax gives NaN and autograd

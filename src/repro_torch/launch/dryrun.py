@@ -295,8 +295,8 @@ class CostMode(TorchDispatchMode):
     def _flash_attention_mesh(self, q, k, v, causal: bool = True,
                               scale=None):
         # the card's autograd Function over the kernels' custom ops, the
-        # log-sum-exp kept for a gradient as the tensor-core route keeps it
-        return FlashAttention.apply(q, k, v, causal, scale, True)
+        # log-sum-exp kept for a gradient as both routes keep it
+        return FlashAttention.apply(q, k, v, causal, scale)
 
     def _tile_member_mask_mesh(self, indices, lo, hi, cand,
                                check_width: int, lane_len=None):

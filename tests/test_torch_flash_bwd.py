@@ -1,9 +1,10 @@
 """The flash-attention gradient of the port against the JAX package.
 
 ``kernels.ref.flash_attention_bwd_ref`` (the plain version of
-``csrc/flash_attention_bwd.cu``) against ``jax.vjp`` of the JAX
-package's ``flash_attention_ref`` (the function the JAX package
-differentiates: it has no backward kernel), on the same numpy inputs:
+``csrc/flash_attention_bwd.cu`` and ``csrc/flash_attention_bwd_tc.cu``)
+against ``jax.vjp`` of the JAX package's ``flash_attention_ref`` (the
+function the JAX package differentiates: it has no backward kernel), on
+the same numpy inputs:
 f32 and bf16, GQA groups 1, 2 and 4, Tq = Tk and Tq < Tk (the causal
 offset), causal both ways, D 8 to 128.  Tolerance, relative to the
 largest |want| of each output: 1e-5 in f32 (float32 math in both, sums
@@ -137,16 +138,17 @@ def test_backward_kernel_wrapper_refuses_what_it_cannot_run():
 
 def test_backward_kernel_is_built_bound_and_counted():
     """The source is one of the library's, its entry point has a C
-    signature (10 pointers, 21 int64 sizes and strides, scale, causal,
-    dtype, stream) and a launch counter; ``FlashAttention`` is what the
-    router applies on a CUDA tensor."""
+    signature (11 pointers, 21 int64 sizes and strides, the head split,
+    scale, causal, dtype, the copy width, stream) and a launch counter;
+    ``FlashAttention`` is what the router applies on a CUDA tensor."""
     assert "flash_attention_bwd.cu" in {p.name for p in build.sources()}
     sig = build.SIGNATURES["flash_attention_bwd_launch"]
-    assert len(sig) == 10 + 21 + 4
+    assert len(sig) == 11 + 21 + 6
     assert "flash_attention_bwd" in build.LAUNCHES
     assert issubclass(FlashAttention, torch.autograd.Function)
     src = (build.CSRC / "flash_attention_bwd.cu").read_text()
-    for name in ("flash_attention_bwd_dq_kernel",
-                 "flash_attention_bwd_dkdv_kernel",
+    for name in ("flash_attention_bwd_mma_dq_kernel",
+                 "flash_attention_bwd_mma_dkdv_kernel",
+                 "flash_attention_bwd_mma_reduce_kernel",
                  'extern "C" int flash_attention_bwd_launch'):
         assert name in src

@@ -143,7 +143,7 @@ def test_backward_ref_takes_no_gradient_from_rows_with_infinite_lse():
 def test_backward_route_is_the_forward_route(dtype):
     """The backward runs the tensor-core kernel exactly where the forward's
     ``route()`` picks ``tc`` (bf16, D a multiple of 16 up to 128), and the
-    FFMA kernel wherever it picks ``mma``."""
+    mma.sync kernel wherever it picks ``mma``."""
     for d in range(1, fa.MAX_HEAD_DIM + 1):
         kernel = fa.bwd_kernel("cuda", dtype, d)
         tc = fa.route("cuda", dtype, d) == "tc"
@@ -155,8 +155,8 @@ def test_backward_route_is_the_forward_route(dtype):
 
 def test_backward_wrapper_refuses_what_it_cannot_run():
     """CPU tensors; an lse of the wrong shape, dtype or device (refused
-    before the device is looked at); the tensor-core route without the
-    forward's lse; the forward's lse from a kernel that has none."""
+    before the device is looked at); either CUDA route without the
+    forward's lse."""
     q = torch.zeros(1, 2, 64, 16, dtype=torch.bfloat16)
     k = torch.zeros(1, 1, 64, 16, dtype=torch.bfloat16)
     lse = torch.zeros(1, 2, 64)
@@ -168,10 +168,11 @@ def test_backward_wrapper_refuses_what_it_cannot_run():
                 torch.zeros(1, 2, 64, device="meta")):
         with pytest.raises(ValueError, match="lse must be float32"):
             fa.flash_attention_bwd_cuda(q, k, k, q, q, lse=bad)
-    with pytest.raises(ValueError, match="needs the forward's lse"):
-        fa.check_bwd_lse(q, None, "tc")
-    fa.check_bwd_lse(q, None, "mma")
-    fa.check_bwd_lse(q, lse, "tc")
+    for kernel_route in ("tc", "mma"):
+        with pytest.raises(ValueError, match="needs the forward's lse"):
+            fa.check_bwd_lse(q, None, kernel_route)
+        fa.check_bwd_lse(q, lse, kernel_route)
+    fa.check_bwd_lse(q, None)
     with pytest.raises(ValueError, match="CUDA device"):
         fa.flash_attention_cuda(q, k, k, return_lse=True)
 

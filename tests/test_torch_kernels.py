@@ -373,15 +373,18 @@ def _c_params(src: str, fn: str) -> list:
 def test_c_signatures_of_the_bitset_mask_and_the_mma_flash_kernel():
     """The bitset mask takes ``lane_len`` (a pointer, null for every lane)
     after the candidates, and the mma.sync flash kernel the staging copy
-    width (an int) after the dtype, each declared so in ctypes."""
+    width (an int) after the dtype and its ``lse`` (a pointer, null in
+    serving) after ``o``, each declared so in ctypes."""
     names = _c_params("bitset_member.cu", "bitset_member_mask_launch")
     assert names[4:6] == ["cand", "lane_len"]
     sig = build.SIGNATURES["bitset_member_mask_launch"]
     assert sig[5] is ctypes.c_void_p and len(sig) == len(names)
     names = _c_params("flash_attention.cu", "flash_attention_launch")
     assert names[-3:] == ["dtype", "vec", "stream"]
+    assert names[3:5] == ["o", "lse"]
     sig = build.SIGNATURES["flash_attention_launch"]
     assert sig[-2] is ctypes.c_int and sig[-1] is ctypes.c_void_p
+    assert sig[:5] == (ctypes.c_void_p,) * 5 and sig[5] is ctypes.c_int64
     assert len(sig) == len(names)
 
 

@@ -30,6 +30,11 @@ commit) on one CUDA device, with the measuring code of this checkout's
   prefill shapes in bf16, at stablelm-3b's with an off-grid head dim of
   72 in bf16, and at the f32 path shape (chatglm3-6b's heads in f32), the
   device time of the kernel the tree routes each to;
+* ``flash_bwd``: the mma route's flash backward at chip_smoke.py's two
+  ``kernel flash_attention_bwd`` shapes (float32 at the f32 path shape,
+  bf16 at D 72 with stablelm-3b's heads), through its
+  ``flash_bwd_mma_line`` (a tree whose mma forward saves the lse):
+  the kernels' device time, each kernel's apart, and the errors;
 * ``lm``: stablelm-3b at full width and depth in bf16, seeded weights,
   one 4 x 2048 prefill timed after a warm-up, and one profiled;
 * ``outer``: ``ops.segment_outer`` at the chip_smoke.py segment-outer
@@ -66,7 +71,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent.parent
 PARTS = ("search", "main", "cycle4", "tile", "auto", "bitset", "flash",
-         "lm", "outer", "serve")
+         "flash_bwd", "lm", "outer", "serve")
 #: the kernel function each flash route launches, by route name
 FLASH_KERNELS = {"tc": "flash_attention_tc_kernel",
                  "mma": "flash_attention_mma_kernel",
@@ -188,6 +193,13 @@ def main() -> int:
 
     if "flash" in parts:
         out.update(flash_shapes(cs))
+
+    if "flash_bwd" in parts:
+        for dt in cs.FLASH_BWD_MMA_SHAPES:
+            line = cs.flash_bwd_mma_line(dt)
+            out[f"flash_bwd {dt}"] = {k: line[k] for k in (
+                "ms", "by_kernel", "dq_dk_dv_rel_err", "bound_ms",
+                "library_ms", "forward_digest")}
 
     if "lm" in parts:
         out.update(stablelm_prefill(cs))
