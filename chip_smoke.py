@@ -153,7 +153,13 @@ kernels' launch counters set to 0 just before it and read just after:
   optimizer and the rest, and the idle share); a 2-layer
   run checkpointed every 2 steps, restored bit for bit, its newest
   checkpoint corrupted and skipped, and resumed to the straight run's
-  losses; one float32 train step of stablelm-3b and granite-moe-3b-a800m
+  losses; the same 2-layer runs on a (1, 1) ``DeviceMesh`` over a
+  world-size-1 NCCL group (the params DTensors laid out by
+  ``param_specs``, the flash kernels launched through their custom ops:
+  2 forward and 1 backward a layer a microbatch a step), its checkpoint
+  restored with ``shardings=`` bit for bit, saved and restored timed,
+  and resumed from step 2 on the mesh and on plain card tensors to the
+  straight run's losses; one float32 train step of stablelm-3b and granite-moe-3b-a800m
   at full width and 2 layers on the card against the CPU path (router
   picks equal, loss and gradient norm within 1e-4, parameters within 3
   learning rates); one bf16 layer's gradients against float32 on upcast
@@ -2769,7 +2775,8 @@ def lm_moe_ffn(model) -> None:
 #: steps move the loss
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 4, 4096, 2, 6
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=100)
-#: (b) resume at full width with 2 layers; (c) card vs CPU in float32 at
+#: (b) resume at full width with 2 layers, and (b') the same on a (1, 1)
+#: mesh with elastic restore; (c) card vs CPU in float32 at
 #: full width with 2 layers on a batch of 2 x 256 tokens; (d) one layer in
 #: bf16 against float32 on upcast copies at 4 x 2048 tokens
 RESUME_LAYERS, RESUME_STEPS = 2, 4
@@ -3040,6 +3047,161 @@ def train_resume(tmp: Path) -> dict:
                wall_s=time.perf_counter() - t0)
     log(json.dumps(out))
     del straight, saving, resumed, p0, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_elastic(tmp: Path) -> dict:
+    """(b') (b)'s cut on a (1, 1) ``("data", "model")`` ``DeviceMesh``
+    over a world-size-1 NCCL group (an in-memory store, destroyed at the
+    end), the params DTensors laid out by ``param_specs``:
+    ``RESUME_STEPS`` straight; the same with ``ckpt_every=2``; checkpoint
+    4 restored with ``shardings=`` equal to the saver's state bit for bit
+    (``full_tensor``, every leaf, dtype and layout), and a blocking save
+    of that state writing checkpoint 4's files again (timed, as is the
+    restore); then checkpoint 2 resumed by a fresh ``Trainer`` on the
+    mesh and one on plain card tensors, each taking steps 3 and 4 within
+    a relative 1e-5 of the straight run's losses.  Each run's flash
+    launches (counters zeroed just before it, read just after) are held
+    to 2 ``flash_attention_tc`` a layer a microbatch a step (the forward
+    and remat's recompute, through ``kernels.custom``'s ops on the mesh's
+    DTensors) and 1 ``flash_attention_bwd_tc``, no other flash kernel.
+    ``sha_equal_no_mesh`` says whether checkpoint 2's files hash as (b)'s
+    (a finding: the mesh's cross-entropy is the vocabulary-parallel
+    formula, which rounds otherwise); ``step_s`` gives the median step
+    seconds of the straight run and of each resume (host clock, between
+    logged steps)."""
+    import shutil
+    from dataclasses import replace
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs import STABLELM_3B
+    from repro_torch.configs.common import named
+    from repro_torch.data import LMTokenPipeline
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_mesh, process_mesh
+    from repro_torch.layers.sharding import (is_dtensor, mesh_of,
+                                             placements, sharding_of)
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import CheckpointManager, OptimizerConfig, Trainer
+    from repro_torch.train.tree import leaves, tree_map
+    cfg = replace(STABLELM_3B, n_layers=RESUME_LAYERS)
+    pipe = LMTokenPipeline(TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size,
+                           token_file=str(tmp / "tokens.bin"))
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    p0 = tfm.init_params(cfg, g, device="cuda")
+    ckpt = tmp / "ckpt_mesh"
+    lf = lambda p, b: tfm.loss_fn(p, b, cfg, mesh=mesh_of(b["tokens"]))
+    per_step = {"flash_attention_tc": 2 * TRAIN_MICRO * cfg.n_layers,
+                "flash_attention_bwd_tc": TRAIN_MICRO * cfg.n_layers,
+                "flash_attention_mma": 0, "flash_attention_bwd": 0}
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        dm = process_mesh(make_mesh((1, 1), ("data", "model")), "cuda")
+        psh = named(dm, tfm.param_specs(cfg))
+
+        def spread():
+            return tree_map(lambda t, sh: distribute_tensor(
+                t.clone(), dm, placements(dm, sh.spec), src_data_rank=None),
+                p0, psh)
+
+        def trainer(params, ckpt_dir, every=2):
+            return Trainer(lf, params, OptimizerConfig(**TRAIN_OPT),
+                           pipe.get_batch, ckpt_dir=ckpt_dir,
+                           ckpt_every=every, microbatches=TRAIN_MICRO,
+                           device="cuda")
+
+        launches = {}
+
+        def counted(name: str, tr, steps: int) -> list:
+            torch.cuda.synchronize()
+            build.reset_launches()
+            hist = tr.run(steps, log_every=1)
+            torch.cuda.synchronize()
+            got = {k: build.LAUNCHES[k] for k in per_step}
+            want = {k: n * steps for k, n in per_step.items()}
+            need(got == want, f"train elastic: {name} launched {got}, "
+                 f"want {want}")
+            launches[name] = got
+            return hist
+
+        hs = counted("straight", trainer(spread(), None), RESUME_STEPS)
+        saving = trainer(spread(), str(ckpt))
+        hc = counted("checkpointed", saving, RESUME_STEPS)
+        cm = CheckpointManager(str(ckpt))
+        need(cm.steps() == [2, 4],
+             f"train elastic: checkpoints {cm.steps()}")
+        state = {"params": saving.params, "opt": saving.opt_state}
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        CheckpointManager(str(tmp / "ckpt_timed")).save(4, state,
+                                                        blocking=True)
+        save_s = time.perf_counter() - ts
+        step4 = ckpt / "step-00000004"
+        timed = tmp / "ckpt_timed" / "step-00000004"
+        written = sum(f.stat().st_size for f in timed.iterdir())
+        need((timed / "manifest.json").read_bytes()
+             == (step4 / "manifest.json").read_bytes(),
+             "train elastic: a blocking save of the saver's state did not "
+             "write checkpoint 4's files")
+        shutil.rmtree(tmp / "ckpt_timed")
+        shardings = {"params": psh, "opt": {"m": psh, "v": psh}}
+        tr_ = time.perf_counter()
+        restored = cm.restore(4, state, shardings=shardings)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - tr_
+        pairs = list(zip(leaves(restored), leaves(state)))
+        need(all(a.dtype == b.dtype and is_dtensor(a) == is_dtensor(b)
+                 and sharding_of(a) == sharding_of(b)
+                 and torch.equal(a.full_tensor() if is_dtensor(a) else a,
+                                 b.full_tensor() if is_dtensor(b) else b)
+                 for a, b in pairs),
+             "train elastic: checkpoint 4 restored with shardings= is not "
+             "the saver's state bit for bit")
+        del restored, pairs, state, saving
+        shutil.rmtree(step4)
+        resumed, walls = {}, {"straight on mesh": hs}
+        for name, params in (("mesh", spread()),
+                             ("plain", tree_map(torch.clone, p0))):
+            # from checkpoint 2, saving nothing more
+            tr = trainer(params, str(ckpt), every=100)
+            hr = counted(f"resumed on {name}", tr, RESUME_STEPS - 2)
+            need(tr.start_step == 2 and [h["step"] for h in hr] == [3, 4],
+                 f"train elastic: {name} resumed at {tr.start_step}, "
+                 f"steps {[h['step'] for h in hr]}")
+            need(all(is_dtensor(t) == (name == "mesh")
+                     for t in leaves(tr.params)),
+                 f"train elastic: the {name} resume changed the layout")
+            resumed[name] = [h["loss"] for h in hr]
+            walls[name] = hr
+            del tr, params
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    want = [h["loss"] for h in hs[2:]]
+    diff = {k: max(abs(a - b) / abs(b) for a, b in zip(v, want))
+            for k, v in resumed.items()}
+    need(max(diff.values()) <= 1e-5, f"train elastic: losses of steps 3-4 "
+         f"{resumed} vs the straight run's {want}")
+    step_s = lambda h: float(np.median(np.diff([x["wall"] for x in h])))
+    sha = lambda d: [(l["path"], l["sha"]) for l in json.loads(
+        (d / "step-00000002" / "manifest.json").read_text())["leaves"]]
+    out = dict(path="train elastic", model=cfg.name, n_layers=cfg.n_layers,
+               mesh={"data": 1, "model": 1}, backend="nccl",
+               straight_loss=[h["loss"] for h in hs],
+               checkpointed_loss=[h["loss"] for h in hc],
+               resumed_loss=resumed, resumed_from=2, max_rel_diff=diff,
+               bitwise={k: v == want for k, v in resumed.items()},
+               restored_bit_identical=True, save_s=save_s,
+               restore_s=restore_s, gb_written=written / 1e9,
+               step_s={k: step_s(h) for k, h in walls.items()},
+               sha_equal_no_mesh=sha(ckpt) == sha(tmp / "ckpt"),
+               launches=launches, wall_s=time.perf_counter() - t0)
+    log(json.dumps(out))
+    del p0
     torch.cuda.empty_cache()
     return out
 
@@ -3336,8 +3498,9 @@ def train_compressed() -> dict:
 def train_phase() -> dict:
     """(a)-(e) of the ``train`` phase, in a temporary directory for the
     token file and the checkpoints; returns (a)'s launches (``main``) and
-    median step seconds (``steady_step_s``), and the launches of (c)'s
-    float32 steps summed (``parity``: the mma.sync backward's path)."""
+    median step seconds (``steady_step_s``), the launches of (c)'s
+    float32 steps summed (``parity``: the mma.sync backward's path) and
+    those of (b')'s runs on the mesh and off it (``elastic``)."""
     import tempfile
     from repro_torch.configs import GRANITE_MOE_3B_A800M, STABLELM_3B
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
@@ -3348,6 +3511,9 @@ def train_phase() -> dict:
         t0 = time.perf_counter()
         train_resume(tmp)
         log(f"train resume: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        elastic = train_elastic(tmp)
+        log(f"train elastic: {time.perf_counter() - t0:.2f} s")
     parity = {}
     for model in (STABLELM_3B, GRANITE_MOE_3B_A800M):
         t0 = time.perf_counter()
@@ -3366,6 +3532,7 @@ def train_phase() -> dict:
     train_compressed()
     log(f"train compressed: {time.perf_counter() - t0:.2f} s")
     return {"main": main["launches"], "parity": parity,
+            "elastic": elastic["launches"],
             "steady_step_s": main["steady_step_s"]}
 
 
@@ -6296,7 +6463,8 @@ def run_phases(T, phases, smi: str, workers: dict, started: float) -> int:
         train_launches = train_phase()
         log(f"train: {time.perf_counter() - t0:.2f} s, launches of the "
             f"main path {train_launches['main']}, of the float32 parity "
-            f"steps {train_launches['parity']}")
+            f"steps {train_launches['parity']}, of the elastic runs "
+            f"{train_launches['elastic']}")
 
     if "gnn" in phases:
         t0 = time.perf_counter()

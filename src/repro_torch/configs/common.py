@@ -14,11 +14,14 @@ kind, skip reason, model FLOPs and donated arguments.
 ``launch.dryrun`` runs a cell's function once on fake tensors and counts
 its cost: on one card the whole program, on a production mesh one
 chip's, each argument a DTensor (:func:`place`) laid out by its
-:class:`NamedSharding` (``shard_shape`` gives its local shape, as JAX's
-does); a step takes its mesh from its arguments' layout
-(``layers.sharding.mesh_of``), so one function serves both.  Specs are
-tuples whose entries are an axis name, None or a
-tuple of axis names, as ``PartitionSpec``s are.
+:class:`NamedSharding` (``layers.sharding``'s; ``shard_shape`` gives
+its local shape, as JAX's does); a step takes its mesh from its
+arguments' layout (``layers.sharding.mesh_of``), so one function serves
+both.  Specs are tuples whose entries are an axis name, None or a tuple
+of axis names, as ``PartitionSpec``s are.  :func:`named` takes a
+``DeviceMesh`` as well as a record: ``named(dmesh, param_specs(cfg))``
+is the sharding tree ``train.checkpoint``'s ``restore(...,
+shardings=)`` lays a checkpoint out by.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from ..device import resolve_device
-from ..layers.sharding import mesh_of, placements
+from ..layers.sharding import NamedSharding, mesh_of, placements
 from ..models import transformer as tfm
 from ..models import xdeepfm as xdf
 from ..models.gnn import data as gnn_data
@@ -77,37 +80,6 @@ class Cell:
     # and 2 of them); the port's eager step runs every layer, so its dry
     # run counts them all and needs no probe
     n_scan: int = 0
-
-
-@dataclass(frozen=True)
-class NamedSharding:
-    """One leaf's sharding: a mesh and a spec (a tuple of axis names,
-    None or tuples of axis names, one entry per dim)."""
-
-    mesh: Any
-    spec: tuple
-
-    def shard_shape(self, global_shape) -> tuple:
-        """One chip's shape of a ``global_shape`` array, as
-        ``jax.sharding.NamedSharding.shard_shape`` gives it: each dim
-        divided by the product of its axes' sizes, which must divide
-        it."""
-        sizes = self.mesh.shape
-        out = []
-        for dim, size in enumerate(global_shape):
-            entry = self.spec[dim] if dim < len(self.spec) else None
-            axes = (() if entry is None else
-                    (entry,) if isinstance(entry, str) else entry)
-            ways = 1
-            for a in axes:
-                ways *= sizes[a]
-            if size % ways:
-                raise ValueError(
-                    f"shard_shape: axis {dim} of {tuple(global_shape)} is "
-                    f"split {ways} ways by {self.spec}, which does not "
-                    "divide it")
-            out.append(size // ways)
-        return tuple(out)
 
 
 def place(local: torch.Tensor, sharding: NamedSharding | None, dmesh,

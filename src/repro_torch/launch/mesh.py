@@ -6,7 +6,9 @@ process group.  The dry-run cells (``configs.common``) read it for their
 sharding specs, the way the JAX cells read a mesh: ``axis_names`` for
 the data axes and ``shape["model"]`` for the tensor-parallel width.
 :func:`device_mesh` makes a record a ``DeviceMesh`` over a fake process
-group, on which one process runs one chip's program of the whole mesh.
+group, on which one process runs one chip's program of the whole mesh;
+:func:`process_mesh` makes it one over the real process group this
+process is a rank of (a checkpoint restores onto it).
 """
 from __future__ import annotations
 
@@ -111,3 +113,28 @@ def release_fake_world() -> None:
         dist.destroy_process_group()
     _FAKE["world"] = None
     _FAKE["meshes"].clear()
+
+
+def process_mesh(mesh: Mesh, device_type: str = "cuda"):
+    """``mesh`` as a ``DeviceMesh`` over the default process group, whose
+    ``mesh.size`` ranks are its devices in row-major order: the real
+    mesh that a sharding tree on the record names
+    (``train.checkpoint``'s ``restore(..., shardings=)`` places each
+    leaf's shard on it).  Making one makes its subgroups, so every rank
+    makes the same meshes in the same order.  Raises without a group,
+    on :func:`device_mesh`'s fake group, or on a group of another
+    size."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from ..layers.sharding import register_rules
+    if not dist.is_initialized() or _FAKE["world"] is not None:
+        raise RuntimeError(
+            "process_mesh: no real process group is initialized (the "
+            "per-chip programs' fake group has no devices)")
+    if dist.get_world_size() != mesh.size:
+        raise ValueError(f"process_mesh: a {mesh.sizes} mesh needs "
+                         f"{mesh.size} ranks, the group has "
+                         f"{dist.get_world_size()}")
+    register_rules()
+    return init_device_mesh(device_type, mesh.sizes,
+                            mesh_dim_names=mesh.axis_names)

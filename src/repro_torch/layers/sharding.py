@@ -6,7 +6,9 @@ A spec is a tuple with one entry per tensor dim: None, an axis name, or
 a tuple of axis names, as a ``PartitionSpec`` is (``configs.common``'s
 cells hold their shardings so).  :func:`placements` turns one into the
 placements of a ``torch.distributed.device_mesh.DeviceMesh`` whose dim
-names are the axis names; :func:`wsc` is the port of
+names are the axis names, and :func:`sharding_of` reads a DTensor's
+back as a :class:`NamedSharding` (a mesh and a spec, as JAX's
+``NamedSharding`` is); :func:`wsc` is the port of
 ``jax.lax.with_sharding_constraint``: a DTensor is redistributed to the
 spec, a plain tensor (one card, no mesh) is returned as it is.
 
@@ -18,6 +20,9 @@ which ``layers.common._WideProduct`` runs on the card) and of
 lays out a first tensor.  Nothing here touches a card.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
 
 import torch
 
@@ -108,6 +113,68 @@ def placements(dmesh, spec: tuple) -> list:
         for m in where:
             out[m] = Shard(dim)
     return out
+
+
+def _axis_sizes(mesh) -> dict:
+    """Axis name -> size of a ``launch.mesh.Mesh`` record or a
+    ``DeviceMesh``."""
+    if hasattr(mesh, "mesh_dim_names"):
+        return dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return mesh.shape
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """One leaf's sharding: a mesh and a spec (a tuple of axis names,
+    None or tuples of axis names, one entry per dim).  The mesh is a
+    ``launch.mesh.Mesh`` record (the dry run's cells) or a
+    ``DeviceMesh`` (a real mesh, on which ``train.checkpoint`` restores
+    a leaf)."""
+
+    mesh: Any
+    spec: tuple
+
+    def shard_shape(self, global_shape) -> tuple:
+        """One chip's shape of a ``global_shape`` array, as
+        ``jax.sharding.NamedSharding.shard_shape`` gives it: each dim
+        divided by the product of its axes' sizes, which must divide
+        it."""
+        sizes = _axis_sizes(self.mesh)
+        out = []
+        for dim, size in enumerate(global_shape):
+            entry = self.spec[dim] if dim < len(self.spec) else None
+            axes = (() if entry is None else
+                    (entry,) if isinstance(entry, str) else entry)
+            ways = 1
+            for a in axes:
+                ways *= sizes[a]
+            if size % ways:
+                raise ValueError(
+                    f"shard_shape: axis {dim} of {tuple(global_shape)} is "
+                    f"split {ways} ways by {self.spec}, which does not "
+                    "divide it")
+            out.append(size // ways)
+        return tuple(out)
+
+
+def sharding_of(t) -> NamedSharding | None:
+    """The :class:`NamedSharding` of a DTensor on its own mesh, the
+    inverse of :func:`placements`: tensor dim ``d``'s entry names the
+    mesh dims that are ``Shard(d)``, in mesh order.  None for a plain
+    tensor; a partial sum has no spec and raises."""
+    if not is_dtensor(t):
+        return None
+    names = tuple(t.device_mesh.mesh_dim_names)
+    axes = [[] for _ in range(t.ndim)]
+    for name, p in zip(names, t.placements):
+        if p.is_partial():
+            raise ValueError(f"sharding_of: {t.placements} holds a "
+                             "partial sum, which no spec describes")
+        if p.is_shard():
+            axes[p.dim].append(name)
+    spec = tuple(None if not a else a[0] if len(a) == 1 else tuple(a)
+                 for a in axes)
+    return NamedSharding(t.device_mesh, spec)
 
 
 class _Constrain(torch.autograd.Function):

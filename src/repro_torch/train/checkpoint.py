@@ -21,8 +21,25 @@ an ``ml_dtypes.bfloat16`` array stores the raw 2-byte values under the
 are read back as bf16.  That is a deliberate divergence: the JAX
 package's ``restore`` calls ``astype("bfloat16")`` on the ``V2`` array,
 which raises, so it cannot restore a bf16 leaf (ROADMAP, Queue 3
-watch-list).  ``restore`` takes the device to place leaves on where the
-JAX package takes shardings: one card has no mesh.
+watch-list).
+
+Sharded state, as the JAX package's checkpoints hold it (a logical
+tree, restored onto any mesh):
+
+* ``save`` gathers each DTensor leaf whole on every rank
+  (``full_tensor``), as ``np.asarray`` gathers a sharded ``jax.Array``,
+  so a sharded tree writes the bytes an unsharded one of the same
+  values writes.  Only rank 0 of the default process group writes;
+  ``wait()`` and a blocking ``save`` end in a barrier, so no rank reads
+  a checkpoint before it is whole.  Without a process group nothing of
+  this happens.
+* ``restore(step, like, shardings=)`` takes a tree shaped like ``like``
+  with a ``layers.sharding.NamedSharding`` (or None) at each leaf, as
+  the JAX package's takes a pytree of ``NamedSharding``
+  (``configs.common.named(mesh, param_specs(cfg))`` makes one): each
+  rank reads the whole leaf and keeps its own shard, with no
+  collective, so a checkpoint saved on one mesh restores onto any
+  other, or onto no mesh (elastic restore).
 
 Tensors are copied to the host when ``save`` is called, before it
 returns: the optimizer updates them in place afterwards.
@@ -38,7 +55,10 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..launch.mesh import process_mesh
+from ..layers.sharding import is_dtensor, placements
 from .tree import flatten_with_paths, unflatten
 
 #: the header descriptor ``np.save`` gives an ``ml_dtypes.bfloat16`` array
@@ -77,17 +97,43 @@ def _read_leaf(path: str, dtype: str) -> torch.Tensor:
     return torch.from_numpy(np.array(arr.astype(dtype)))
 
 
+def _writes() -> bool:
+    """Whether this process writes checkpoint files: rank 0 of the
+    default process group, or a process without one."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    """Every rank of the default process group waits for the others;
+    nothing without a group."""
+    if not dist.is_initialized():
+        return
+    if dist.get_backend() == "nccl":
+        dist.barrier(device_ids=[torch.cuda.current_device()])
+    else:
+        dist.barrier()
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3):
         self.dir = directory
         self.keep = keep
         os.makedirs(directory, exist_ok=True)
         self._thread: threading.Thread | None = None
+        # a save whose closing barrier is still to come (every rank)
+        self._pending = False
 
     # -- save ----------------------------------------------------------------
     def save(self, step: int, tree: Any, blocking: bool = False) -> None:
         paths, leaves = flatten_with_paths(tree)
-        host = [_host(leaf) for leaf in leaves]
+        writer = _writes()
+        host = []
+        for leaf in leaves:
+            # a collective: every rank gathers the same leaves in order
+            if is_dtensor(leaf):
+                leaf = leaf.detach().full_tensor()
+            if writer:
+                host.append(_host(leaf))
 
         def _write():
             tmp = os.path.join(self.dir, f".tmp-{step}")
@@ -111,15 +157,24 @@ class CheckpointManager:
 
         self.wait()
         if blocking:
-            _write()
+            if writer:
+                _write()
+            _barrier()
         else:
-            self._thread = threading.Thread(target=_write, daemon=True)
-            self._thread.start()
+            if writer:
+                self._thread = threading.Thread(target=_write, daemon=True)
+                self._thread.start()
+            self._pending = True
 
     def wait(self) -> None:
+        """Join the background write; with a process group, every rank
+        then waits until it is published."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._pending:
+            self._pending = False
+            _barrier()
 
     def _gc(self) -> None:
         steps = sorted(self.steps())
@@ -156,23 +211,64 @@ class CheckpointManager:
         except (OSError, json.JSONDecodeError, KeyError):
             return False
 
-    def restore(self, step: int, like: Any, device=None) -> Any:
+    def restore(self, step: int, like: Any, shardings: Any = None,
+                device=None) -> Any:
         """Rebuild a tree of ``like``'s structure from checkpoint
-        ``step``: a tensor leaf of ``like`` gives a tensor of its dtype
-        on ``device`` (default: that leaf's device), any other leaf the
-        stored numpy array."""
+        ``step``.  A tensor leaf of ``like`` gives a tensor of its dtype:
+        where ``shardings`` (a tree shaped like ``like``) holds a
+        ``NamedSharding`` for it, a DTensor laid out so on the
+        sharding's mesh (a ``DeviceMesh``, or a ``launch.mesh.Mesh``
+        record made one over the process group by ``process_mesh``),
+        each rank keeping its own shard of the whole leaf it reads;
+        else a plain tensor on ``device`` (default: that leaf's device).
+        Any other leaf gives the stored numpy array."""
         d = os.path.join(self.dir, f"step-{step:08d}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         paths, leaves = flatten_with_paths(like)
         by_path = {l["path"]: l for l in manifest["leaves"]}
+        where = _shardings_by_path(shardings, paths)
+        meshes = {}
         out = []
         for p, leaf in zip(paths, leaves):
             info = by_path[p]
             t = _read_leaf(os.path.join(d, info["file"]), info["dtype"])
-            if isinstance(leaf, torch.Tensor):
+            if not isinstance(leaf, torch.Tensor):
+                out.append(t.numpy())
+                continue
+            sh = where.get(p)
+            if sh is None:
                 out.append(t.to(device=leaf.device if device is None
                                 else device, dtype=leaf.dtype))
-            else:
-                out.append(t.numpy())
+                continue
+            # this rank keeps its own shard of the whole leaf: nothing moves
+            from torch.distributed.tensor import distribute_tensor
+            dm = _device_mesh(sh.mesh, meshes, device or leaf.device)
+            out.append(distribute_tensor(
+                t.to(dtype=leaf.dtype), dm, placements(dm, sh.spec),
+                src_data_rank=None))
         return unflatten(like, out)
+
+
+def _shardings_by_path(shardings, paths) -> dict:
+    """Path -> sharding of each leaf of a ``shardings`` tree (None
+    leaves are empty subtrees, as in JAX); raises on a path that the
+    restored tree does not have."""
+    if shardings is None:
+        return {}
+    spaths, sleaves = flatten_with_paths(shardings)
+    extra = sorted(set(spaths) - set(paths))
+    if extra:
+        raise ValueError(f"restore: shardings for leaves the tree does "
+                         f"not have: {extra[:4]}")
+    return dict(zip(spaths, sleaves))
+
+
+def _device_mesh(mesh, made: dict, device):
+    """The ``DeviceMesh`` a sharding names: itself, or a record placed
+    over the process group on ``device``'s type (one per record)."""
+    if hasattr(mesh, "mesh_dim_names"):
+        return mesh
+    if mesh not in made:
+        made[mesh] = process_mesh(mesh, torch.device(device).type)
+    return made[mesh]

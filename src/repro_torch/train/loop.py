@@ -8,6 +8,13 @@ is eager PyTorch: each microbatch's forward and backward run in turn,
 their float32 gradients are summed, and the optimizer updates the
 parameters in place (``train.optimizer``).  ``Trainer`` runs on
 ``device="cuda"`` unless the caller passes ``"cpu"``.
+
+On a mesh, as the JAX package's ``Trainer`` takes already-sharded
+arrays: params given as DTensors stay laid out as they are, each
+batch's leading axis is split over the mesh's data axes, the metrics are
+read whole, and a resume restores the checkpoint onto the layout of the
+Trainer's own state (``CheckpointManager.restore(..., shardings=)``),
+whatever mesh saved it.
 """
 from __future__ import annotations
 
@@ -19,7 +26,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..layers.sharding import is_dtensor, on_mesh
+from ..layers.sharding import (data_axes, is_dtensor, mesh_of, on_mesh,
+                               placements, sharding_of)
 from .checkpoint import CheckpointManager
 from .optimizer import OptimizerConfig, adamw_update, init_opt_state
 from .tree import leaves as tree_leaves
@@ -114,7 +122,10 @@ class Trainer:
 
     def __post_init__(self):
         self.device = resolve_device(self.device, "Trainer")
-        self.params = tree_map(lambda t: t.to(self.device), self.params)
+        self.params = tree_map(
+            lambda t: t if is_dtensor(t) else t.to(self.device),
+            self.params)
+        self.mesh = mesh_of(*tree_leaves(self.params))
         self.opt_state = init_opt_state(self.params)
         self.step_fn = make_train_step(self.loss_fn, self.opt_cfg,
                                        self.microbatches)
@@ -129,9 +140,10 @@ class Trainer:
         latest = self.ckpt.latest_step()
         if latest is None:
             return 0
-        state = self.ckpt.restore(
-            latest, {"params": self.params, "opt": self.opt_state},
-            device=self.device)
+        like = {"params": self.params, "opt": self.opt_state}
+        state = self.ckpt.restore(latest, like,
+                                  shardings=tree_map(sharding_of, like),
+                                  device=self.device)
         self.params = state["params"]
         self.opt_state = state["opt"]
         self.start_step = latest
@@ -143,12 +155,12 @@ class Trainer:
             self.maybe_resume()
         t0 = time.time()
         for step in range(self.start_step, self.start_step + n_steps):
-            batch = tree_map(lambda x: torch.as_tensor(
-                np.array(x), device=self.device), self.get_batch(step))
+            batch = tree_map(self._put, self.get_batch(step))
             self.params, self.opt_state, metrics = self.step_fn(
                 self.params, self.opt_state, batch)
             if (step + 1) % log_every == 0 or step == self.start_step:
-                m = {k: float(v) for k, v in metrics.items()}
+                m = {k: float(v.full_tensor() if is_dtensor(v) else v)
+                     for k, v in metrics.items()}
                 m["step"] = step + 1
                 m["wall"] = time.time() - t0
                 self.history.append(m)
@@ -158,3 +170,16 @@ class Trainer:
         if self.ckpt:
             self.ckpt.wait()
         return self.history
+
+    def _put(self, x) -> torch.Tensor:
+        """A batch array on the Trainer's device; on a mesh, a DTensor
+        whose leading axis is split over the data axes (each rank keeps
+        its rows of the whole array), as the step's microbatches cut it."""
+        t = torch.as_tensor(np.array(x), device=self.device)
+        if self.mesh is None:
+            return t
+        from torch.distributed.tensor import distribute_tensor
+        spec = (data_axes(self.mesh),) if t.ndim else ()
+        return distribute_tensor(t, self.mesh,
+                                 placements(self.mesh, spec),
+                                 src_data_rank=None)

@@ -108,11 +108,11 @@ def adamw_update(params, grads, state: dict, cfg: OptimizerConfig):
     bc1 = 1 - (one * cfg.b1) ** stepf
     bc2 = 1 - (one * cfg.b2) ** stepf
     with torch.no_grad():
-        if is_dtensor(scale):
-            # on a mesh: each chip updates its shard of every leaf with
-            # the gradient laid out as the leaf is
-            scale, lr, bc1, bc2 = (t.full_tensor()
-                                   for t in (scale, lr, bc1, bc2))
+        # on a mesh: each chip updates its shard of every leaf with the
+        # gradient laid out as the leaf is, and the scalars whole (the
+        # step is a DTensor or, as ``init_opt_state`` makes it, plain)
+        scale, lr, bc1, bc2 = (t.full_tensor() if is_dtensor(t) else t
+                               for t in (scale, lr, bc1, bc2))
         for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                               tree_leaves(state["m"]),
                               tree_leaves(state["v"])):
