@@ -64,7 +64,10 @@ class GraphDB:
         return int(math.ceil(math.log2(max(2, self.max_degree)))) + 1
 
     def _put(self, a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
-        return torch.as_tensor(a).to(device=self.device, dtype=dtype)
+        # lazy: repro_torch.obs imports this module through obs.explain
+        from ..obs.trace import span
+        with span("graph.copy"):
+            return torch.as_tensor(a).to(device=self.device, dtype=dtype)
 
     def _build(self, key: str) -> torch.Tensor:
         if key == "indptr":
@@ -91,13 +94,19 @@ class GraphDB:
         """The device tensor for ``key`` (``indptr``, ``indices``,
         ``src_ids``, ``summary:<s>``, ``bitmap:<u>``), built on first
         use.  Several threads may ask at once (the partitioned join's
-        workers): a tensor is built once."""
+        workers): a tensor is built once.  A build is the ``graph.build``
+        span of the process span log, its copy to the device the
+        ``graph.copy`` span inside it."""
         v = self._dev.get(key)
         if v is None:
+            from ..obs.trace import span
             with _BUILD_LOCK:
                 v = self._dev.get(key)
                 if v is None:
-                    v = self._dev[key] = self._build(key)
+                    with span("graph.build", key=key) as rec:
+                        v = self._dev[key] = self._build(key)
+                        if rec is not None:
+                            rec.attrs["bytes"] = v.numel() * v.element_size()
         return v
 
     def device_bytes(self) -> int:

@@ -24,6 +24,13 @@ Export: :meth:`QueryTrace.to_jsonl` renders the trace as one JSON object
 per line (header, level records, events, spans, summary) so benches and
 CI can diff runs; :meth:`QueryTrace.from_jsonl` round-trips it.  The
 line schema is documented in ``docs/OBSERVABILITY.md``.
+
+Beside the per-request trace sits the **process span log**
+(:class:`SpanLog`, :func:`span`): named host intervals inside the query
+server, the scheduler and ``GraphDB`` on ``time.perf_counter_ns``'s
+clock, the clock a device trace can be mapped onto.  It is off unless a
+caller opens a log; a closed log costs each :func:`span` call one global
+read.  Its records never enter a :class:`QueryTrace`.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ import contextlib
 import contextvars
 import json
 import math
+import threading
 import time
 
 #: JSONL schema version stamped into every trace header.
@@ -283,3 +291,135 @@ class NullTrace:
 
 
 NULL_TRACE = NullTrace()
+
+
+# ---------------------------------------------------------------------------
+# the process span log
+# ---------------------------------------------------------------------------
+
+#: records a :class:`SpanLog` keeps; later spans are dropped and counted
+SPAN_LOG_CAP = 1 << 20
+
+#: the open log, or None (every :func:`span` is then the no-op)
+_SPAN_LOG: "SpanLog | None" = None
+
+
+class SpanRecord:
+    """One span of the process log, and the context manager that times
+    it.  ``start_ns``/``end_ns`` are ``time.perf_counter_ns`` readings
+    (``end_ns`` is None while the span is open); ``parent`` is the
+    ``id`` of the span open around it on the same thread; ``request``
+    is the id given to it or, failing that, its parent's."""
+
+    __slots__ = ("id", "name", "start_ns", "end_ns", "parent", "request",
+                 "attrs", "_log")
+
+    def __init__(self, log: "SpanLog", rid: int, name: str,
+                 request: str | None, attrs: dict):
+        self._log = log
+        self.id = rid
+        self.name = name
+        self.request = request
+        self.attrs = attrs
+        self.parent: int | None = None
+        self.start_ns = 0
+        self.end_ns: int | None = None
+
+    def __enter__(self) -> "SpanRecord":
+        stack = self._log._stack()
+        if stack:
+            top = stack[-1]
+            self.parent = top.id
+            if self.request is None:
+                self.request = top.request
+        stack.append(self)
+        self.start_ns = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.end_ns = time.perf_counter_ns()
+        self._log._stack().remove(self)
+
+    def to_dict(self) -> dict:
+        return {"id": self.id, "name": self.name, "start_ns": self.start_ns,
+                "end_ns": self.end_ns, "parent": self.parent,
+                "request": self.request, "attrs": dict(self.attrs)}
+
+
+#: what :func:`span` returns while no log is open (its ``with`` target
+#: is None)
+_NO_SPAN = contextlib.nullcontext()
+
+
+class SpanLog:
+    """The process span log: every :func:`span` entered while it is
+    open, in memory, in the order they were entered.
+
+    Opened and closed by its caller, once::
+
+        log = SpanLog()
+        with log.recording():
+            server.execute(QueryRequest("3-path"))
+        for rec in log.records:
+            print(rec.name, rec.end_ns - rec.start_ns, rec.attrs)
+
+    At most :data:`SPAN_LOG_CAP` records are kept; spans past it are not
+    recorded and are counted in ``dropped``.  One log is open at a
+    time."""
+
+    def __init__(self):
+        self.records: list[SpanRecord] = []
+        self.dropped = 0
+        self._lock = threading.Lock()
+        self._local = threading.local()
+
+    def _stack(self) -> list:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def _record(self, name: str, request: str | None, attrs: dict):
+        with self._lock:
+            if len(self.records) >= SPAN_LOG_CAP:
+                self.dropped += 1
+                return _NO_SPAN
+            rec = SpanRecord(self, len(self.records), name, request, attrs)
+            self.records.append(rec)
+        return rec
+
+    @property
+    def is_open(self) -> bool:
+        return _SPAN_LOG is self
+
+    def open(self) -> "SpanLog":
+        global _SPAN_LOG
+        if _SPAN_LOG is not None and _SPAN_LOG is not self:
+            raise RuntimeError("another SpanLog is open")
+        _SPAN_LOG = self
+        return self
+
+    def close(self) -> None:
+        global _SPAN_LOG
+        if _SPAN_LOG is self:
+            _SPAN_LOG = None
+
+    @contextlib.contextmanager
+    def recording(self):
+        """Open the log for the block's duration."""
+        self.open()
+        try:
+            yield self
+        finally:
+            self.close()
+
+
+def span(name: str, request: str | None = None, **attrs):
+    """``with span("server.plan") as rec:`` — a span of the open
+    :class:`SpanLog`, whose ``rec.attrs`` the block may add to; with no
+    log open, the shared no-op (``rec`` is None) after one global
+    read."""
+    log = _SPAN_LOG
+    if log is None:
+        return _NO_SPAN
+    return log._record(name, request, attrs)

@@ -50,7 +50,7 @@ from ..core import engine as engine_mod
 from ..device import resolve_device
 from ..graphs import CSRGraph, node_sample
 from ..obs import (DeviceProfile, MetricsRegistry, QueryTrace, get_registry,
-                   normalize_engine_stats)
+                   normalize_engine_stats, span)
 from ..results import ResultCursor
 
 
@@ -115,6 +115,8 @@ class QueryResult:
     request: QueryRequest
     count: int
     engine: str
+    #: seconds from submission to the answer, on the monotonic
+    #: ``time.perf_counter`` clock
     latency_s: float
     plan: JoinPlan | None = None
     plan_cached: bool = False
@@ -269,7 +271,7 @@ class QueryServer:
                "query": req.query_name, "tenant": req.tenant,
                "status": "ok" if error is None else "error",
                "latency_s": round((result.latency_s if result is not None
-                                   else time.time() - t0), 6),
+                                   else time.perf_counter() - t0), 6),
                "engine": (result.engine if result is not None
                           else req.engine)}
         if result is not None:
@@ -320,28 +322,38 @@ class QueryServer:
                       req: QueryRequest) -> tuple[int, str, dict]:
         """(count, engine label, normalized engine stats); large graphs
         take the partitioned path."""
-        if self._routes_to_dist(plan, gdb):
-            pj = self._dist_join_for(plan, gdb, req)
-            c = pj.count()
-            self.last_dist_stats = pj.stats
-            label = plan.engine + "+partitioned"
-            return c, label, normalize_engine_stats(label, pj.stats)
-        c, stats = engine_mod.execute_stats(plan, gdb)
-        return c, plan.engine, stats
+        with span("server.execute") as rec:
+            if self._routes_to_dist(plan, gdb):
+                pj = self._dist_join_for(plan, gdb, req)
+                c = pj.count()
+                self.last_dist_stats = pj.stats
+                label = plan.engine + "+partitioned"
+                stats = normalize_engine_stats(label, pj.stats)
+            else:
+                c, stats = engine_mod.execute_stats(plan, gdb)
+                label = plan.engine
+            if rec is not None:
+                rec.attrs["engine"] = label
+                if "spmvs" in stats["raw"]:
+                    rec.attrs["spmvs"] = stats["raw"]["spmvs"]
+        return c, label, stats
 
     def _gdb_for(self, selectivity: float, seed: int) -> GraphDB:
         key = (round(selectivity, 6), seed)
         if key not in self._warm:
-            unary = {f"v{i}": node_sample(self.csr.n_nodes, selectivity,
-                                          seed=seed * 7 + i)
-                     for i in range(1, 5)}
-            self._warm[key] = GraphDB(self.csr, unary, device=self.device)
+            with span("server.sample", selectivity=selectivity, seed=seed):
+                unary = {f"v{i}": node_sample(self.csr.n_nodes, selectivity,
+                                              seed=seed * 7 + i)
+                         for i in range(1, 5)}
+                self._warm[key] = GraphDB(self.csr, unary,
+                                          device=self.device)
         return self._warm[key]
 
     def _stats_for(self, gdb: GraphDB) -> GraphStats:
         key = id(gdb)
         if key not in self._stats:
-            self._stats[key] = GraphStats.of(gdb)
+            with span("server.stats"):
+                self._stats[key] = GraphStats.of(gdb)
         return self._stats[key]
 
     def _plan_for(self, req: QueryRequest, gdb: GraphDB,
@@ -359,12 +371,16 @@ class QueryServer:
         q = get_query(req.query_name)
         stats = self._stats_for(gdb)
         hits_before = self.plan_cache.hits
-        plan = self.plan_cache.get_or_plan(q, stats, req.engine,
-                                           output=output)
-        hit = self.plan_cache.hits > hits_before
+        with span("server.plan") as rec:
+            plan = self.plan_cache.get_or_plan(q, stats, req.engine,
+                                               output=output)
+            hit = self.plan_cache.hits > hits_before
+            if rec is not None:
+                rec.attrs["hit"] = hit
         self.metrics_registry.counter(
             "server_plan_cache", outcome="hit" if hit else "miss").inc()
-        verify_for_execution(plan, gdb)
+        with span("server.verify"):
+            verify_for_execution(plan, gdb)
         return plan, hit
 
     def plan_cache_info(self) -> dict:
@@ -411,9 +427,10 @@ class QueryServer:
         else:
             token = self._register_cursor(cur, label, plan, token=token)
         return QueryResult(req, int(page.shape[0]), label,
-                           time.time() - t0, plan=plan, plan_cached=cached,
-                           rows=page, row_vars=cur.vars, next_cursor=token,
-                           stats=self._result_stats(), profile=prof)
+                           time.perf_counter() - t0, plan=plan,
+                           plan_cached=cached, rows=page, row_vars=cur.vars,
+                           next_cursor=token, stats=self._result_stats(),
+                           profile=prof)
 
     def execute(self, req: QueryRequest) -> QueryResult:
         """Run one request to completion (or to one cursor page).
@@ -448,10 +465,12 @@ class QueryServer:
         :meth:`execute_concurrent` instead — this method runs a single
         request to completion and a heavy one will block the caller.
         """
-        t0 = time.time()
+        t0 = time.perf_counter()
         trace_id = self._next_trace_id()
         try:
-            res = self._execute_impl(req, t0, trace_id)
+            with span("server.request", request=trace_id,
+                      query=req.query_name):
+                res = self._execute_impl(req, t0, trace_id)
         except Exception as e:
             self._log_request(trace_id, req, t0, error=e)
             raise
@@ -505,12 +524,12 @@ class QueryServer:
                 prof.set_meta(engine=label, tenant=req.tenant,
                               trace_id=trace_id)
                 prof.publish(trace=tr, registry=self.metrics_registry)
-            return QueryResult(req, c, label, time.time() - t0,
+            return QueryResult(req, c, label, time.perf_counter() - t0,
                                plan=plan, plan_cached=cached,
                                stats=self._result_stats(estats), trace=tr,
                                profile=prof)
         c, label, estats = self._execute_plan(plan, gdb, req)
-        return QueryResult(req, c, label, time.time() - t0,
+        return QueryResult(req, c, label, time.perf_counter() - t0,
                            plan=plan, plan_cached=cached,
                            stats=self._result_stats(estats))
 
@@ -569,17 +588,18 @@ class QueryServer:
                 continue
             sel = req.selectivity or self.default_selectivity
             gdb = self._gdb_for(sel, req.seed)
-            t0 = time.time()
+            t0 = time.perf_counter()
             plan, cached = self._plan_for(
                 req, gdb, output="rows" if req.wants_rows else "count")
-            prepared.append((i, plan, cached, gdb, time.time() - t0))
+            prepared.append((i, plan, cached, gdb,
+                             time.perf_counter() - t0))
         # same-plan requests become adjacent; ties keep graph groups warm
         groups: dict[tuple, list] = {}
         for item in prepared:
             groups.setdefault((item[1], id(item[3])), []).append(item)
         for (_plan, _gid), items in groups.items():
             for i, plan, cached, gdb, plan_s in items:
-                t0 = time.time()
+                t0 = time.perf_counter()
                 if reqs[i].wants_rows:
                     cur, label = self._open_cursor(plan, gdb, reqs[i])
                     results[i] = self._rows_result(
@@ -589,7 +609,8 @@ class QueryServer:
                 c, label, estats = self._execute_plan(plan, gdb, reqs[i])
                 # latency_s matches execute(): planning share + execution
                 results[i] = QueryResult(
-                    reqs[i], c, label, plan_s + time.time() - t0,
+                    reqs[i], c, label,
+                    plan_s + time.perf_counter() - t0,
                     plan=plan, plan_cached=cached,
                     stats=self._result_stats(estats))
         return results  # type: ignore
@@ -639,7 +660,5 @@ class QueryServer:
                     req, 0, "rejected", 0.0,
                     stats={"status": e.status, "error": str(e)})
         sched.run()
-        done = {j.token: j.result for j in sched._jobs
-                if j.result is not None}
-        return [rejected[i] if tok == "" else done[tok]
+        return [rejected[i] if tok == "" else sched.result(tok)
                 for i, tok in enumerate(order)]

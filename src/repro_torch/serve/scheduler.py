@@ -53,7 +53,7 @@ import numpy as np
 
 from ..core import VLFTJ, get_query
 from ..core.plan import pow2ceil
-from ..obs import DeviceProfile, QueryTrace
+from ..obs import DeviceProfile, QueryTrace, span
 from ..results import ResultCursor
 from .query_server import QueryRequest, QueryResult, QueryServer
 
@@ -220,8 +220,8 @@ class _Job:
     __slots__ = ("id", "token", "req", "tenant", "plan", "gdb", "label",
                  "budget", "executor", "window", "collect_rows", "pages",
                  "rows_collected", "quanta", "preemptions", "restarts",
-                 "parked_nbytes", "t_submit", "vclock_submit", "result",
-                 "seq", "trace", "profile", "quantum_rows_initial")
+                 "parked_nbytes", "t_submit", "t_queued", "vclock_submit",
+                 "result", "seq", "trace", "profile", "quantum_rows_initial")
 
     def __init__(self, jid: int, req: QueryRequest, plan, gdb, label,
                  budget: QuantumBudget, collect_rows: bool, vclock: int):
@@ -242,7 +242,9 @@ class _Job:
         self.preemptions = 0
         self.restarts = 0
         self.parked_nbytes = 0
-        self.t_submit = time.time()
+        # time.perf_counter seconds: at submission, and when the job last
+        # went back into the run queue
+        self.t_submit = self.t_queued = time.perf_counter()
         self.vclock_submit = vclock
         self.result: QueryResult | None = None
         # per-job trace (req.trace): preempt/resume/restart events land
@@ -310,6 +312,7 @@ class QuantumScheduler:
         self.default_quota = default_quota or TenantQuota()
         self._queue: deque[_Job] = deque()
         self._jobs: list[_Job] = []
+        self._by_token: dict[str, _Job] = {}
         self._in_flight: dict[str, int] = {}
         self._seq = 0
         self.vclock = 0   # total rows expanded across all jobs
@@ -358,20 +361,31 @@ class QuantumScheduler:
                 req.tenant,
                 f"parked frontier bytes over "
                 f"max_frontier_bytes={quota.max_frontier_bytes}")
-        sel = req.selectivity or self.server.default_selectivity
-        gdb = self.server._gdb_for(sel, req.seed)
-        output = "rows" if req.limit is not None else "count"
-        plan, _cached = self.server._plan_for(req, gdb, output=output)
-        budget = QuantumBudget(
-            None if self.policy == "fifo" else self.quantum_rows,
-            req.query_name, plan.gao, inner=plan.level_callback)
-        self._seq += 1
-        job = _Job(self._seq, req, plan, gdb, plan.engine, budget,
-                   collect_rows, self.vclock)
-        self._jobs.append(job)
-        self._queue.append(job)
-        self._in_flight[req.tenant] = self._in_flight.get(req.tenant, 0) + 1
+        with span("sched.submit", request=f"sched-{self._seq + 1}",
+                  tenant=req.tenant, query=req.query_name):
+            sel = req.selectivity or self.server.default_selectivity
+            gdb = self.server._gdb_for(sel, req.seed)
+            output = "rows" if req.limit is not None else "count"
+            plan, _cached = self.server._plan_for(req, gdb, output=output)
+            budget = QuantumBudget(
+                None if self.policy == "fifo" else self.quantum_rows,
+                req.query_name, plan.gao, inner=plan.level_callback)
+            self._seq += 1
+            job = _Job(self._seq, req, plan, gdb, plan.engine, budget,
+                       collect_rows, self.vclock)
+            self._jobs.append(job)
+            self._by_token[job.token] = job
+            self._queue.append(job)
+            self._in_flight[req.tenant] = \
+                self._in_flight.get(req.tenant, 0) + 1
         return job.token
+
+    def result(self, token: str) -> QueryResult | None:
+        """The :class:`QueryResult` of the job ``submit`` returned
+        ``token`` for; None while it is still queued or running, and for
+        a token this scheduler never issued."""
+        job = self._by_token.get(token)
+        return None if job is None else job.result
 
     # -- parking -------------------------------------------------------------
     def _park(self, job: _Job, payload) -> None:
@@ -476,7 +490,7 @@ class QuantumScheduler:
             job.profile.publish(trace=trace,
                                 registry=self.server.metrics_registry)
         job.result = QueryResult(
-            job.req, count, job.label, time.time() - job.t_submit,
+            job.req, count, job.label, time.perf_counter() - job.t_submit,
             plan=job.plan, rows=rows,
             row_vars=job.plan.gao if rows is not None else None,
             next_cursor=next_cursor, trace=trace, profile=job.profile,
@@ -496,7 +510,7 @@ class QuantumScheduler:
         self._in_flight[job.tenant] -= 1
         self.stats["rejected"] += 1
         job.result = QueryResult(
-            job.req, 0, "rejected", time.time() - job.t_submit,
+            job.req, 0, "rejected", time.perf_counter() - job.t_submit,
             plan=job.plan,
             stats={"status": 429, "error": reason, "quanta": job.quanta,
                    "vclock_submit": job.vclock_submit,
@@ -515,6 +529,15 @@ class QuantumScheduler:
         if job.result is not None:     # failed while parked (quota)
             return True
         job.quanta += 1
+        with span("sched.quantum", request=job.token,
+                  quantum=job.quanta) as rec:
+            if rec is not None:
+                rec.attrs["waited_ms"] = \
+                    rec.start_ns / 1e6 - job.t_queued * 1e3
+            self._quantum(job)
+        return True
+
+    def _quantum(self, job: _Job) -> None:
         self.stats["quanta"] += 1
         self.server.metrics_registry.counter("scheduler_quanta").inc()
         job.budget.refill()
@@ -551,8 +574,8 @@ class QuantumScheduler:
             # added to the vclock here, after _finish already ran
             job.result.stats["vclock_done"] = self.vclock
         if not done and job.result is None:
+            job.t_queued = time.perf_counter()
             self._queue.append(job)
-        return True
 
     def run(self) -> list[QueryResult]:
         """Drain the queue; results in submission order (rejected jobs
