@@ -7,6 +7,13 @@ domain.  Every device tensor lives on ``gdb.device``, which defaults to
 rather than landing on the CPU.  Pass ``device="cpu"`` to run the plain
 PyTorch path.
 
+The edge tensors (``indptr``, ``indices``, ``src_ids``, ``summary:<s>``)
+depend on the CSR alone, the ``bitmap:<u>`` tensors on the unary sets.
+A ``GraphDB`` given ``edges=`` (another ``GraphDB`` over the same CSR
+object on the same device) takes every key but a bitmap from it, so
+many samples of one resident graph hold one copy of its edges: the
+query server's warm graphs share the server's.
+
 :class:`HybridGraphDB` adds the degree-adaptive layout
 (``graphs/layout.py``): vertices renumbered by descending degree, hub
 neighborhoods also packed as bitset rows, and per-vertex representation
@@ -44,12 +51,23 @@ class GraphDB:
     csr: CSRGraph
     unary: dict[str, np.ndarray] = field(default_factory=dict)
     device: torch.device | str = "cuda"
+    #: the ``GraphDB`` whose edge tensors this one shares (every key but
+    #: ``bitmap:<u>``); None builds its own
+    edges: GraphDB | None = field(default=None, repr=False, compare=False)
 
     # device tensors, built lazily
     _dev: dict = field(default_factory=dict, repr=False)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        if self.edges is not None:
+            if self.edges.csr is not self.csr:
+                raise ValueError("edges= holds another CSR: a GraphDB "
+                                 "shares the edge tensors of its own CSR "
+                                 "only")
+            if self.edges.device != self.device:
+                raise ValueError(f"edges= lives on {self.edges.device}, "
+                                 f"this GraphDB on {self.device}")
 
     @property
     def n_nodes(self) -> int:
@@ -96,9 +114,14 @@ class GraphDB:
         use.  Several threads may ask at once (the partitioned join's
         workers): a tensor is built once.  A build is the ``graph.build``
         span of the process span log, its copy to the device the
-        ``graph.copy`` span inside it."""
+        ``graph.copy`` span inside it.  With ``edges`` set, every key but
+        a bitmap is ``edges.dev(key)``."""
         v = self._dev.get(key)
         if v is None:
+            if self.edges is not None and not key.startswith("bitmap:"):
+                # before the lock: edges.dev takes it, and it is not
+                # reentrant
+                return self.edges.dev(key)
             from ..obs.trace import span
             with _BUILD_LOCK:
                 v = self._dev.get(key)
@@ -110,7 +133,8 @@ class GraphDB:
         return v
 
     def device_bytes(self) -> int:
-        """Bytes of the device tensors built so far."""
+        """Bytes of the device tensors built so far by this db, not
+        those it shares through ``edges``."""
         return sum(t.numel() * t.element_size() for t in self._dev.values())
 
     def to_database(self) -> Database:

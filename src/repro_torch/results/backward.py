@@ -51,7 +51,7 @@ def _restricted(query: Query, gdb: GraphDB,
         unary[name] = np.asarray(ids)
         atoms.append(Atom(name, (var,)))
     q2 = Query(tuple(atoms), query.filters, f"{query.name}+{tag}")
-    return q2, GraphDB(gdb.csr, unary, device=gdb.device,
+    return q2, GraphDB(gdb.csr, unary, device=gdb.device, edges=gdb.edges,
                        _dev=dict(gdb._dev))
 
 

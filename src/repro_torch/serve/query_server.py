@@ -170,6 +170,10 @@ class QueryServer:
         self.metrics_registry = metrics if metrics is not None \
             else get_registry()
         self.default_selectivity = default_selectivity
+        # the edge tensors (indptr, indices, src_ids, summaries) depend on
+        # the CSR alone: built once, on a warm graph's first engine call,
+        # and shared by every warm graph, which builds only its bitmaps
+        self._edges = GraphDB(self.csr, {}, device=self.device)
         self._warm: dict = {}
         self._stats: dict = {}
         self.plan_cache = PlanCache(maxsize=plan_cache_size)
@@ -341,12 +345,20 @@ class QueryServer:
     def _gdb_for(self, selectivity: float, seed: int) -> GraphDB:
         key = (round(selectivity, 6), seed)
         if key not in self._warm:
-            with span("server.sample", selectivity=selectivity, seed=seed):
+            # the server builds its one copy of the edge tensors for its
+            # first warm graph (on whichever engine call first reads
+            # them); every later warm graph shares that copy
+            edges = "shared" if self._warm else "built"
+            with span("server.sample", selectivity=selectivity, seed=seed,
+                      edges=edges):
                 unary = {f"v{i}": node_sample(self.csr.n_nodes, selectivity,
                                               seed=seed * 7 + i)
                          for i in range(1, 5)}
                 self._warm[key] = GraphDB(self.csr, unary,
-                                          device=self.device)
+                                          device=self.device,
+                                          edges=self._edges)
+            self.metrics_registry.counter("server_warm_graphs",
+                                          edges=edges).inc()
         return self._warm[key]
 
     def _stats_for(self, gdb: GraphDB) -> GraphStats:

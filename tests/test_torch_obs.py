@@ -451,6 +451,9 @@ def test_server_metrics_endpoint_and_scheduler_quanta(csr200):
         snaps[key], stats[key] = srv.metrics(), dict(sched.stats)
     snap = snaps["t"]
     assert stats["t"] == stats["j"]
+    # the port's server alone counts its warm graphs: one, the first,
+    # whose edge tensors were not on the device yet
+    assert snap.pop("server_warm_graphs{edges=built}") == 1
     assert _counts_only(snap) == _counts_only(snaps["j"])
     assert snap["server_plan_cache{outcome=miss}"] == 1
     assert snap["server_plan_cache{outcome=hit}"] == 2

@@ -1,7 +1,8 @@
 """The port's query server and quantum scheduler (``repro_torch.serve``)
 on the CPU against the JAX package's (``repro.serve``), on the same CSR
 arrays: counts, rows, pages, ``next_cursor`` continuations, the cursor
-registry's eviction, plan-cache counters, the scheduler's quanta,
+registry's eviction, plan-cache counters, the warm graphs' one shared
+copy of the edge tensors, the scheduler's quanta,
 preemptions, rows expanded and virtual clocks under both policies, the
 429 admission and quota cases, and ``PlanSnapshot`` bytes written by one
 package and resumed by the other.
@@ -32,6 +33,7 @@ from repro.serve import TenantQuota as JTenantQuota
 import repro_torch.core as T
 from repro_torch.core import engine as t_engine
 from repro_torch.graphs import CSRGraph
+from repro_torch.obs import MetricsRegistry
 from repro_torch.results import ResultCursor
 from repro_torch.serve import (AdmissionError, PlanSnapshot, Preempted,
                                QuantumBudget, QuantumScheduler, QueryRequest,
@@ -779,3 +781,67 @@ def test_server_graphs_live_on_its_device(csr300):
     assert gdb.device == torch.device("cpu")
     assert gdb.dev("indices").device.type == "cpu"
     assert srv._gdb_for(8, 0) is gdb          # warm: built once
+
+
+# ---------------------------------------------------------------------------
+# warm graphs share the server's edge tensors
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", TIER1_SHAPES)
+def test_two_samples_share_the_edge_tensors(twin, shape):
+    """Two samples of one server: one copy of ``indptr``, ``indices`` and
+    ``src_ids``, a bitmap each, the counts of the JAX server on both,
+    and ``server_warm_graphs`` counts the first built, the second
+    shared."""
+    twin.t.metrics_registry = MetricsRegistry()
+    for seed in (0, 1):
+        jr, tr = twin.req(shape, selectivity=8, seed=seed)
+        want, got = twin.j.execute(jr), twin.t.execute(tr)
+        assert (got.count, got.engine) == (want.count, want.engine)
+    (_, a), (_, b) = twin.gdbs(0, 8), twin.gdbs(1, 8)
+    assert a.edges is b.edges is twin.t._edges
+    for key in ("indptr", "indices", "src_ids"):
+        assert a.dev(key).data_ptr() == b.dev(key).data_ptr()
+    assert a.dev("bitmap:v1").data_ptr() != b.dev("bitmap:v1").data_ptr()
+    assert not torch.equal(a.dev("bitmap:v1"), b.dev("bitmap:v1"))
+    for gdb in (a, b):
+        assert gdb._dev and all(k.startswith("bitmap:") for k in gdb._dev)
+    snap = twin.t.metrics()
+    assert snap["server_warm_graphs{edges=built}"] == 1
+    assert snap["server_warm_graphs{edges=shared}"] == 1
+
+
+@pytest.mark.parametrize("shape", TIER1_SHAPES)
+def test_partitioned_route_on_two_samples(csr300, shape):
+    """The partitioned route's worker threads read the shared edge
+    tensors through each sample's warm graph: the JAX server's counts on
+    both samples, and the port's own vlftj on a db that builds its own."""
+    twin = Twin(csr300, dist_edge_threshold=1)
+    for seed in (0, 1):
+        jr, tr = twin.req(shape, engine="vlftj", selectivity=8, seed=seed)
+        want, got = twin.j.execute(jr), twin.t.execute(tr)
+        assert got.engine == "vlftj+partitioned"
+        assert got.count == want.count
+        _, t_gdb = twin.gdbs(seed, 8)
+        own = T.GraphDB(t_gdb.csr, t_gdb.unary, device="cpu")
+        assert got.count == T.count(T.get_query(shape), own,
+                                    engine="vlftj")
+    assert len(twin.t._dist_joins) == 2
+
+
+def test_warm_graphs_before_any_engine_call_count_one_build(csr300):
+    """Samples taken before any engine call (a pool warmed in set-up, a
+    burst of fresh submits): the server still builds one copy of the
+    edge tensors, so one warm graph counts ``built``, the rest
+    ``shared``."""
+    srv = QueryServer(_port_csr(csr300), device="cpu",
+                      metrics=MetricsRegistry())
+    gdbs = [srv._gdb_for(8, seed) for seed in range(3)]
+    assert not srv._edges._dev
+    snap = srv.metrics()
+    assert snap["server_warm_graphs{edges=built}"] == 1
+    assert snap["server_warm_graphs{edges=shared}"] == 2
+    for seed in range(3):
+        srv.execute(QueryRequest("3-path", selectivity=8, seed=seed))
+    assert all(g.dev("indices") is srv._edges.dev("indices") for g in gdbs)
+    assert srv.metrics()["server_warm_graphs{edges=built}"] == 1

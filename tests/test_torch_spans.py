@@ -111,7 +111,7 @@ def test_a_fresh_round_has_its_attributes(rounds):
     assert quantum.parent is None and quantum.attrs["quantum"] == 1
     assert quantum.attrs["waited_ms"] >= 0
     (sample,) = _by_name(fresh, "server.sample")
-    assert sample.attrs == {"selectivity": 4, "seed": 3}
+    assert sample.attrs == {"selectivity": 4, "seed": 3, "edges": "built"}
     (plan,) = _by_name(fresh, "server.plan")
     assert plan.attrs == {"hit": False}
     (execute,) = _by_name(fresh, "server.execute")
@@ -132,6 +132,57 @@ def test_a_second_request_on_the_sample_builds_nothing(rounds):
     (plan,) = _by_name(again, "server.plan")
     assert plan.attrs == {"hit": True}
     assert {r.request for r in again} == {second}
+
+
+@pytest.fixture(scope="module")
+def two_samples(csr):
+    """Scheduled rounds on two fresh samples of one server: (records,
+    where the second round starts, the second's token)."""
+    sched = QuantumScheduler(QueryServer(csr, device="cpu"))
+    log = SpanLog()
+    with log.recording():
+        sched.submit(_req(seed=3))
+        assert sched.step()
+        split = len(log.records)
+        second = sched.submit(_req(seed=5))
+        assert sched.step()
+    return log.records, split, second
+
+
+def test_a_second_fresh_sample_builds_only_its_bitmaps(two_samples):
+    records, split, second = two_samples
+    assert {"indices", "src_ids"} <= {
+        b.attrs["key"] for b in _by_name(records[:split], "graph.build")}
+    again = records[split:]
+    (sample,) = _by_name(again, "server.sample")
+    assert sample.attrs == {"selectivity": 4, "seed": 5, "edges": "shared"}
+    assert sample.request == second
+    builds = _by_name(again, "graph.build")
+    assert sorted(b.attrs["key"] for b in builds) == ["bitmap:v1",
+                                                      "bitmap:v2"]
+    for b in builds:
+        assert b.attrs["bytes"] == 200           # a bool a node
+        assert _parent(records, b).name == "server.execute"
+        assert b.request == second
+    assert len(_by_name(again, "graph.copy")) == 2
+
+
+def test_rows_on_a_fresh_sample_build_only_bitmaps(csr):
+    """A page's backward pass restricts the sample's warm graph to the
+    active values: the derived graph shares the server's edge tensors
+    too, so a second sample's page builds bitmaps alone."""
+    server = QueryServer(csr, device="cpu")
+    keys = []
+    for seed in (3, 5):
+        log = SpanLog()
+        with log.recording():
+            res = server.execute(_req(seed=seed, limit=10))
+        assert res.rows.shape == (10, 4)
+        keys.append({r.attrs["key"] for r in _by_name(log.records,
+                                                      "graph.build")})
+    assert {"indptr", "indices", "src_ids"} <= keys[0]
+    assert keys[1] and all(k.startswith("bitmap:") for k in keys[1])
+    assert "bitmap:__act_a" in keys[1]
 
 
 def test_the_scheduler_looks_a_result_up_by_its_token(csr):
